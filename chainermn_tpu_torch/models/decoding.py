@@ -1,0 +1,254 @@
+"""Greedy autoregressive decoding with a KV cache for the flagship
+transformer, on one device.
+
+Counterpart of ``make_generate_fn`` in ``chainermn_tpu/models/decoding.py``
+at a trivial mesh, with the same semantics step for step:
+
+- the KV cache holds ``max_len`` slots at the shared (GQA) head width in
+  the compute dtype; the port writes it in place;
+- prefill runs prompt positions ``0..P-2`` as ONE chunk, attending the
+  chunk's own K/V through plain ``local_attention`` (it is XLA in the
+  reference, not the flash kernel); left-padded prompts take the
+  cache-attending path instead, with per-row validity and per-row
+  positions;
+- token steps start at the last prompt position ``P-1``; each attends
+  the whole cache with later slots masked, and the head is a full fp32
+  product over the last position;
+- ``eos_id >= 0`` freezes a row after it emits eos (later slots get
+  ``pad_id``) and stops once every row is done.
+
+Sampling (``temperature > 0``), int8 weights and int8 KV cache, and
+sequence/pipeline-sharded decoding come in later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from chainermn_tpu_torch._device import resolve_device
+from chainermn_tpu_torch.parallel.ring_attention import (
+    _NEG,
+    _pv_mix,
+    _qk_scores,
+    local_attention,
+)
+from chainermn_tpu_torch.parallel.tensor import (
+    column_parallel_dense,
+    row_parallel_dense,
+)
+
+from .transformer import (
+    TransformerConfig,
+    _check_ported,
+    _layer,
+    _rms_norm,
+    apply_rope,
+)
+
+__all__ = ["make_generate_fn"]
+
+
+def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int,
+                  chunk_attends_cache: bool = False, pos_offset=None):
+    """One block for a chunk of new tokens ``h`` (B, Tq, D) whose first
+    token sits at position ``pos``.  ``ck``/``cv`` are this layer's
+    (B, max_len, Hkv, Dh) cache, written in place at ``pos``."""
+    cd = cfg.compute_dtype
+    x = _rms_norm(h, blk["ln1"])
+    B, Tq, D = x.shape
+    Tl = ck.shape[1]
+    if "wqkv" in blk:
+        H = blk["wqkv"].shape[2]
+        qkv = column_parallel_dense(x, blk["wqkv"].reshape(D, -1).to(cd))
+        qkv = qkv.reshape(B, Tq, 3, H, cfg.d_head)
+        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        H = blk["wq"].shape[1]
+        Hkv = blk["wkv"].shape[2]
+        q = column_parallel_dense(x, blk["wq"].reshape(D, -1).to(cd)
+                                  ).reshape(B, Tq, H, cfg.d_head)
+        kv = column_parallel_dense(x, blk["wkv"].reshape(D, -1).to(cd)
+                                   ).reshape(B, Tq, 2, Hkv, cfg.d_head)
+        k_new, v_new = kv[:, :, 0], kv[:, :, 1]
+    qpos = pos + torch.arange(Tq, device=x.device)             # (Tq,)
+    if cfg.pos_embedding == "rope":
+        # left-padded rows: slot s holds the row's token number s - offset
+        rpos = qpos if pos_offset is None else (
+            qpos[None, :] - pos_offset[:, None]).clamp_min(0)
+        q = apply_rope(q, rpos, cfg.rope_theta)
+        k_new = apply_rope(k_new, rpos, cfg.rope_theta)
+    ck[:, pos:pos + Tq] = k_new
+    cv[:, pos:pos + Tq] = v_new
+    if Tq > 1 and not chunk_attends_cache:
+        # prefill at pos 0: the chunk's own K/V are all it may attend
+        o = local_attention(q, k_new, v_new, causal=True,
+                            window=cfg.attention_window or None)
+    else:
+        s = _qk_scores(q, ck) * (cfg.d_head ** -0.5)           # (B,H,Tq,Tl)
+        kpos = torch.arange(Tl, device=x.device)
+        allow = kpos[None, :] <= qpos[:, None]                 # (Tq, Tl)
+        if cfg.attention_window:
+            allow &= (qpos[:, None] - kpos[None, :]) < cfg.attention_window
+        if pos_offset is not None:
+            # per-row validity: slots before a row's first real token
+            # hold pad K/V that no query may attend
+            allow = allow[None] & (
+                kpos[None, None, :] >= pos_offset[:, None, None])
+            s = s.masked_fill(~allow[:, None], _NEG)
+        else:
+            s = s.masked_fill(~allow, _NEG)
+        o = _pv_mix(torch.softmax(s, dim=-1), cv).transpose(1, 2)
+    h = h + row_parallel_dense(
+        o.reshape(B, Tq, -1), blk["wo"].reshape(-1, D).to(cd))
+    x = _rms_norm(h, blk["ln2"])
+    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd)))
+    return h + row_parallel_dense(y, blk["w2"].to(cd))
+
+
+def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
+                 with_logits: bool = True, chunk_attends_cache=False,
+                 pos_offset=None):
+    """Next-token fp32 logits (B, V) for ``tok`` — (B,) in the generation
+    loop, or a (B, Tq) chunk starting at ``pos`` for prefill
+    (``with_logits=False`` then skips the head).  ``caches`` is the
+    ``(ck, cv)`` pair of (L, B, max_len, Hkv, Dh) buffers."""
+    cd = cfg.compute_dtype
+    Tq = tok.shape[1] if tok.dim() == 2 else 1
+    h = params["embed"][tok].to(cd)                  # (B, D) or (B, Tq, D)
+    if tok.dim() == 1:
+        h = h[:, None, :]
+    if cfg.pos_embedding == "learned":
+        # per-index clipped gather (pad slots of left-padded rows clip
+        # to 0; attention masks them out)
+        idx = pos + torch.arange(Tq, device=h.device)
+        if pos_offset is not None:
+            idx = idx[None, :] - pos_offset[:, None]
+        rows = params["pos"][idx.clamp(0, params["pos"].shape[0] - 1)]
+        h = h + (rows if pos_offset is not None else rows[None]).to(cd)
+    h = h.to(cd)
+    ck, cv = caches
+    for i in range(cfg.n_layers):
+        h = _decode_block(cfg, h, _layer(params, i), ck[i], cv[i], pos,
+                          chunk_attends_cache=chunk_attends_cache,
+                          pos_offset=pos_offset)
+    if not with_logits:
+        return None
+    # the decode head is a full fp32 product over the last position
+    hN = _rms_norm(h[:, -1:], params["ln_f"])
+    return (hN.float() @ params["embed"].float().T)[:, 0]
+
+
+def _validate_prompt_lens(prompt, prompt_lens):
+    P = prompt.shape[1]
+    lens = np.asarray(torch.as_tensor(prompt_lens).cpu())
+    if lens.shape != (prompt.shape[0],) \
+            or (lens < 1).any() or (lens > P).any():
+        raise ValueError(
+            f"prompt_lens must be ({prompt.shape[0]},) ints in [1, {P}] "
+            f"(rows RIGHT-aligned: real tokens are prompt[b, P-lens[b]:]), "
+            f"got {lens}")
+    return torch.as_tensor(lens, dtype=torch.int64, device=prompt.device)
+
+
+def _validate_eos_pad(cfg: TransformerConfig, eos_id: int, pad_id: int):
+    if eos_id >= cfg.vocab_size or (eos_id >= 0
+                                    and not 0 <= pad_id < cfg.vocab_size):
+        raise ValueError(
+            f"eos_id={eos_id} / pad_id={pad_id} must be < vocab_size "
+            f"{cfg.vocab_size} (pad in range when eos is enabled)")
+
+
+def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
+                     temperature: float = 0.0, eos_id: int = -1,
+                     pad_id: int = 0, quantized: bool = False,
+                     with_row_state: bool = False,
+                     with_logits: bool = False, device=None):
+    """Build ``generate(params, prompt, prompt_lens=None) -> (B, max_len)``
+    int32 tokens: greedy decoding, the JAX package's contract.
+
+    ``prompt`` (B, P) fills positions ``0..P-1``; generation fills
+    ``P..max_len-1``.  Variable-length prompts are RIGHT-aligned (real
+    tokens at ``prompt[b, P-lens[b]:]``) with ``prompt_lens`` (B,).
+    ``with_row_state=True`` returns ``(tokens, done, gen_len)``: rows that
+    stopped on ``eos_id`` and each row's generated-token count (eos
+    included, padding excluded).  ``with_logits=True`` appends the fp32
+    logits of every step, ``(B, steps, V)``; step ``i`` predicts position
+    ``P + i``.  Runs on ``device`` (CUDA unless ``"cpu"`` is named) under
+    ``torch.inference_mode()``."""
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "temperature sampling is not ported yet; it comes with the "
+            "serving slice (ROADMAP Queue A item 12)")
+    if quantized:
+        raise NotImplementedError(
+            "int8 weights are not ported yet; they come with the "
+            "quantization slice (ROADMAP Queue A item 9)")
+    dev = resolve_device(device)
+    _check_ported(cfg, decoding=True)
+    if cfg.fsdp:
+        raise ValueError(
+            "fsdp is a training-path layout; decode with "
+            "dataclasses.replace(cfg, fsdp=False, fsdp_wire_dtype='')")
+    _validate_eos_pad(cfg, eos_id, pad_id)
+    max_len = max_len or cfg.max_seq
+    if max_len > cfg.max_seq:
+        raise ValueError(
+            f"max_len {max_len} exceeds cfg.max_seq {cfg.max_seq}")
+
+    def run(params, prompt, offsets):
+        B, P = prompt.shape
+        cd = cfg.compute_dtype
+        cache = torch.zeros((2, cfg.n_layers, B, max_len, cfg.kv_heads,
+                             cfg.d_head), dtype=cd, device=dev)
+        caches = (cache[0], cache[1])
+        # with eos the loop can stop early: seed with pad so the unwritten
+        # tail reads as padding
+        buf = torch.full((B, max_len), max(pad_id, 0) if eos_id >= 0
+                         else 0, dtype=torch.int32, device=dev)
+        buf[:, :P] = prompt
+        if P > 1:
+            _decode_step(cfg, params, caches, prompt[:, :P - 1], 0,
+                         with_logits=False,
+                         chunk_attends_cache=offsets is not None,
+                         pos_offset=offsets)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        gen_len = torch.full((B,), max_len - P if eos_id < 0 else 0,
+                             dtype=torch.int32, device=dev)
+        steps = []
+        for t in range(P - 1, max_len - 1):
+            if eos_id >= 0:
+                if bool(done.all()):
+                    break
+                gen_len += (~done).to(torch.int32)
+            logits = _decode_step(cfg, params, caches, buf[:, t], t,
+                                  pos_offset=offsets)
+            if with_logits:
+                steps.append(logits)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if eos_id >= 0:
+                # frozen rows emit pad; eos itself is written first
+                nxt = torch.where(done, pad_id, nxt)
+                done |= nxt == eos_id
+            buf[:, t + 1] = nxt
+        out = (buf, done, gen_len) if with_row_state else (buf,)
+        if with_logits:
+            V = cfg.vocab_size
+            out += (torch.stack(steps, dim=1) if steps
+                    else torch.empty((B, 0, V), device=dev),)
+        return out if len(out) > 1 else out[0]
+
+    def generate(params, prompt, prompt_lens=None):
+        prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+        if prompt.dim() != 2 or not 1 <= prompt.shape[1] <= max_len:
+            raise ValueError(
+                f"prompt {tuple(prompt.shape)} must be (B, P) with "
+                f"1 <= P <= max_len {max_len}")
+        offsets = None
+        if prompt_lens is not None:
+            offsets = prompt.shape[1] - _validate_prompt_lens(
+                prompt, prompt_lens)
+        with torch.inference_mode():
+            return run(params, prompt, offsets)
+
+    return generate
