@@ -8,7 +8,8 @@
 Dh)`` (GQA/MQA), ``w1 (D, F)``, ``w2 (F, D)``.  :func:`params_from_jax`
 takes that tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
 checks every shape, squeezes the pipe axis and returns a dict of fp32
-tensors with the same names, blocks stacked ``(L, ...)``.
+tensors with the same names, blocks stacked ``(L, ...)``;
+:func:`params_to_numpy` is its inverse.
 
 It needs numpy only, so :func:`init_numpy_params` can make seeded weights
 in the same layout (and at the same scales as ``init_transformer``) on a
@@ -24,7 +25,7 @@ from chainermn_tpu_torch._device import resolve_device
 
 from .transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "init_numpy_params"]
+__all__ = ["params_from_jax", "params_to_numpy", "init_numpy_params"]
 
 
 def _block_shapes(cfg: TransformerConfig) -> dict:
@@ -87,6 +88,36 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None) -> dict:
     out["blocks"] = {
         name: leaf(f"blocks/{name}", tree["blocks"][name],
                    (1, L, *shape))[0]
+        for name, (shape, _) in want_blocks.items()}
+    return out
+
+
+def params_to_numpy(params, cfg: TransformerConfig) -> dict:
+    """The inverse of :func:`params_from_jax`: a port tree (parameters,
+    or gradients in their structure) as fp32 numpy leaves in the JAX
+    package's layout, the ``(pipe=1, ...)`` axis re-added to the blocks,
+    so it compares leaf by leaf with the JAX tree."""
+    _check_config(cfg)
+    want_top, want_blocks = _top_shapes(cfg), _block_shapes(cfg)
+    if set(params) != set(want_top) | {"blocks"} \
+            or set(params["blocks"]) != set(want_blocks):
+        raise ValueError(f"params {sorted(params)} / blocks "
+                         f"{sorted(params['blocks'])} do not match this "
+                         "config")
+
+    def leaf(name, t, shape):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"param {name!r} has shape "
+                             f"{tuple(t.shape)}, config wants {shape}")
+        # a copy: the train step updates the tensors in place
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    out = {name: leaf(name, params[name], shape)
+           for name, shape in want_top.items()}
+    L = cfg.n_layers
+    out["blocks"] = {
+        name: leaf(f"blocks/{name}", params["blocks"][name],
+                   (L, *shape))[None]
         for name, (shape, _) in want_blocks.items()}
     return out
 

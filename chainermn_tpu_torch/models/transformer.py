@@ -1,5 +1,5 @@
-"""The flagship decoder-only transformer's inference forward, on one
-device.
+"""The flagship decoder-only transformer on one device: the scoring
+forward and training.
 
 Counterpart of ``chainermn_tpu/models/transformer.py`` at a trivial mesh
 (every axis of size 1): the same config, the same parameter layout (with
@@ -11,14 +11,20 @@ precision:
 - :func:`_rms_norm` in fp32 with ``eps=1e-6`` inside the ``rsqrt``, cast
   back to the input dtype;
 - the weight-tied LM head takes compute-dtype operands with fp32
-  accumulation and returns fp32 logits.
+  accumulation and returns fp32 logits; its backward (the JAX custom
+  VJP) runs both gradient products on compute-dtype operands too.
 
-``attention="flash"`` runs the Hopper flash-attention kernel wherever
+``attention="flash"`` runs the Hopper flash-attention kernels (forward,
+and the dq and dk/dv kernels in the backward) wherever
 :func:`flash_attention_supported` passes (K/V broadcast to query width
 first) and ``local_attention`` otherwise; ``attention="local"`` is the
-plain path.  Training (loss, backward kernels, optimizer) is the next
-slice; MoE, FSDP, vocab parallelism, ring/Ulysses attention and pipeline
-micro-batching come with the parallel slice and raise here.
+plain path.  Training is :func:`lm_loss` (optionally with the chunked
+head of ``loss_chunk``), ``remat=True`` (each block under
+``torch.utils.checkpoint``, the JAX ``"full"`` policy) and
+:func:`make_train_step`.  MoE, FSDP, vocab parallelism, ring/Ulysses
+attention and pipeline micro-batching come with the parallel slice and
+raise here; so do ``remat_policy="dots"`` and the 1F1B/interleaved
+schedules in training.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.ops.flash_attention import (
@@ -44,12 +52,16 @@ from chainermn_tpu_torch.parallel.tensor import (
 __all__ = [
     "TransformerConfig",
     "apply_rope",
+    "lm_loss",
     "make_forward_fn",
+    "make_train_step",
+    "make_value_and_grad_fn",
     "transformer_backbone",
     "transformer_forward",
 ]
 
 _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
+_TRAINING_REST = "the rest of the flagship transformer (ROADMAP Queue A item 7)"
 
 
 @dataclass(frozen=True)
@@ -158,7 +170,8 @@ def _torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def _check_ported(cfg: TransformerConfig, *, decoding: bool):
+def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
+                  training: bool = False):
     """Raise ``NotImplementedError`` for options a later slice ports."""
     unported = [
         ("moe", cfg.moe, _PARALLEL_SLICE),
@@ -179,6 +192,17 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool):
             ("num_microbatches > 1", cfg.num_microbatches > 1,
              _PARALLEL_SLICE),
         ]
+    if training:
+        if cfg.pipeline_schedule not in ("gpipe", "1f1b", "interleaved"):
+            raise ValueError(
+                "pipeline_schedule must be gpipe|1f1b|interleaved, got "
+                f"{cfg.pipeline_schedule!r}")
+        unported += [
+            ('remat_policy="dots"', cfg.remat and cfg.remat_policy == "dots",
+             _TRAINING_REST),
+            (f"pipeline_schedule={cfg.pipeline_schedule!r}",
+             cfg.pipeline_schedule != "gpipe", _TRAINING_REST),
+        ]
     for name, hit, where in unported:
         if hit:
             raise NotImplementedError(
@@ -194,17 +218,92 @@ def _rms_norm(x, scale):
     return (x32 * r * scale).to(x.dtype)
 
 
+def _mm32(a, b):
+    """``a @ b`` of 2-D compute-dtype operands with fp32 accumulation and
+    fp32 output.  On CUDA a half-precision product writes fp32 directly
+    (cuBLAS); elsewhere the same function runs as an fp32 product of the
+    operands' values."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LMHead(torch.autograd.Function):
+    """The JAX ``_lm_head`` custom VJP: the logit cotangent, which is
+    unit-scale, goes to the compute dtype, so both gradient products take
+    compute-dtype operands; the gradients leave in the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, h, embed, cd):
+        ctx.save_for_backward(h, embed)
+        ctx.cd = cd
+        a = h.reshape(-1, h.shape[-1]).to(cd)
+        out = _mm32(a, embed.to(cd).T)
+        return out.reshape(*h.shape[:-1], embed.shape[0])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h, embed = ctx.saved_tensors
+        gl = g.reshape(-1, g.shape[-1]).to(ctx.cd)
+        w = embed.to(ctx.cd)
+        dh = _mm32(gl, w).to(h.dtype).reshape(h.shape)
+        dw = _mm32(gl.T, h.reshape(-1, h.shape[-1]).to(ctx.cd))
+        return dh, dw.to(embed.dtype), None
+
+
 def _lm_head(cd, h, embed):
     """Weight-tied head: ``cd``-rounded operands, fp32 accumulation and
-    fp32 logits.  On CUDA a half-precision product writes fp32 output
-    directly (cuBLAS); elsewhere the same function runs as an fp32
-    product of the rounded operands' values."""
-    a, w = h.to(cd), embed.to(cd)
-    if a.is_cuda and cd in (torch.bfloat16, torch.float16):
-        out = torch.mm(a.reshape(-1, a.shape[-1]), w.T,
-                       out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], w.shape[0])
-    return a.float() @ w.float().T
+    fp32 logits."""
+    return _LMHead.apply(h, embed, cd)
+
+
+class _HeadNLL(torch.autograd.Function):
+    """The JAX ``_head_nll`` custom VJP: the summed next-token NLL with
+    the head applied ``chunk`` positions at a time, so only ``(B, chunk,
+    V)`` fp32 logits are ever live.  The backward recomputes each chunk's
+    logits, forms ``(softmax - onehot)·g`` in the compute dtype, and
+    accumulates the embed gradient over the chunks in fp32."""
+
+    @staticmethod
+    def forward(ctx, h, embed, targets, cd, chunk):
+        T = h.shape[1]
+        if T % chunk:
+            raise ValueError(f"loss_chunk={chunk} must divide the sequence "
+                             f"length {T}")
+        ctx.save_for_backward(h, embed, targets)
+        ctx.cd, ctx.chunk = cd, chunk
+        ew = embed.to(cd)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, T, chunk):
+            logits = _mm32(h[:, c0:c0 + chunk].reshape(-1, h.shape[2])
+                           .to(cd), ew.T)
+            logp = torch.log_softmax(logits, dim=-1)
+            tgt = targets[:, c0:c0 + chunk].reshape(-1, 1)
+            total = total - logp.gather(-1, tgt).sum()
+        return total
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h, embed, targets = ctx.saved_tensors
+        cd, chunk = ctx.cd, ctx.chunk
+        B, T, D = h.shape
+        ew = embed.to(cd)
+        g32 = g.float()
+        dh = torch.empty_like(h)
+        dw = torch.zeros(embed.shape, dtype=torch.float32,
+                         device=embed.device)
+        for c0 in range(0, T, chunk):
+            hcd = h[:, c0:c0 + chunk].reshape(-1, D).to(cd)
+            p = torch.softmax(_mm32(hcd, ew.T), dim=-1)
+            tgt = targets[:, c0:c0 + chunk].reshape(-1)
+            p[torch.arange(p.shape[0], device=p.device), tgt] -= 1.0
+            dl = (p * g32).to(cd)
+            dh[:, c0:c0 + chunk] = _mm32(dl, ew).to(h.dtype).reshape(
+                B, chunk, D)
+            dw += _mm32(dl.T, hcd)
+        return dh, dw.to(embed.dtype), None, None, None
 
 
 def apply_rope(x, positions, theta: float = 10000.0):
@@ -270,6 +369,10 @@ def _mlp(cfg: TransformerConfig, h, blk):
     return h + row_parallel_dense(y, blk["w2"].to(cd))
 
 
+def _block(cfg: TransformerConfig, h, blk):
+    return _mlp(cfg, _attention(cfg, h, blk), blk)
+
+
 def _layer(params, i: int) -> dict:
     """Layer ``i``'s block parameters (views into the stacked leaves)."""
     return {name: leaf[i] for name, leaf in params["blocks"].items()}
@@ -277,7 +380,10 @@ def _layer(params, i: int) -> dict:
 
 def transformer_backbone(cfg: TransformerConfig, params, tokens):
     """Embedding → block stack → final norm: the normed
-    ``(B, T, d_model)`` hidden states in the compute dtype."""
+    ``(B, T, d_model)`` hidden states in the compute dtype.  With
+    ``cfg.remat`` and gradients enabled each block runs under
+    ``torch.utils.checkpoint``: only its input is kept, and its forward
+    (the flash kernel included) runs again in the backward."""
     cd = cfg.compute_dtype
     B, T = tokens.shape
     if T > cfg.max_seq:
@@ -288,9 +394,15 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens):
         h = h.to(cd)              # rotations happen inside attention
     else:
         h = (h + params["pos"][:T]).to(cd)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
-        h = _mlp(cfg, _attention(cfg, h, blk), blk)
+        if remat:
+            # the blocks draw no random numbers: no RNG state to replay
+            h = checkpoint(_block, cfg, h, blk, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _block(cfg, h, blk)
     return _rms_norm(h, params["ln_f"])
 
 
@@ -298,6 +410,27 @@ def transformer_forward(cfg: TransformerConfig, params, tokens):
     """``(B, T, vocab)`` fp32 logits through the weight-tied head."""
     h = transformer_backbone(cfg, params, tokens)
     return _lm_head(cfg.compute_dtype, h, params["embed"])
+
+
+def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets):
+    """Summed next-token NLL through the configured head: the chunked
+    :class:`_HeadNLL` for ``loss_chunk > 0``, else the whole logits once
+    through :func:`_lm_head`."""
+    if cfg.loss_chunk > 0:
+        return _HeadNLL.apply(h, embed, targets, cfg.compute_dtype,
+                              cfg.loss_chunk)
+    logp = torch.log_softmax(_lm_head(cfg.compute_dtype, h, embed), dim=-1)
+    return -logp.gather(-1, targets[..., None]).sum()
+
+
+def lm_loss(cfg: TransformerConfig, params, inputs, targets):
+    """Mean next-token cross-entropy of ``(B, T)`` ``inputs`` against
+    ``targets``.  The JAX package adds ``0.01·aux``, the MoE balancing
+    loss, which is zero for the dense models the port has."""
+    _check_ported(cfg, training=True)
+    targets = targets.long()
+    h = transformer_backbone(cfg, params, inputs)
+    return _shard_nll_sum(cfg, h, params["embed"], targets) / targets.numel()
 
 
 def make_forward_fn(cfg: TransformerConfig, device=None):
@@ -316,3 +449,55 @@ def make_forward_fn(cfg: TransformerConfig, device=None):
             return transformer_forward(cfg, params, tokens)
 
     return forward
+
+
+def make_value_and_grad_fn(cfg: TransformerConfig, device=None):
+    """``fn(params, inputs, targets) -> (loss, grads)``: :func:`lm_loss`
+    and its gradient with respect to every parameter leaf, ``grads`` in
+    the structure of ``params`` — the gradient half of the JAX
+    ``make_train_step``.  ``params`` are read, not modified.  Runs on
+    ``device`` (CUDA unless ``device="cpu"`` is given)."""
+    dev = resolve_device(device)
+    _check_ported(cfg, training=True)
+
+    def value_and_grad(params, inputs, targets):
+        inputs = torch.as_tensor(inputs, device=dev)
+        targets = torch.as_tensor(targets, device=dev)
+        top = [k for k in params if k != "blocks"]
+        live = {k: params[k].detach().requires_grad_() for k in top}
+        # each layer's slice of a stacked (L, ...) block leaf is a leaf of
+        # its own: a gradient into a view of the stacked tensor would be
+        # scattered into a zero-filled full-size tensor, once per layer
+        layers = {k: [x.requires_grad_() for x in p.detach().unbind(0)]
+                  for k, p in params["blocks"].items()}
+        live["blocks"] = layers
+        with torch.enable_grad():
+            loss = lm_loss(cfg, live, inputs, targets)
+            grads = torch.autograd.grad(
+                loss, [live[k] for k in top]
+                + [x for xs in layers.values() for x in xs])
+        out = dict(zip(top, grads))
+        rest = iter(grads[len(top):])
+        out["blocks"] = {k: torch.stack([next(rest) for _ in xs])
+                         for k, xs in layers.items()}
+        return loss.detach(), {k: out[k] for k in params}
+
+    return value_and_grad
+
+
+def make_train_step(cfg: TransformerConfig, optimizer, device=None):
+    """``step(params, opt_state, inputs, targets) -> (params, opt_state,
+    loss)``: the JAX ``make_train_step`` at a trivial mesh (the GPipe
+    branch at pipe size 1).  ``optimizer`` is one of
+    :mod:`chainermn_tpu_torch.training`'s (``adamw``, ``sgd``) and
+    ``opt_state`` its ``init(params)``.  ``loss`` is the loss before the
+    update.  Where JAX returns new arrays, the port updates ``params``
+    and ``opt_state`` in place and returns them."""
+    value_and_grad = make_value_and_grad_fn(cfg, device)
+
+    def step(params, opt_state, inputs, targets):
+        loss, grads = value_and_grad(params, inputs, targets)
+        optimizer.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step

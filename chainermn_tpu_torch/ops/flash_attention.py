@@ -1,22 +1,27 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention: hand-written Hopper kernels, forward and backward,
+and their plain PyTorch versions.
 
-Counterpart of the forward half of ``chainermn_tpu/ops/pallas_attention.py``
-(``_fwd_kernel``, ``_fwd``, ``flash_attention_supported``,
-``flash_attention``).  The kernel is ``csrc/flash_fwd.cu``; its source
-note gives the bound and the design.  Tensors keep the JAX package's
-``(B, T, H, D)`` layout at the public function.
+Counterpart of ``chainermn_tpu/ops/pallas_attention.py``: ``_fwd_kernel``
+(``csrc/flash_fwd.cu``), ``_dq_kernel`` and ``_dkv_kernel``
+(``csrc/flash_bwd.cu``), the ``_flash`` custom VJP (here a
+``torch.autograd.Function``), ``flash_attention_supported`` and
+``flash_attention``.  Each source's note gives its bound and design.
+Tensors keep the JAX package's ``(B, T, H, D)`` layout at the public
+function.
 
-- A CUDA tensor launches the kernel, or raises: nothing falls back.
-- A CPU tensor runs :func:`flash_attention_reference`, which repeats the
-  kernel's arithmetic (the same 64-key tiles, fp32 statistics, ``p``
-  cast to V's dtype before the PV product, the explicit zeroing of
-  masked ``p`` and the ``1e-30`` floor), so a fully masked row gives
-  ``o = 0`` and ``lse ≈ -1e30`` on both.
-- ``flash_attention.launches`` counts kernel launches.
-
-The backward kernels (the TPU ``_dq_kernel`` and ``_dkv_kernel``) are
-not ported yet: on CUDA the wrapper refuses inputs that need a gradient.
+- A CUDA tensor launches the kernels, or raises: nothing falls back.
+- A CPU tensor runs :func:`flash_attention_reference` forward and
+  :func:`flash_attention_bwd_reference` backward, which repeat the
+  kernels' arithmetic (the same 64-row tiles in the same order, fp32
+  statistics and accumulators, ``p`` and ``ds`` cast to the operand
+  dtype before their products, the explicit zeroing of masked ``p``
+  and the ``1e-30`` floor), so a fully masked row gives ``o = 0``,
+  ``lse ≈ -1e30`` and ``dq = 0`` on both.
+- The backward saves ``q, k, v, o, lse`` and computes the row term
+  ``delta = rowsum(do·o in fp32) − dlse`` with torch ops, as the JAX
+  package computes it outside its kernels; ``lse`` is differentiable.
+- ``flash_attention.launches``, ``.dq_launches`` and ``.dkv_launches``
+  count kernel launches.
 """
 
 from __future__ import annotations
@@ -24,14 +29,15 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from chainermn_tpu_torch._build import load_library
 
-__all__ = ["flash_attention", "flash_attention_reference",
-           "flash_attention_supported"]
+__all__ = ["flash_attention", "flash_attention_bwd_reference",
+           "flash_attention_reference", "flash_attention_supported"]
 
 _NEG = -1e30
-BLOCK_K = 64                    # the kernel's K tile (kBlockK)
+BLOCK_K = 64                    # the kernels' K and Q tiles
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _INT32_MAX = 2 ** 31 - 1
@@ -86,14 +92,93 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     return o, (m + torch.log(safe)).transpose(1, 2)
 
 
-def _kernel():
-    fn = load_library("flash_fwd").flash_fwd
+def flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=None, *,
+                                  causal: bool = False, window=None,
+                                  q_offset: int = 0, k_offset: int = 0):
+    """The plain backward: ``(dq, dk, dv)`` in q/k/v's dtypes from the
+    forward's ``o`` and ``lse`` ``(B, Tq, H)`` and the cotangents ``do``
+    (and ``dlse`` of ``lse``), computed as the two kernels compute them
+    (:func:`_dq_reference`, :func:`_dkv_reference`)."""
+    mask = dict(causal=causal, window=window, q_offset=q_offset,
+                k_offset=k_offset)
+    lse = lse.transpose(1, 2)                            # (B, H, Tq)
+    delta = _delta(o, do, dlse)
+    return (_dq_reference(q, k, v, do, lse, delta, **mask),
+            *_dkv_reference(q, k, v, do, lse, delta, **mask))
+
+
+def _p_ds(qf, kf, vf, dof, lse, delta, qs, ks, *, causal=False,
+          window=None, q_offset=0, k_offset=0):
+    """``p`` and ``ds`` of the query rows ``qs`` against the keys ``ks``
+    (fp32 ``(B, H, Tq, D)`` operands, ``lse``/``delta`` ``(B, H, Tq)``)."""
+    scale = qf.shape[-1] ** -0.5
+    s = (qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[:, :, qs, None].float())
+    if causal:
+        qpos = q_offset + torch.arange(qf.shape[2], device=qf.device)
+        kpos = k_offset + torch.arange(kf.shape[2], device=qf.device)
+        rel = qpos[qs, None] - kpos[None, ks]
+        allow = rel >= 0
+        if window is not None:
+            allow &= rel < window
+        p = p.masked_fill(~allow, 0.0)
+    dp = dof[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+    return p, p * (dp - delta[:, :, qs, None]) * scale
+
+
+def _dq_reference(q, k, v, do, lse, delta, **mask):
+    """The dq kernel's arithmetic: 64-key tiles in order, ``ds`` cast to
+    k's dtype, fp32 accumulation.  ``lse``/``delta`` ``(B, H, Tq)``."""
+    qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    dq = torch.zeros_like(qf)
+    for j0 in range(0, kf.shape[2], BLOCK_K):
+        ks = slice(j0, j0 + BLOCK_K)
+        _, ds = _p_ds(qf, kf, vf, dof, lse, delta, slice(None), ks, **mask)
+        dq += ds.to(k.dtype).float() @ kf[:, :, ks]
+    return dq.to(q.dtype).transpose(1, 2).contiguous()
+
+
+def _dkv_reference(q, k, v, do, lse, delta, **mask):
+    """The dk/dv kernel's arithmetic: 64-query tiles in order, ``p`` cast
+    to do's dtype for dv and ``ds`` to q's for dk, fp32 accumulation."""
+    qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, qf.shape[2], BLOCK_K):
+        qs = slice(i0, i0 + BLOCK_K)
+        p, ds = _p_ds(qf, kf, vf, dof, lse, delta, qs, slice(None), **mask)
+        dv += p.to(do.dtype).float().transpose(-1, -2) @ dof[:, :, qs]
+        dk += ds.to(q.dtype).float().transpose(-1, -2) @ qf[:, :, qs]
+    return (dk.to(k.dtype).transpose(1, 2).contiguous(),
+            dv.to(v.dtype).transpose(1, 2).contiguous())
+
+
+def _delta(o, do, dlse):
+    """``rowsum(do·o)`` in fp32 from the saved (bf16) ``o``, minus
+    ``dlse``, as fp32 ``(B, H, Tq)``: the row term of ``ds``."""
+    d = (do.float() * o.float()).sum(dim=-1)             # (B, Tq, H)
+    if dlse is not None:
+        d = d - dlse.float()
+    return d.transpose(1, 2).contiguous()
+
+
+def _kernel(lib: str, name: str, n_ptrs: int, n_strides: int):
+    """The C entry point ``name`` of ``csrc/<lib>.cu``: ``n_ptrs``
+    pointers, six ints (B, H, Tq, Tk, D, dtype), ``n_strides`` int64
+    strides, four ints (causal, window, offsets), the scale, the
+    stream."""
+    fn = getattr(load_library(lib), name)
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 12 + [i32] * 4
-                       + [ctypes.c_float, ptr])
+        fn.argtypes = ([ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides
+                       + [i32] * 4 + [ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel_layout_ok(t) -> bool:
+    strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return t.stride(3) == 1 and not any(s % 8 for s in strides) \
+        and t.data_ptr() % 16 == 0
 
 
 def _check_kernel_operand(name, t):
@@ -101,22 +186,18 @@ def _check_kernel_operand(name, t):
         raise TypeError(
             f"flash_attention kernel takes bfloat16 or float16, got {name} "
             f"{t.dtype}")
-    strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-    if t.stride(3) != 1 or any(s % 8 for s in strides) \
-            or t.data_ptr() % 16:
+    if not _kernel_layout_ok(t):
         raise ValueError(
             f"flash_attention kernel needs {name} with unit stride along "
             "D, other strides multiples of 8 elements and a 16-byte "
             f"aligned base; got strides {t.stride()}")
 
 
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:3]]
+
+
 def _launch(q, k, v, causal, window, q_offset, k_offset):
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention has no backward kernel yet (the training "
-            "slice ports _dq_kernel/_dkv_kernel); call it under "
-            "torch.inference_mode() or on tensors that need no gradient")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, t)
     if not q.dtype == k.dtype == v.dtype:
@@ -128,18 +209,100 @@ def _launch(q, k, v, causal, window, q_offset, k_offset):
         raise ValueError("positions must fit in int32")
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    fn = _kernel()
+    fn = _kernel("flash_fwd", "flash_fwd", 5, 12)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), B, H, Tq, Tk, D, _KERNEL_DTYPES[q.dtype],
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *o.stride()[:3], int(causal), window or 0, q_offset,
+                 *_strides(q, k, v, o), int(causal), window or 0, q_offset,
                  k_offset, D ** -0.5, stream)
     if err:
         raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
     flash_attention.launches += 1
     return o, lse.transpose(1, 2)
+
+
+def _bwd_operands(q, o, lse, do, dlse):
+    """The backward kernels' extra operands: ``do`` in a layout they read,
+    ``lse`` and ``delta`` as fp32 ``(B, H, Tq)``."""
+    if do.dtype != q.dtype:
+        raise TypeError(f"do is {do.dtype}, the forward ran in {q.dtype}")
+    if not _kernel_layout_ok(do):
+        do = do.contiguous()        # a layout the kernels read; same values
+    return do, lse.transpose(1, 2).contiguous(), _delta(o, do, dlse)
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal, window, q_offset,
+               k_offset):
+    """The dq kernel; ``lse``/``delta`` fp32 ``(B, H, Tq)`` contiguous."""
+    B, Tq, H, D = q.shape
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    fn = _kernel("flash_bwd", "flash_bwd_dq", 7, 15)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq,
+                 k.shape[1], D, _KERNEL_DTYPES[q.dtype],
+                 *_strides(q, k, v, do, dq), int(causal), window or 0,
+                 q_offset, k_offset, D ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError_t {err}")
+    flash_attention.dq_launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal, window, q_offset,
+                k_offset):
+    """The dk/dv kernel; operands as for :func:`_launch_dq`."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+    fn = _kernel("flash_bwd", "flash_bwd_dkv", 8, 18)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B, H, Tq, Tk, D, _KERNEL_DTYPES[q.dtype],
+                 *_strides(q, k, v, do, dk, dv), int(causal), window or 0,
+                 q_offset, k_offset, D ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError_t {err}")
+    flash_attention.dkv_launches += 1
+    return dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """``(o, lse)`` with the JAX package's VJP: the forward kernel, then
+    the dq and dk/dv kernels off the saved ``lse`` (CUDA), or the plain
+    versions of both (CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, k_offset):
+        if q.device.type == "cuda":
+            o, lse = _launch(q, k, v, causal, window, q_offset, k_offset)
+        else:
+            o, lse = flash_attention_reference(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                k_offset=k_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, q_offset, k_offset)
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, q_offset, k_offset = ctx.mask
+        if q.device.type == "cuda":
+            do, lse, delta = _bwd_operands(q, o, lse, do, dlse)
+            dq = _launch_dq(q, k, v, do, lse, delta, *ctx.mask)
+            dk, dv = _launch_dkv(q, k, v, do, lse, delta, *ctx.mask)
+        else:
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, o, lse, do, dlse, causal=causal, window=window,
+                q_offset=q_offset, k_offset=k_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False, window=None,
@@ -150,7 +313,8 @@ def flash_attention(q, k, v, *, causal: bool = False, window=None,
     ``causal``): token t attends to ``(t - window, t]``.  A query row
     whose whole K range is masked returns zeros and ``lse ≈ -1e30``.
     With ``return_lse=True`` returns ``(o, lse)``, ``lse`` ``(B, Tq, H)``
-    fp32.  K/V must already be at query width (see ``broadcast_kv``)."""
+    fp32; both outputs are differentiable.  K/V must already be at query
+    width (see ``broadcast_kv``)."""
     if window is not None and not causal:
         raise ValueError("window requires causal=True (sliding causal "
                          "window attention)")
@@ -171,17 +335,14 @@ def flash_attention(q, k, v, *, causal: bool = False, window=None,
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"q/k/v on different devices: {devices}")
-    device = q.device
-    if device.type == "cuda":
-        o, lse = _launch(q, k, v, causal, window, int(q_offset),
-                         int(k_offset))
-    elif device.type == "cpu":
-        o, lse = flash_attention_reference(
-            q, k, v, causal=causal, window=window, q_offset=int(q_offset),
-            k_offset=int(k_offset))
-    else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"flash_attention runs on cuda or cpu, not {q.device}")
+    o, lse = _Flash.apply(q, k, v, causal, window, int(q_offset),
+                          int(k_offset))
     return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
+flash_attention.dq_launches = 0
+flash_attention.dkv_launches = 0

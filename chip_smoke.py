@@ -17,14 +17,26 @@ Phases (any failure exits non-zero before the last line is printed):
    kernel, checked against an fp32 forward with plain attention;
 4. answering requests: greedy ``make_generate_fn`` on 8 prompts of 128
    tokens, 64 new tokens, with ``eos_id`` set, its decode logits checked
-   against the full forward on the generated sequence.
+   against the full forward on the generated sequence;
+5. the backward kernels (dq; dk/dv) against their plain version on the
+   card, on the forward's cases and a grouped-K/V case, timed at the
+   training shape beside SDPA's backward;
+6. training at full width: ``make_train_step`` with ``adamw(3e-4)`` on
+   one batch of 8 x 2048 tokens (``bench_transformer.py``'s), remat on,
+   one warm-up and five timed steps, every layer's forward, recompute
+   and backward through the kernels, its first loss checked against the
+   forward's cross-entropy and its gradients against an fp32
+   plain-attention step.
 
-It prints the card's name and power limit, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``.  Weights are random,
-from numpy seed 0.  fp32 references run with TF32 off.
+Phases 3 and 6 are the main paths: each starts with every launch count
+at 0 and reads the counts when it ends.  It prints the card's name and
+power limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``.  Weights are random, from numpy seed 0.  fp32
+references run with TF32 off.
 """
 
 import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
@@ -79,15 +91,20 @@ def allowed_pairs(Tq, Tk, causal, window, q_off, k_off):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def bound_ms(flops, nbytes):
+    """Least time for ``flops`` bf16 tensor-core operations and ``nbytes``
+    of memory traffic: (ms, "operations" or "bytes", whichever binds)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
 def flash_bound_ms(B, H, Tq, Tk, D, causal, window, q_off, k_off):
     """Least time for the call: tensor-core FLOPs of QK^T and PV over the
     allowed pairs, or the bytes of q, k, v, o (bf16) and lse (fp32)."""
     flops = 4 * B * H * D * allowed_pairs(Tq, Tk, causal, window, q_off,
                                           k_off)
-    nbytes = 2 * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes \
-        else "bytes"
+    return bound_ms(flops, 2 * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq)
 
 
 def phase_kernel(torch, fa):
@@ -150,8 +167,297 @@ def phase_kernel(torch, fa):
     return row
 
 
+def bwd_bound_ms(B, H, Tq, Tk, D, causal, window, q_off, k_off, dkv):
+    """Least time of one backward kernel: its products over the allowed
+    pairs (dq: QK^T, dO.V^T, dS.K; dk/dv: those two, P^T.dO, dS^T.Q), or
+    the bytes it must move: q, k, v, do read and its outputs written
+    (bf16), lse and delta read (fp32)."""
+    pairs = allowed_pairs(Tq, Tk, causal, window, q_off, k_off)
+    flops = (4 if dkv else 3) * 2 * B * H * D * pairs
+    nbytes = 2 * B * H * D * (2 * Tq + 2 * Tk) + 8 * B * H * Tq \
+        + 2 * B * H * D * (2 * Tk if dkv else Tq)
+    return bound_ms(flops, nbytes)
+
+
+# The kernels and the plain backward share tiles, order and the bf16
+# roundings of p and ds; they differ by rare one-ulp flips where an fp32
+# exp or sum rounds the other way.  rtol covers a flip of a large
+# element.  atol is a share of the tensor's RMS, so that small elements
+# (late keys of dk and dv are ~0.01) are held as well.  A flip of one
+# large p or ds (one ulp is 2^-8 of it) moves its element by up to
+# 2^-8 |p do|, which may exceed that band where the element's sum
+# cancels (more often in a GQA sum of four copies): four millionths of
+# the elements (67 of the 16.8 M at the training shape, 16 of a GQA
+# sum's 4.2 M) may leave the band, and they stay within 2e-2 absolute
+# plus relative.  The relative L2 bar catches a fault spread thinly over
+# many elements.  ``bar_rejects_faults`` shows on the run's own
+# gradients that the bar fails three such faults.
+GRAD_RTOL, GRAD_ATOL_RMS, GRAD_REL_L2 = 2e-2, 2e-2, 2e-3
+GRAD_OFF_SHARE, GRAD_OFF_TOL = 4e-6, 2e-2
+
+
+def grad_fault(torch, got, want):
+    """What keeps gradient ``got`` from matching the plain version's
+    ``want`` (None if nothing), its max abs error, its relative L2 error
+    and the count of elements outside the band."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    atol = GRAD_ATOL_RMS * want.pow(2).mean().sqrt().item()
+    n_off = int((err > atol + GRAD_RTOL * want.abs()).sum())
+    far = int((err > GRAD_OFF_TOL * (1 + want.abs())).sum())
+    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    fault = None
+    if not bool(torch.isfinite(got).all()):
+        fault = "not finite"
+    elif n_off > GRAD_OFF_SHARE * got.numel() or far:
+        fault = (f"{n_off} elements off by more than {GRAD_RTOL} relative "
+                 f"+ {atol:.3e}, {far} by more than {GRAD_OFF_TOL} "
+                 "absolute + relative")
+    elif rel > GRAD_REL_L2:
+        fault = f"relative L2 {rel:.3e} above {GRAD_REL_L2}"
+    return fault, err.max().item(), rel, n_off
+
+
+def bar_rejects_faults(torch, label, got, want):
+    """The bar must fail a result with a fault spread thinly: every
+    element one ulp off, the elements under 0.02 zeroed, or 1e-2 added
+    to the last 64 positions (one tile).  Returns the faults' relative
+    L2 errors."""
+    last_tile = got.clone()
+    last_tile[:, -64:] += 1e-2
+    faults = dict(
+        ulp=(got.view(torch.int16) + 1).view(got.dtype),
+        small_zeroed=torch.where(got.float().abs() < 0.02,
+                                 torch.zeros_like(got), got),
+        last_tile=last_tile)
+    rels = {}
+    for fault, bad in faults.items():
+        verdict, _, rels[fault], _ = grad_fault(torch, bad, want)
+        require(verdict is not None,
+                f"{label} with fault {fault} passes the bar")
+    return rels
+
+
+def phase_backward(torch, fa):
+    """Backward kernels against their plain version; returns the JSON
+    fields of the dq and dk/dv rows."""
+    from chainermn_tpu_torch.ops import flash_attention_bwd_reference
+    from chainermn_tpu_torch.parallel import broadcast_kv
+
+    # the wrapper module (the package exports its function of that name)
+    ops = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    cases = [
+        ("smoke causal", 2048, 16, dict(causal=True)),
+        ("non-causal", 2048, 16, dict(causal=False)),
+        ("window 256", 2048, 16, dict(causal=True, window=256)),
+        ("k_offset > q_offset", 2048, 16,
+         dict(causal=True, q_offset=0, k_offset=1024)),
+        ("ragged T=2000", 2000, 16, dict(causal=True)),
+        ("GQA 4 KV heads via broadcast_kv", 2048, 4, dict(causal=True)),
+    ]
+    B, H, D = 8, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    worst = worst_rel = 0.0
+    rows = None
+    for name, T, Hkv, kw in cases:
+        q = torch.randn(B, T, H, D, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(B, T, Hkv, D, device="cuda", generator=gen,
+                            dtype=torch.bfloat16) for _ in range(2))
+        do = torch.randn(B, T, H, D, device="cuda", generator=gen,
+                         dtype=torch.bfloat16)
+        ts = [x.requires_grad_() for x in (q, k, v)]
+        kb, vb = broadcast_kv(ts[1], ts[2], H // Hkv)
+        o, lse = fa(ts[0], kb, vb, return_lse=True, **kw)
+        # the kernels' own outputs (dk, dv per broadcast copy) and, for
+        # GQA, the KV heads' gradients autograd sums from them
+        got = torch.autograd.grad(
+            o, [ts[0], kb, vb] + (ts[1:] if Hkv != H else []), do)
+        torch.cuda.synchronize()
+        kb, vb, o, lse = (x.detach() for x in (kb, vb, o, lse))
+        want = list(flash_attention_bwd_reference(q.detach(), kb, vb, o,
+                                                  lse, do, **kw))
+        checks = list(zip(("dq", "dk", "dv"), got, want))
+        if Hkv != H:   # the KV heads' sums, by the same autograd of
+            # broadcast_kv on the plain version's copies
+            k2, v2 = (x.detach().requires_grad_() for x in ts[1:])
+            sums = torch.autograd.grad(broadcast_kv(k2, v2, H // Hkv),
+                                       (k2, v2), want[1:])
+            checks += zip(("dk(KV heads)", "dv(KV heads)"), got[3:], sums)
+        readings = []
+        for label, a, b in checks:
+            fault, err, rel, n_off = grad_fault(torch, a, b)
+            require(fault is None, f"{name}: {label}: {fault}")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            rms = b.float().pow(2).mean().sqrt().item()
+            readings.append(f"{label} max abs {err:.3e} rel L2 {rel:.3e} "
+                            f"outside the band {n_off} (rms {rms:.3e})")
+        if kw.get("k_offset", 0) > kw.get("q_offset", 0):
+            masked = kw["k_offset"] - kw.get("q_offset", 0)
+            require(bool((got[0][:, :masked] == 0).all()),
+                    f"{name}: dq of fully masked rows is not zero")
+        print(f"kernel flash_bwd [{name}] B={B} T={T} H={H} Hkv={Hkv} "
+              f"D={D} against the plain version: " + "; ".join(readings))
+        if rows is None:   # the training shape: check the bar, time
+            for label, a, b in zip(("dq", "dk", "dv"), got, want):
+                print(f"kernel flash_bwd [{name}] the bar fails {label} "
+                      "with faults, relative L2: " + " ".join(
+                          f"{f} {r:.3e}" for f, r in
+                          bar_rejects_faults(torch, label, a, b).items()))
+            rows = time_backward(torch, ops, q.detach(), kb, vb, o, lse, do,
+                                 kw)
+    for row in rows.values():
+        row["max_abs_err"] = worst
+        row["max_rel_l2"] = worst_rel
+    return rows
+
+
+def time_backward(torch, ops, q, k, v, o, lse, do, kw):
+    B, T, H, D = q.shape
+    mask = (kw["causal"], None, 0, 0)
+    dlse = torch.zeros_like(lse)
+    do_, lse_, delta = ops._bwd_operands(q, o, lse, do, dlse)
+    delta_ms = cuda_ms(lambda: ops._bwd_operands(q, o, lse, do, dlse))
+    ms = dict(dq=cuda_ms(lambda: ops._launch_dq(q, k, v, do_, lse_, delta,
+                                                 *mask)),
+              dkv=cuda_ms(lambda: ops._launch_dkv(q, k, v, do_, lse_, delta,
+                                                   *mask)))
+    plain = dict(dq=cuda_ms(lambda: ops._dq_reference(
+                     q, k, v, do_, lse_, delta, causal=True), reps=5),
+                 dkv=cuda_ms(lambda: ops._dkv_reference(
+                     q, k, v, do_, lse_, delta, causal=True), reps=5))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    total = delta_ms + ms["dq"] + ms["dkv"]
+    rows = {}
+    for name in ("dq", "dkv"):
+        bound, by = bwd_bound_ms(B, H, T, T, D, True, None, 0, 0,
+                                 name == "dkv")
+        # SDPA's backward computes dq, dk and dv in one call: its time
+        # stands against the port's delta op and both kernels together
+        rows[name] = dict(ms=ms[name], plain_ms=plain[name], bound_ms=bound,
+                          bound_by=by, library_ms=library_ms,
+                          library_covers=["delta", "dq", "dkv"],
+                          port_ms_total=total)
+        print(f"kernel flash_bwd_{name} timing at B={B} H={H} T={T} D={D} "
+              f"causal bf16: kernel_ms={ms[name]:.4f} plain_ms="
+              f"{plain[name]:.4f} bound={bound * 1e3:.1f} us ({by}) -> "
+              f"{bound / ms[name]:.1%} of bound")
+    least = 5 * 2 * B * H * D * allowed_pairs(T, T, True, None, 0, 0) \
+        / PEAK_BF16_FLOPS * 1e3
+    print(f"backward at B={B} H={H} T={T} D={D} causal bf16: delta op "
+          f"{delta_ms:.4f} ms + dq + dk/dv = {total:.4f} ms; "
+          f"library_ms(sdpa backward)={library_ms:.4f} "
+          f"({total / library_ms:.2f}x); least work of the whole backward "
+          f"(5 products) {least * 1e3:.1f} us")
+    return rows
+
+
 def rel_err(a, b):
     return ((a - b).norm() / b.norm()).item()
+
+
+def phase_training(torch, np, cfg, params, forward):
+    """Training at full width; returns the launch counts of the run."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        make_train_step,
+        make_value_and_grad_fn,
+    )
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    B, T = 8, 2048
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               (B, T + 1))
+    x = torch.as_tensor(toks[:, :T], device="cuda")
+    y = torch.as_tensor(toks[:, 1:], device="cuda")
+    with torch.inference_mode():
+        ce = torch.nn.functional.cross_entropy(
+            forward(params, x).reshape(-1, cfg.vocab_size),
+            y.reshape(-1)).item()
+
+    # gradients of rows 0-1: bf16 flash and bf16 plain attention against
+    # fp32 plain attention
+    def grads(**kw):
+        fn = make_value_and_grad_fn(dataclasses.replace(cfg, **kw))
+        return fn(params, x[:2], y[:2])[1]
+
+    g32 = grads(dtype="float32", attention="local")
+    g16 = grads()
+    errs = {f"blocks/{n}": rel_err(g, g32["blocks"][n])
+            for n, g in g16["blocks"].items()}
+    errs.update({n: rel_err(g16[n], g32[n]) for n in g16 if n != "blocks"})
+    total = tree_rel_err(g16, g32)
+    plain = tree_rel_err(grads(attention="local"), g32)
+    worst = max(errs, key=errs.get)
+    print("training gradients, rows 0-1, against fp32 plain attention: "
+          f"bf16 flash rel L2 over all leaves {total:.3e} (bf16 plain "
+          f"attention {plain:.3e}), worst leaf {worst} {errs[worst]:.3e}; "
+          + " ".join(f"{n}={e:.2e}" for n, e in sorted(errs.items())))
+    # bf16 activations and gradients through 24 layers and their
+    # backward: at the CPU tests' small config the JAX package's bf16
+    # step and the port's both sit ~7.5 % from fp32; the kernels may add
+    # no error beyond what bf16 plain attention has
+    require(total < 0.15, f"gradients off the fp32 step: {total}")
+    require(total < 1.5 * plain + 5e-3,
+            f"flash gradients ({total}) worse than bf16 plain attention's "
+            f"({plain})")
+    del g16, g32
+
+    opt = training.adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    _, state, loss0 = step(params, state, x, y)          # warm-up
+    loss0 = loss0.item()
+    # the same kernels on the same weights: only the reduction order of
+    # the mean over 16384 fp32 token losses differs
+    require(abs(loss0 - ce) < 1e-4 * abs(ce),
+            f"first training loss {loss0} != forward cross-entropy {ce}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    losses, times, per_step = [loss0], [], []
+    for _ in range(5):
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        per_step.append(tuple(a - b for a, b in zip(
+            (fa.launches, fa.dq_launches, fa.dkv_launches), before)))
+    counts = dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                  flash_bwd_dkv=fa.dkv_launches)          # the path ended
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    require(all(c == (2 * L, L, L) for c in per_step),
+            f"launches per step {per_step}, want {(2 * L, L, L)}")
+    require(all(np.isfinite(losses)), f"losses not finite: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_s = statistics.median(times)
+    print(f"training: first loss {loss0:.6f} vs forward cross-entropy "
+          f"{ce:.6f}; losses {[round(v, 6) for v in losses]}; step "
+          f"{step_s * 1e3:.2f} ms (median of 5; "
+          f"{[round(t * 1e3, 2) for t in times]}) = "
+          f"{B * T / step_s:.0f} training tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches per step (flash_fwd, dq, "
+          f"dk/dv) {per_step[0]}")
+    return counts
+
+
+def tree_rel_err(a, b):
+    """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
+    from chainermn_tpu_torch.training.optimizers import tree_leaves
+
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    num = sum(((x - y).float().norm() ** 2).item() for x, y in pairs)
+    return (num / sum((y.float().norm() ** 2).item()
+                      for _, y in pairs)) ** 0.5
 
 
 def main():
@@ -217,15 +523,19 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0                 # the main path starts
+    flash_attention.dq_launches = flash_attention.dkv_launches = 0
     t0 = time.perf_counter()
     logits = forward(params, tokens)
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     launches = flash_attention.launches          # the main path ended
+    bwd_launches = (flash_attention.dq_launches,
+                    flash_attention.dkv_launches)
     peak = torch.cuda.max_memory_allocated()
-    require(launches == cfg.n_layers,
-            f"scoring launched flash_fwd {launches} times, want "
-            f"{cfg.n_layers}")
+    require(launches == cfg.n_layers and bwd_launches == (0, 0),
+            f"scoring launched flash_fwd {launches} times and the "
+            f"backward kernels {bwd_launches}, want {cfg.n_layers} and "
+            "(0, 0)")
     require(logits.shape == (B, T, cfg.vocab_size)
             and logits.dtype == torch.float32, f"logits {logits.shape}")
     require(bool(torch.isfinite(logits).all()), "logits not finite")
@@ -284,10 +594,30 @@ def main():
     # fp32 decode head vs bf16-operand head)
     require(gerr < 5e-2, f"decode logits off the full forward: {gerr}")
 
-    kernels = [dict(name="flash_fwd", route="cuda",
-                    source="chainermn_tpu_torch/csrc/flash_fwd.cu",
-                    replaces="chainermn_tpu/ops/pallas_attention.py:65",
-                    launches=launches, matched=True, **row)]
+    del full, dec, fwd, step_logits
+
+    # 5. backward kernels against their plain version ------------------
+    bwd_rows = phase_backward(torch, flash_attention)
+
+    # 6. training at full width ---------------------------------------
+    counts = phase_training(torch, np, cfg, params, forward)
+
+    src = "chainermn_tpu_torch/csrc/"
+    tpu = "chainermn_tpu/ops/pallas_attention.py:"
+    kernels = [
+        dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
+             replaces=tpu + "65", launches=counts["flash_fwd"],
+             launches_by_path=dict(scoring=launches,
+                                   training=counts["flash_fwd"]),
+             matched=True, **row),
+        dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
+             replaces=tpu + "151", launches=counts["flash_bwd_dq"],
+             matched=True, **bwd_rows["dq"]),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source=src + "flash_bwd.cu", replaces=tpu + "195",
+             launches=counts["flash_bwd_dkv"], matched=True,
+             **bwd_rows["dkv"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the port's time goes on the card: a ``torch.profiler`` trace of
-one scoring forward and one greedy generation of the flagship config
-that ``chip_smoke.py`` drives, summed by kernel.
+one scoring forward, one greedy generation and one training step of the
+flagship config that ``chip_smoke.py`` drives, summed by kernel, and
+each hand-written kernel's registers, spills and shared memory as
+``nvcc -Xptxas -v`` reports them.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -10,10 +12,14 @@ Run from the root of a checkout, on a machine with a CUDA card:
 For each path it prints the host wall time of one synchronised call,
 the device busy time (the sum of kernel times; one stream, so kernels
 do not overlap), the idle share, the time by kind of kernel (the flash
-kernel, matrix products, the rest) and the ten kernels that take most
-of it.  Weights are random (numpy seed 0).
+kernels, matrix products, the optimizer, the rest) and the ten kernels
+that take most of it.  The training step is ``make_train_step`` with
+``adamw(3e-4)``, remat on, on ``bench_transformer.py``'s 8 x 2048-token
+batch, traced after one warm-up step.  Weights are random (numpy
+seed 0).
 """
 
+import re
 import subprocess
 import sys
 import time
@@ -24,9 +30,12 @@ from chip_smoke import FLAGSHIP, SEED
 
 
 def kind(name):
-    if "flash_fwd_kernel" in name:
-        return "flash_fwd"
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if kernel + "_kernel" in name:
+            return kernel
     low = name.lower()
+    if "multi_tensor_apply" in low:
+        return "optimizer (torch.optim foreach kernels)"
     if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                               "cublas")):
         return "matmul (cuBLAS)"
@@ -46,7 +55,10 @@ def trace(torch, fn, label):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, by_kind, launches = defaultdict(float), defaultdict(float), 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # kernels only: a user annotation on the device's timeline (the
+        # optimizer's step) spans kernels that are counted themselves
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             by_name[e.name] += e.device_time_total
             by_kind[kind(e.name)] += e.device_time_total
             launches += 1
@@ -62,6 +74,36 @@ def trace(torch, fn, label):
         print(f"    {us / 1e3:9.3f} ms {us / busy:6.1%}  {name[:90]}")
 
 
+def kernel_resources():
+    """Registers, spills and shared memory of every kernel instance, from
+    ``nvcc -Xptxas -v`` on each ``csrc/*.cu`` (a build apart from the
+    loaded libraries, into the build directory, removed after)."""
+    from chainermn_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    scratch = _build.BUILD_DIR / "ptxas-report.so"
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        out = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(scratch), str(src)], capture_output=True, text=True,
+            check=True, timeout=600)
+        scratch.unlink(missing_ok=True)
+        name = spill = None
+        for line in (out.stdout + out.stderr).splitlines():
+            m = re.search(r"Compiling entry function '\S*?"
+                          r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(\w+?)Li"
+                          r"(\d+)E", line)
+            if m:
+                name = f"{m[1]}<{m[2].lstrip('0123456789')}, D={m[3]}>"
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif name and (m := re.search(r"Used (\d+) registers", line)):
+                smem = re.search(r"(\d+) bytes smem", line)
+                print(f"  {name}: {m[1]} registers, "
+                      f"{smem[1] if smem else 0} bytes static smem; {spill}")
+                name = None
+
+
 def main():
     import torch
 
@@ -71,11 +113,13 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
+    from chainermn_tpu_torch import training
     from chainermn_tpu_torch.models import (
         TransformerConfig,
         init_numpy_params,
         make_forward_fn,
         make_generate_fn,
+        make_train_step,
         params_from_jax,
     )
 
@@ -97,6 +141,17 @@ def main():
               "scoring 8x2048 tokens")
         trace(torch, lambda: generate(params, prompts),
               "generate 8 x (128 prompt + 64 new), no eos")
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               (8, 2048 + 1))
+    x = torch.as_tensor(toks[:, :-1], device="cuda")
+    y = torch.as_tensor(toks[:, 1:], device="cuda")
+    opt = training.adamw(3e-4)
+    state = opt.init(params)                 # updated in place from here
+    step = make_train_step(cfg, opt)
+    trace(torch, lambda: step(params, state, x, y),
+          "training step 8x2048 tokens, remat, AdamW")
+    print("kernel resources (nvcc -Xptxas -v, sm_90a):")
+    kernel_resources()
     return 0
 
 

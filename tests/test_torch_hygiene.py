@@ -9,12 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from chainermn_tpu_torch import _build, resolve_device
+from chainermn_tpu_torch import _build, resolve_device, training
 from chainermn_tpu_torch.models import (
     TransformerConfig,
     init_numpy_params,
     make_forward_fn,
     make_generate_fn,
+    make_train_step,
+    make_value_and_grad_fn,
     params_from_jax,
 )
 
@@ -49,6 +51,19 @@ def test_flash_wrapper_has_no_fallback():
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
 
+TRAINING_PATH = [PORT / "models" / "transformer.py",
+                 PORT / "training" / "optimizers.py", ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", TRAINING_PATH,
+                         ids=[str(p.relative_to(ROOT)) for p in TRAINING_PATH])
+def test_training_path_has_no_fallback(path):
+    # no try around the kernels' autograd path, the optimizer or the
+    # smoke phases: a failure surfaces, it is never caught and replaced
+    tree = ast.parse(path.read_text())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -63,6 +78,8 @@ def test_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
                  lambda: resolve_device("cuda"),
                  lambda: make_forward_fn(cfg),
                  lambda: make_generate_fn(cfg),
+                 lambda: make_value_and_grad_fn(cfg),
+                 lambda: make_train_step(cfg, training.sgd(0.1)),
                  lambda: params_from_jax(tree, cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -72,6 +89,10 @@ def test_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
         == "cpu"
     out = make_generate_fn(cfg, device="cpu")(params, toks[:, :2])
     assert out.shape == (1, 8) and out.device.type == "cpu"
+    opt = training.sgd(0.1)
+    _, _, loss = make_train_step(cfg, opt, device="cpu")(
+        params, opt.init(params), toks, toks)
+    assert loss.device.type == "cpu"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
