@@ -12,11 +12,11 @@ function.
 - A CUDA tensor launches the kernels, or raises: nothing falls back.
 - A CPU tensor runs :func:`flash_attention_reference` forward and
   :func:`flash_attention_bwd_reference` backward, which repeat the
-  kernels' arithmetic (the same 64-row tiles in the same order, fp32
-  statistics and accumulators, ``p`` and ``ds`` cast to the operand
-  dtype before their products, the explicit zeroing of masked ``p``
-  and the ``1e-30`` floor), so a fully masked row gives ``o = 0``,
-  ``lse ≈ -1e30`` and ``dq = 0`` on both.
+  kernels' arithmetic (the same tiles in the same order: 128-key tiles
+  forward, 64-row tiles backward; fp32 statistics and accumulators,
+  ``p`` and ``ds`` cast to the operand dtype before their products, the
+  explicit zeroing of masked ``p`` and the ``1e-30`` floor), so a fully
+  masked row gives ``o = 0``, ``lse ≈ -1e30`` and ``dq = 0`` on both.
 - The backward saves ``q, k, v, o, lse`` and computes the row term
   ``delta = rowsum(do·o in fp32) − dlse`` with torch ops, as the JAX
   package computes it outside its kernels; ``lse`` is differentiable.
@@ -37,7 +37,8 @@ __all__ = ["flash_attention", "flash_attention_bwd_reference",
            "flash_attention_reference", "flash_attention_supported"]
 
 _NEG = -1e30
-BLOCK_K = 64                    # the kernels' K and Q tiles
+FWD_BLOCK_K = 128               # the forward kernel's K tile
+BWD_BLOCK = 64                  # the backward kernels' K and Q tiles
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _INT32_MAX = 2 ** 31 - 1
@@ -56,8 +57,9 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
                               k_offset: int = 0):
     """The plain version: ``(o, lse)`` with ``o`` ``(B, Tq, H, D)`` in
     q's dtype and ``lse`` ``(B, Tq, H)`` fp32, computed over the kernel's
-    64-key tiles in the kernel's order.  Products take the operands'
-    values with fp32 accumulation."""
+    128-key tiles in the kernel's order (``p``'s rounding to v's dtype
+    is relative to the running max, which moves once a tile).  Products
+    take the operands' values with fp32 accumulation."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = D ** -0.5
@@ -68,8 +70,8 @@ def flash_attention_reference(q, k, v, *, causal: bool = False,
     m = torch.full((B, H, Tq), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
-    for j0 in range(0, Tk, BLOCK_K):
-        kb, vb = kf[:, :, j0:j0 + BLOCK_K], vt[:, :, j0:j0 + BLOCK_K]
+    for j0 in range(0, Tk, FWD_BLOCK_K):
+        kb, vb = kf[:, :, j0:j0 + FWD_BLOCK_K], vt[:, :, j0:j0 + FWD_BLOCK_K]
         s = (qf @ kb.transpose(-1, -2)) * scale
         allow = None
         if causal:
@@ -131,8 +133,8 @@ def _dq_reference(q, k, v, do, lse, delta, **mask):
     k's dtype, fp32 accumulation.  ``lse``/``delta`` ``(B, H, Tq)``."""
     qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
     dq = torch.zeros_like(qf)
-    for j0 in range(0, kf.shape[2], BLOCK_K):
-        ks = slice(j0, j0 + BLOCK_K)
+    for j0 in range(0, kf.shape[2], BWD_BLOCK):
+        ks = slice(j0, j0 + BWD_BLOCK)
         _, ds = _p_ds(qf, kf, vf, dof, lse, delta, slice(None), ks, **mask)
         dq += ds.to(k.dtype).float() @ kf[:, :, ks]
     return dq.to(q.dtype).transpose(1, 2).contiguous()
@@ -143,8 +145,8 @@ def _dkv_reference(q, k, v, do, lse, delta, **mask):
     to do's dtype for dv and ``ds`` to q's for dk, fp32 accumulation."""
     qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for i0 in range(0, qf.shape[2], BLOCK_K):
-        qs = slice(i0, i0 + BLOCK_K)
+    for i0 in range(0, qf.shape[2], BWD_BLOCK):
+        qs = slice(i0, i0 + BWD_BLOCK)
         p, ds = _p_ds(qf, kf, vf, dof, lse, delta, qs, slice(None), **mask)
         dv += p.to(do.dtype).float().transpose(-1, -2) @ dof[:, :, qs]
         dk += ds.to(q.dtype).float().transpose(-1, -2) @ qf[:, :, qs]
@@ -176,8 +178,10 @@ def _kernel(lib: str, name: str, n_ptrs: int, n_strides: int):
 
 
 def _kernel_layout_ok(t) -> bool:
+    # what a TMA tensor map describes: unit stride along D, the other
+    # strides nonzero multiples of 16 bytes (dims of extent 1 excepted)
     strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-    return t.stride(3) == 1 and not any(s % 8 for s in strides) \
+    return t.stride(3) == 1 and all(s > 0 and s % 8 == 0 for s in strides) \
         and t.data_ptr() % 16 == 0
 
 
@@ -189,8 +193,8 @@ def _check_kernel_operand(name, t):
     if not _kernel_layout_ok(t):
         raise ValueError(
             f"flash_attention kernel needs {name} with unit stride along "
-            "D, other strides multiples of 8 elements and a 16-byte "
-            f"aligned base; got strides {t.stride()}")
+            "D, other strides nonzero multiples of 8 elements and a "
+            f"16-byte aligned base; got strides {t.stride()}")
 
 
 def _strides(*ts):

@@ -9,8 +9,10 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. build every kernel under ``chainermn_tpu_torch/csrc`` with ``nvcc``;
-2. hold each kernel against its plain PyTorch version on the card, and
-   time kernel, plain version and a library yardstick;
+2. hold the forward kernel against its plain PyTorch version on the
+   card, at the flagship's shape and at every other head dim and in
+   fp16 (every swizzle mode and wgmma descriptor), and time kernel,
+   plain version and a library yardstick;
 3. scoring at full width: the flagship GQA transformer (24 layers,
    d_model 1024, 16 query / 4 KV heads, vocab 32000) on 8 x 2048 tokens
    in bf16 through ``make_forward_fn``, every layer through the flash
@@ -60,21 +62,27 @@ def require(cond, msg):
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+def cuda_ms(fn, reps=20, runs=5, warmup=3):
+    """Milliseconds of one ``fn()`` on the card: ``reps`` calls enqueued
+    back to back between two CUDA events, one synchronise, the elapsed
+    time over ``reps``; the median of ``runs`` such runs.  The host's
+    time to enqueue a call hides behind the card's work on the previous
+    one, as it does on the main path."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -108,63 +116,83 @@ def flash_bound_ms(B, H, Tq, Tk, D, causal, window, q_off, k_off):
 
 
 def phase_kernel(torch, fa):
-    """Kernel against plain version; returns the JSON fields of the row."""
+    """The forward kernel against its plain version: five mask cases at
+    the flagship's shape (B=8, H=16, D=64, bf16), then the same cases at
+    D = 16, 32, 64 and 128 in bf16 and fp16 (B=2), so every swizzle mode
+    and wgmma descriptor is held; returns the JSON fields of the row."""
     from chainermn_tpu_torch.ops import flash_attention_reference
 
     cases = [
-        ("smoke causal", 8, 2048, dict(causal=True)),
-        ("non-causal", 8, 2048, dict(causal=False)),
-        ("window 256", 8, 2048, dict(causal=True, window=256)),
-        ("k_offset > q_offset", 8, 2048,
+        ("smoke causal", 2048, dict(causal=True)),
+        ("non-causal", 2048, dict(causal=False)),
+        ("window 256", 2048, dict(causal=True, window=256)),
+        ("k_offset > q_offset", 2048,
          dict(causal=True, q_offset=0, k_offset=1024)),
-        ("ragged T=2000", 8, 2000, dict(causal=True)),
+        ("ragged T=2000", 2000, dict(causal=True)),
     ]
-    H, D = 16, 64
+    bf16, fp16 = torch.bfloat16, torch.float16
+    variants = [(8, 64, bf16)] + [
+        (2, d, dt) for d in (16, 32, 64, 128) for dt in (bf16, fp16)
+        if (d, dt) != (64, bf16)]
+    H = 16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = 0.0
+    worst = worst_rel = 0.0
     row = None
-    for name, B, T, kw in cases:
-        q, k, v = (torch.randn(B, T, H, D, device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(3))
-        o, lse = fa(q, k, v, return_lse=True, **kw)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_lse = (lse - lse_ref).abs().max().item()
-        # bf16 o: final rounding (one ulp = 2^-8 relative) plus rare
-        # one-ulp flips of p where fp32 sums differ in order; lse is fp32
-        torch.testing.assert_close(o.float(), o_ref.float(), rtol=1e-2,
-                                   atol=1e-2)
-        torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
-        require(bool(torch.isfinite(o.float()).all()),
-                f"{name}: o not finite")
-        if kw.get("k_offset", 0) > kw.get("q_offset", 0):
-            masked = kw["k_offset"] - kw.get("q_offset", 0)
-            require(bool((o[:, :masked] == 0).all()),
-                    f"{name}: fully masked rows are not zero")
-            require(bool((lse[:, :masked] <= -1e29).all()),
-                    f"{name}: fully masked rows' lse above -1e29")
-        worst = max(worst, err_o)
-        print(f"kernel flash_fwd [{name}] B={B} T={T} H={H} D={D}: "
-              f"max|o-plain|={err_o:.3e} max|lse-plain|={err_lse:.3e}")
-        if row is None:   # the smoke shape: time kernel, plain, library
-            ms = cuda_ms(lambda: fa(q, k, v, **kw))
-            plain_ms = cuda_ms(
-                lambda: flash_attention_reference(q, k, v, **kw), reps=5)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            library_ms = cuda_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
-            bound, by = flash_bound_ms(B, H, T, T, D, True, None, 0, 0)
-            print(f"kernel flash_fwd timing at B={B} H={H} T={T} D={D} "
-                  f"causal bf16: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms(sdpa)={library_ms:.4f} "
-                  f"bound={bound * 1e3:.1f} us ({by}) -> "
-                  f"{bound / ms:.1%} of bound")
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by=by, library_ms=library_ms)
+    for B, D, dtype in variants:
+        readings = []
+        for name, T, kw in cases:
+            q, k, v = (torch.randn(B, T, H, D, device="cuda", generator=gen,
+                                   dtype=dtype) for _ in range(3))
+            o, lse = fa(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
+            fault, err, rel, n_off = bar_fault(torch, o, o_ref, O_BAR)
+            require(fault is None, f"{name} D={D} {dtype}: o: {fault}")
+            err_lse = (lse - lse_ref).abs().max().item()
+            torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+            require(bool(torch.isfinite(o.float()).all()),
+                    f"{name}: o not finite")
+            if kw.get("k_offset", 0) > kw.get("q_offset", 0):
+                masked = kw["k_offset"] - kw.get("q_offset", 0)
+                require(bool((o[:, :masked] == 0).all()),
+                        f"{name}: fully masked rows are not zero")
+                require(bool((lse[:, :masked] <= -1e29).all()),
+                        f"{name}: fully masked rows' lse above -1e29")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            readings.append(f"{name}: max abs {err:.3e} rel L2 {rel:.3e} "
+                            f"outside the band {n_off} lse {err_lse:.3e}")
+            if row is None:   # the smoke shape: check the bar, time
+                print("kernel flash_fwd [smoke causal] the bar fails o with "
+                      "faults, relative L2: " + " ".join(
+                          f"{f} {r:.3e}" for f, r in
+                          bar_rejects_faults(torch, "o", o, o_ref,
+                                             O_BAR).items()))
+                row = time_forward(torch, fa, q, k, v, kw)
+        print(f"kernel flash_fwd B={B} H={H} D={D} {str(dtype)[6:]} against "
+              "the plain version: " + "; ".join(readings))
     row["max_abs_err"] = worst
+    row["max_rel_l2"] = worst_rel
     return row
+
+
+def time_forward(torch, fa, q, k, v, kw):
+    from chainermn_tpu_torch.ops import flash_attention_reference
+
+    B, T, H, D = q.shape
+    ms = cuda_ms(lambda: fa(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, **kw),
+                       reps=3, runs=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    bound, by = flash_bound_ms(B, H, T, T, D, True, None, 0, 0)
+    print(f"kernel flash_fwd timing at B={B} H={H} T={T} D={D} causal "
+          f"bf16: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms(sdpa)={library_ms:.4f} ({ms / library_ms:.2f}x) "
+          f"bound={bound * 1e3:.1f} us ({by}) -> {bound / ms:.1%} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
 
 
 def bwd_bound_ms(B, H, Tq, Tk, D, causal, window, q_off, k_off, dkv):
@@ -179,46 +207,61 @@ def bwd_bound_ms(B, H, Tq, Tk, D, causal, window, q_off, k_off, dkv):
     return bound_ms(flops, nbytes)
 
 
-# The kernels and the plain backward share tiles, order and the bf16
-# roundings of p and ds; they differ by rare one-ulp flips where an fp32
-# exp or sum rounds the other way.  rtol covers a flip of a large
-# element.  atol is a share of the tensor's RMS, so that small elements
-# (late keys of dk and dv are ~0.01) are held as well.  A flip of one
-# large p or ds (one ulp is 2^-8 of it) moves its element by up to
-# 2^-8 |p do|, which may exceed that band where the element's sum
-# cancels (more often in a GQA sum of four copies): four millionths of
-# the elements (67 of the 16.8 M at the training shape, 16 of a GQA
-# sum's 4.2 M) may leave the band, and they stay within 2e-2 absolute
-# plus relative.  The relative L2 bar catches a fault spread thinly over
-# many elements.  ``bar_rejects_faults`` shows on the run's own
-# gradients that the bar fails three such faults.
-GRAD_RTOL, GRAD_ATOL_RMS, GRAD_REL_L2 = 2e-2, 2e-2, 2e-3
-GRAD_OFF_SHARE, GRAD_OFF_TOL = 4e-6, 2e-2
+@dataclasses.dataclass(frozen=True)
+class Bar:
+    """What a kernel's output must meet against its plain version: each
+    element within ``rtol`` relative plus ``atol_rms`` of the reference's
+    RMS absolute, at most ``off_share`` of the elements outside that band
+    and none beyond ``off_tol`` absolute plus relative, and ``rel_l2``
+    relative L2 over the tensor."""
+    rtol: float
+    atol_rms: float
+    rel_l2: float
+    off_share: float = 4e-6
+    off_tol: float = 2e-2
 
 
-def grad_fault(torch, got, want):
-    """What keeps gradient ``got`` from matching the plain version's
-    ``want`` (None if nothing), its max abs error, its relative L2 error
-    and the count of elements outside the band."""
+# The kernels and their plain versions share tiles, order and the
+# roundings of p (and ds) to the operand dtype; they differ by rare
+# one-ulp flips where an fp32 exp or sum rounds the other way, and by the
+# final rounding of the output.  rtol covers a flip of a large element.
+# atol is a share of the tensor's RMS, so that small elements are held as
+# well: late keys of dk and dv are ~0.01, and late causal rows of o
+# ~1/sqrt(row), 0.02-0.05.  A flip of one large p or ds (one ulp is 2^-8
+# of it) moves a gradient element by up to 2^-8 |p do|, which may exceed
+# that band where the element's sum cancels (more often in a GQA sum of
+# four copies): four millionths of the elements (67 of the 16.8 M at the
+# training shape, 16 of a GQA sum's 4.2 M) may leave the band, and they
+# stay within 2e-2 absolute plus relative.  The relative L2 bar catches a
+# fault spread thinly over many elements.  ``bar_rejects_faults`` shows
+# on the run's own outputs that the bar fails three such faults.
+GRAD_BAR = Bar(rtol=2e-2, atol_rms=2e-2, rel_l2=2e-3)
+O_BAR = Bar(rtol=1e-2, atol_rms=2e-2, rel_l2=1e-3)
+
+
+def bar_fault(torch, got, want, bar):
+    """What keeps ``got`` from meeting ``bar`` against the plain
+    version's ``want`` (None if nothing), its max abs error, its relative
+    L2 error and the count of elements outside the band."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    atol = GRAD_ATOL_RMS * want.pow(2).mean().sqrt().item()
-    n_off = int((err > atol + GRAD_RTOL * want.abs()).sum())
-    far = int((err > GRAD_OFF_TOL * (1 + want.abs())).sum())
+    atol = bar.atol_rms * want.pow(2).mean().sqrt().item()
+    n_off = int((err > atol + bar.rtol * want.abs()).sum())
+    far = int((err > bar.off_tol * (1 + want.abs())).sum())
     rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
     fault = None
     if not bool(torch.isfinite(got).all()):
         fault = "not finite"
-    elif n_off > GRAD_OFF_SHARE * got.numel() or far:
-        fault = (f"{n_off} elements off by more than {GRAD_RTOL} relative "
-                 f"+ {atol:.3e}, {far} by more than {GRAD_OFF_TOL} "
+    elif n_off > bar.off_share * got.numel() or far:
+        fault = (f"{n_off} elements off by more than {bar.rtol} relative "
+                 f"+ {atol:.3e}, {far} by more than {bar.off_tol} "
                  "absolute + relative")
-    elif rel > GRAD_REL_L2:
-        fault = f"relative L2 {rel:.3e} above {GRAD_REL_L2}"
+    elif rel > bar.rel_l2:
+        fault = f"relative L2 {rel:.3e} above {bar.rel_l2}"
     return fault, err.max().item(), rel, n_off
 
 
-def bar_rejects_faults(torch, label, got, want):
+def bar_rejects_faults(torch, label, got, want, bar):
     """The bar must fail a result with a fault spread thinly: every
     element one ulp off, the elements under 0.02 zeroed, or 1e-2 added
     to the last 64 positions (one tile).  Returns the faults' relative
@@ -232,7 +275,7 @@ def bar_rejects_faults(torch, label, got, want):
         last_tile=last_tile)
     rels = {}
     for fault, bad in faults.items():
-        verdict, _, rels[fault], _ = grad_fault(torch, bad, want)
+        verdict, _, rels[fault], _ = bar_fault(torch, bad, want, bar)
         require(verdict is not None,
                 f"{label} with fault {fault} passes the bar")
     return rels
@@ -286,7 +329,7 @@ def phase_backward(torch, fa):
             checks += zip(("dk(KV heads)", "dv(KV heads)"), got[3:], sums)
         readings = []
         for label, a, b in checks:
-            fault, err, rel, n_off = grad_fault(torch, a, b)
+            fault, err, rel, n_off = bar_fault(torch, a, b, GRAD_BAR)
             require(fault is None, f"{name}: {label}: {fault}")
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
             rms = b.float().pow(2).mean().sqrt().item()
@@ -303,7 +346,8 @@ def phase_backward(torch, fa):
                 print(f"kernel flash_bwd [{name}] the bar fails {label} "
                       "with faults, relative L2: " + " ".join(
                           f"{f} {r:.3e}" for f, r in
-                          bar_rejects_faults(torch, label, a, b).items()))
+                          bar_rejects_faults(torch, label, a, b,
+                                             GRAD_BAR).items()))
             rows = time_backward(torch, ops, q.detach(), kb, vb, o, lse, do,
                                  kw)
     for row in rows.values():

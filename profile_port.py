@@ -8,6 +8,7 @@ each hand-written kernel's registers, spills and shared memory as
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 profile_port.py
+    python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
 
 For each path it prints the host wall time of one synchronised call,
 the device busy time (the sum of kernel times; one stream, so kernels
@@ -17,6 +18,17 @@ that take most of it.  The training step is ``make_train_step`` with
 ``adamw(3e-4)``, remat on, on ``bench_transformer.py``'s 8 x 2048-token
 batch, traced after one warm-up step.  Weights are random (numpy
 seed 0).
+
+``variants`` times versions of the forward kernel side by side instead:
+each SOURCE has the C entry point of ``csrc/flash_fwd.cu`` (the same
+argument list), such as an earlier version from git history or a copy
+with one part taken out.  Each is compiled with the port's ``nvcc``
+flags (all at once), loaded with ctypes and called as the wrapper calls
+its kernel at the flagship scoring shape (B=8, H=16, T=2048, D=64,
+bf16); it prints each build's spills, each version's relative L2 error
+against the plain version (a copy with a part taken out is wrong by
+design), and two rounds of causal timings and one of non-causal, SDPA's
+first in each, with ``chip_smoke.cuda_ms``, in milliseconds.
 """
 
 import re
@@ -26,7 +38,7 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
-from chip_smoke import FLAGSHIP, SEED
+from chip_smoke import FLAGSHIP, SEED, cuda_ms
 
 
 def kind(name):
@@ -77,8 +89,12 @@ def trace(torch, fn, label):
 def kernel_resources():
     """Registers, spills and shared memory of every kernel instance, from
     ``nvcc -Xptxas -v`` on each ``csrc/*.cu`` (a build apart from the
-    loaded libraries, into the build directory, removed after)."""
+    loaded libraries, into the build directory, removed after).  The
+    forward kernel's shared memory is dynamic: its size comes from the
+    library's ``flash_fwd_smem_bytes``, the source's own constant."""
     from chainermn_tpu_torch import _build
+
+    fwd_smem = _build.load_library("flash_fwd").flash_fwd_smem_bytes
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     scratch = _build.BUILD_DIR / "ptxas-report.so"
@@ -95,13 +111,92 @@ def kernel_resources():
                           r"(\d+)E", line)
             if m:
                 name = f"{m[1]}<{m[2].lstrip('0123456789')}, D={m[3]}>"
+                dynamic = (f", {fwd_smem(int(m[3]))} bytes dynamic smem"
+                           if m[1] == "flash_fwd_kernel" else "")
             elif "spill stores" in line:
                 spill = line.strip()
             elif name and (m := re.search(r"Used (\d+) registers", line)):
                 smem = re.search(r"(\d+) bytes smem", line)
                 print(f"  {name}: {m[1]} registers, "
-                      f"{smem[1] if smem else 0} bytes static smem; {spill}")
+                      f"{smem[1] if smem else 0} bytes static smem{dynamic}; "
+                      f"{spill}")
                 name = None
+
+
+def build_variants(specs, out):
+    """Compile each ``(name, source)`` at once; their ``flash_fwd``."""
+    import ctypes
+
+    from chainermn_tpu_torch import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [(name, out / f"{name}.so", subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out / f"{name}.so"), src], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for name, src in specs]
+    fns = {}
+    for name, so, proc in procs:
+        log, _ = proc.communicate()
+        spills = sorted({line.strip() for line in log.splitlines()
+                         if "spill stores" in line})
+        print(f"build {name}: rc {proc.returncode}, spills {spills}")
+        if proc.returncode:
+            print(log[-3000:])
+            continue
+        fn = ctypes.CDLL(str(so)).flash_fwd
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 12 + [i32] * 4
+                       + [ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def call_variant(torch, fn, q, k, v, causal):
+    from chainermn_tpu_torch.ops.flash_attention import (
+        _KERNEL_DTYPES,
+        _strides,
+    )
+
+    B, T, H, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), B, H, T, T, D, _KERNEL_DTYPES[q.dtype],
+             *_strides(q, k, v, o), int(causal), 0, 0, 0, D ** -0.5,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: cudaError_t {err}")
+    return o
+
+
+def variants(torch, specs):
+    from chainermn_tpu_torch.ops import flash_attention_reference
+
+    fns = build_variants(specs, Path(__file__).resolve().parent / "build"
+                         / "variants")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, T, H, D = 8, 2048, 16, 64
+    q, k, v = (torch.randn(B, T, H, D, device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    o_ref, _ = flash_attention_reference(q, k, v, causal=True)
+    for name, fn in fns.items():
+        o = call_variant(torch, fn, q, k, v, True).float()
+        torch.cuda.synchronize()
+        rel = ((o - o_ref.float()).norm() / o_ref.float().norm()).item()
+        print(f"{name}: relative L2 error against the plain version "
+              f"{rel:.3e}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, causal, rounds in (("causal", True, 2),
+                                  ("non-causal", False, 1)):
+        for r in range(rounds):
+            times = [("sdpa", cuda_ms(lambda: sdpa(qt, kt, vt,
+                                                   is_causal=causal)))]
+            times += [(name, cuda_ms(lambda: call_variant(
+                torch, fn, q, k, v, causal))) for name, fn in fns.items()]
+            print(f"{label} round {r}, B={B} H={H} T={T} D={D} bf16, ms: "
+                  + "  ".join(f"{n} {t:.4f}" for n, t in times))
 
 
 def main():
@@ -127,6 +222,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    if sys.argv[1:2] == ["variants"]:
+        variants(torch, [a.split("=", 1) for a in sys.argv[2:]])
+        return 0
     cfg = TransformerConfig(**FLAGSHIP)
     params = params_from_jax(init_numpy_params(cfg, SEED), cfg)
     rng = np.random.default_rng(SEED)

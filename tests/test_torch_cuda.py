@@ -7,10 +7,13 @@ machine without JAX; skip the repository's JAX conftest there:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances (bf16/fp16 kernel against the plain version on the same
-inputs and the same 64-row tiles): ``o`` to 1e-2 absolute and relative,
-for the final rounding of ``o`` (one ulp is 2^-8 relative) and rare
-one-ulp flips of ``p`` where the fp32 sums differ in order; ``lse`` is
-fp32 throughout and agrees to 1e-4.  The gradients are rounded to the
+inputs and the same tiles): ``o`` is rounded to the operand dtype at the
+end (one ulp is 2^-8 relative), and ``p`` before ``P·V``, where the
+kernel's base-2 exponent and summation order may flip one ulp: ``o``
+agrees to 1e-2 relative plus 2e-2 of the tensor's RMS absolute (so the
+small late-row elements of causal attention, ~1/sqrt(row), are held
+too), and to 1e-3 relative L2 over the tensor; ``lse`` is fp32
+throughout and agrees to 1e-4.  The gradients are rounded to the
 operand dtype at the end, and ``p`` and ``ds`` are rounded to it before
 their products, where the kernels' ``exp`` and summation order may flip
 one ulp: ``dq``, ``dk`` and ``dv`` agree to 2e-2 relative plus 2e-2 of
@@ -39,6 +42,14 @@ from chainermn_tpu_torch.ops import (
     flash_attention_bwd_reference,
     flash_attention_reference,
 )
+
+
+def _assert_o_close(got, want):
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=2e-2 * rms)
+    rel = (got - want).norm() / want.norm().clamp_min(1e-30)
+    assert rel <= 1e-3, f"relative L2 {rel.item():.3e}"
 
 
 def _assert_grad_close(got, want):
@@ -83,13 +94,53 @@ def test_cuda_kernel_matches_plain(cuda, kw, t, d, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
-    torch.testing.assert_close(o.float(), o_ref.float(), rtol=1e-2,
-                               atol=1e-2)
+    _assert_o_close(o, o_ref)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
     if kw.get("k_offset", 0) == 100:
         rows = min(t, 100)
         assert torch.all(o[:, :rows] == 0)
         assert torch.all(lse[:, :rows] <= -1e29)
+
+
+# (Tq, Tk, mask) cases for the forward kernel's 128-row Q and 128-key K
+# tiles and its tile classes (skipped, interior, edge)
+TILE_CASES = {
+    "T=1": (1, 1, dict(causal=True)),
+    "T=1 non-causal": (1, 1, dict(causal=False)),
+    "3 tiles + tail, window across tile edges": (
+        400, 400, dict(causal=True, window=150)),
+    "Tq != Tk, suffix queries": (200, 333, dict(causal=True, q_offset=133)),
+    "Tq != Tk, non-causal": (77, 300, dict(causal=False)),
+    "every tile of two CTAs skipped": (
+        300, 300, dict(causal=True, q_offset=0, k_offset=260)),
+    "window and offsets": (
+        260, 260, dict(causal=True, window=100, q_offset=500,
+                       k_offset=300)),
+}
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("d", (16, 32, 64, 128))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_cuda_kernel_tile_classes(cuda, case, d, dtype):
+    tq, tk, kw = TILE_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(tq * d + tk)
+    q = torch.randn(2, tq, 3, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(2, tk, 3, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    before = flash_attention.launches
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
+    assert o.dtype == dtype and o.shape == q.shape
+    _assert_o_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    masked = kw.get("k_offset", 0) - kw.get("q_offset", 0)
+    if masked > 0:   # rows that see no key: written as o = 0
+        assert torch.all(o[:, :masked] == 0)
+        assert torch.all(lse[:, :masked] <= -1e29)
+        assert torch.all(o[:, masked:].abs().amax(dim=(2, 3)) > 0)
 
 
 def _launch_counts():
@@ -154,8 +205,7 @@ def test_cuda_kernel_reads_strided_views(cuda):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     o = flash_attention(q, k, v, causal=True)
     o_ref, _ = flash_attention_reference(q, k, v, causal=True)
-    torch.testing.assert_close(o.float(), o_ref.float(), rtol=1e-2,
-                               atol=1e-2)
+    _assert_o_close(o, o_ref)
 
 
 def test_cuda_wrapper_refuses(cuda):

@@ -6,7 +6,8 @@ repeats the Hopper kernel's arithmetic; the kernel itself is held against
 that plain version on the card in ``test_torch_cuda.py``.
 
 Tolerances: fp32 inputs differ only in summation order and tile size
-(the JAX kernel here sweeps 32-key blocks, the port 64-key tiles), so
+(the JAX kernel here sweeps 32-key blocks, or one block of the whole
+length, the port 128-key tiles), so
 ``o`` agrees to 2e-5 (the JAX package's own flash-vs-oracle bound) and
 ``lse`` to 1e-5.  bf16 inputs also round ``p`` to bf16 relative to a
 running max that depends on the tile size, and round ``o`` to bf16
@@ -39,10 +40,10 @@ def qkv(seed=0, t=T, heads=(H, H, H), dtype=np.float32):
     return [(rng.randn(B, t, h, D) * 0.5).astype(dtype) for h in heads]
 
 
-def jax_run(q, k, v, dtype=jnp.float32, **kw):
+def jax_run(q, k, v, dtype=jnp.float32, block=32, **kw):
     o, lse = jax_flash(
-        *(jnp.asarray(x, dtype) for x in (q, k, v)), block_q=32,
-        block_k=32, interpret=True, return_lse=True, **kw)
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), block_q=block,
+        block_k=block, interpret=True, return_lse=True, **kw)
     return np.asarray(o.astype(jnp.float32)), np.asarray(lse)
 
 
@@ -120,13 +121,89 @@ def test_flash_gqa_through_broadcast_kv():
 
 
 def test_ragged_length_matches_local():
-    # 72 = one full 64-key tile + a masked 8-key tail
+    # 72 keys: one ragged 128-key tile of the forward kernel
     q, k, v = qkv(5, t=72)
     for causal in (False, True):
         o, _ = port_run(q, k, v, causal=causal)
         ref = jax_local(*(jnp.asarray(x) for x in (q, k, v)),
                         causal=causal)
         np.testing.assert_allclose(o, np.asarray(ref), **FP32_TOL)
+
+
+# Cases over several of the forward kernel's 128-key tiles: a ragged
+# last tile, Tq != Tk, a window across tile edges, whole tiles masked.
+# The JAX kernel runs them as one block per axis (its lengths must be
+# multiples of 8), the XLA oracle on the rows that see a key.
+TILE_CASES = {
+    "ragged tail, causal": (288, 288, dict(causal=True)),
+    "ragged tail, non-causal": (288, 288, dict(causal=False)),
+    "Tq != Tk, suffix queries": (160, 288, dict(causal=True, q_offset=128)),
+    "Tq != Tk, non-causal": (96, 288, dict(causal=False)),
+    "window across tile edges": (288, 288, dict(causal=True, window=100)),
+    "whole tiles masked": (288, 288,
+                           dict(causal=True, q_offset=0, k_offset=160)),
+    "window, whole tiles masked": (
+        288, 288, dict(causal=True, window=40, q_offset=300, k_offset=0)),
+}
+
+
+def multi_tile_qkv(seed, tq, tk):
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(B, tq, H, D) * 0.5).astype(np.float32)
+    k, v = ((rng.randn(B, tk, H, D) * 0.5).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+def seen_rows(tq, tk, causal=False, window=None, q_offset=0, k_offset=0):
+    """Rows of the query block that see at least one key."""
+    if not causal:
+        return np.arange(tq)
+    qpos = q_offset + np.arange(tq)
+    newest = np.minimum(qpos - k_offset, tk - 1)
+    oldest = 0 if window is None else np.maximum(qpos - window + 1 - k_offset,
+                                                 0)
+    return np.nonzero(newest >= oldest)[0]
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_flash_multi_tile_matches_jax_fp32(case):
+    tq, tk, kw = TILE_CASES[case]
+    q, k, v = multi_tile_qkv(7, tq, tk)
+    o_ref, lse_ref = jax_run(q, k, v, block=max(tq, tk), **kw)
+    o, lse = port_run(q, k, v, **kw)
+    np.testing.assert_allclose(o, o_ref, **FP32_TOL)
+    np.testing.assert_allclose(lse, lse_ref, **LSE_TOL)
+    rows = seen_rows(tq, tk, **kw)
+    assert 0 < len(rows) <= tq
+    oracle = np.asarray(jax_local(*(jnp.asarray(x) for x in (q, k, v)),
+                                  **kw))
+    np.testing.assert_allclose(o[:, rows], oracle[:, rows], **FP32_TOL)
+    masked = np.setdiff1d(np.arange(tq), rows)
+    assert np.all(o[:, masked] == 0.0) and np.all(lse[:, masked] <= -1e29)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 100)])
+def test_flash_multi_tile_matches_jax_bf16(causal, window):
+    q, k, v = multi_tile_qkv(8, 288, 288)
+    kw = dict(causal=causal, window=window)
+    o_ref, lse_ref = jax_run(q, k, v, jnp.bfloat16, block=288, **kw)
+    o, lse = port_run(q, k, v, torch.bfloat16, **kw)
+    np.testing.assert_allclose(o, o_ref, rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(lse, lse_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=150),
+                                dict(causal=True, q_offset=40, k_offset=0)])
+def test_ragged_300_matches_local(kw):
+    # T = 300: two full 128-key tiles and a 44-key tail, not a length the
+    # JAX kernel takes (multiples of 8), so only the XLA oracle
+    q, k, v = multi_tile_qkv(9, 300, 300)
+    o, _ = port_run(q, k, v, **kw)
+    ref = jax_local(*(jnp.asarray(x) for x in (q, k, v)), **kw)
+    np.testing.assert_allclose(o, np.asarray(ref), **FP32_TOL)
 
 
 def test_supported_gate_and_raises():
