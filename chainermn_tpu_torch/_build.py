@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/kernels/<name>-<hash>.so``
 at the root of the checkout (``build/`` is git-ignored), and is loaded
-with :mod:`ctypes`.  The hash is of the source, so an edited kernel is
-rebuilt and a stale library is never loaded.  Nothing is built when a
+with :mod:`ctypes`.  The hash is of the source and of every shared header
+``csrc/*.cuh``, so an edited kernel or header is rebuilt and a stale
+library is never loaded.  Nothing is built when a
 module is imported: the first call of a kernel's wrapper builds it, or
 :func:`build_all` builds every kernel at once, one ``nvcc`` per source,
 all started together.  Any build or load failure raises.
@@ -46,8 +47,10 @@ def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

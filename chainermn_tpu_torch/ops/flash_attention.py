@@ -13,7 +13,8 @@ function.
 - A CPU tensor runs :func:`flash_attention_reference` forward and
   :func:`flash_attention_bwd_reference` backward, which repeat the
   kernels' arithmetic (the same tiles in the same order: 128-key tiles
-  forward, 64-row tiles backward; fp32 statistics and accumulators,
+  forward; backward, 128-key tiles for dq (64 at D=128) and 64-query
+  tiles for dk/dv; fp32 statistics and accumulators,
   ``p`` and ``ds`` cast to the operand dtype before their products, the
   explicit zeroing of masked ``p`` and the ``1e-30`` floor), so a fully
   masked row gives ``o = 0``, ``lse ≈ -1e30`` and ``dq = 0`` on both.
@@ -38,7 +39,7 @@ __all__ = ["flash_attention", "flash_attention_bwd_reference",
 
 _NEG = -1e30
 FWD_BLOCK_K = 128               # the forward kernel's K tile
-BWD_BLOCK = 64                  # the backward kernels' K and Q tiles
+BWD_BLOCK_Q = 64                # the dk/dv kernel's Q tile
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _INT32_MAX = 2 ** 31 - 1
@@ -128,13 +129,20 @@ def _p_ds(qf, kf, vf, dof, lse, delta, qs, ks, *, causal=False,
     return p, p * (dp - delta[:, :, qs, None]) * scale
 
 
+def _dq_block_k(D: int) -> int:
+    """The dq kernel's K tile at head dim ``D``: 128 keys, 64 at D=128
+    (where S, dP and dQ of 128 keys would not fit in its registers)."""
+    return 128 if D <= 64 else 64
+
+
 def _dq_reference(q, k, v, do, lse, delta, **mask):
-    """The dq kernel's arithmetic: 64-key tiles in order, ``ds`` cast to
+    """The dq kernel's arithmetic: its K tiles in order, ``ds`` cast to
     k's dtype, fp32 accumulation.  ``lse``/``delta`` ``(B, H, Tq)``."""
     qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
     dq = torch.zeros_like(qf)
-    for j0 in range(0, kf.shape[2], BWD_BLOCK):
-        ks = slice(j0, j0 + BWD_BLOCK)
+    block = _dq_block_k(q.shape[-1])
+    for j0 in range(0, kf.shape[2], block):
+        ks = slice(j0, j0 + block)
         _, ds = _p_ds(qf, kf, vf, dof, lse, delta, slice(None), ks, **mask)
         dq += ds.to(k.dtype).float() @ kf[:, :, ks]
     return dq.to(q.dtype).transpose(1, 2).contiguous()
@@ -145,8 +153,8 @@ def _dkv_reference(q, k, v, do, lse, delta, **mask):
     to do's dtype for dv and ``ds`` to q's for dk, fp32 accumulation."""
     qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for i0 in range(0, qf.shape[2], BWD_BLOCK):
-        qs = slice(i0, i0 + BWD_BLOCK)
+    for i0 in range(0, qf.shape[2], BWD_BLOCK_Q):
+        qs = slice(i0, i0 + BWD_BLOCK_Q)
         p, ds = _p_ds(qf, kf, vf, dof, lse, delta, qs, slice(None), **mask)
         dv += p.to(do.dtype).float().transpose(-1, -2) @ dof[:, :, qs]
         dk += ds.to(q.dtype).float().transpose(-1, -2) @ qf[:, :, qs]

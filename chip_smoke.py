@@ -21,8 +21,12 @@ Phases (any failure exits non-zero before the last line is printed):
    tokens, 64 new tokens, with ``eos_id`` set, its decode logits checked
    against the full forward on the generated sequence;
 5. the backward kernels (dq; dk/dv) against their plain version on the
-   card, on the forward's cases and a grouped-K/V case, timed at the
-   training shape beside SDPA's backward;
+   card, on the forward's cases and a grouped-K/V case at the training
+   shape and at every other head dim and in fp16, and on cases of
+   several of their tiles and tile classes (Tq != Tk, ragged ends,
+   windows across tile edges, offsets) at every head dim in both dtypes;
+   two runs must give the same bits; timed at the training shape beside
+   SDPA's backward;
 6. training at full width: ``make_train_step`` with ``adamw(3e-4)`` on
    one batch of 8 x 2048 tokens (``bench_transformer.py``'s), remat on,
    one warm-up and five timed steps, every layer's forward, recompute
@@ -281,12 +285,86 @@ def bar_rejects_faults(torch, label, got, want, bar):
     return rels
 
 
-def phase_backward(torch, fa):
-    """Backward kernels against their plain version; returns the JSON
-    fields of the dq and dk/dv rows."""
+# (Tq, Tk, mask) cases of several of the backward kernels' tiles (dq: 128
+# query rows against 128 keys, 64 at D=128; dk/dv: 128 keys against 64
+# queries) and of their tile classes (skipped, interior, edge).  They run
+# with a random cotangent of lse as well: without one, a row whose
+# softmax has one key (T=1) has dq = 0 up to rounding, and the kernels'
+# and the plain version's roundings would be compared.
+BWD_TILE_CASES = {
+    "T=1": (1, 1, dict(causal=True)),
+    "3 tiles + tail, window across tile edges": (
+        400, 400, dict(causal=True, window=150)),
+    "Tq != Tk, suffix queries": (200, 333, dict(causal=True, q_offset=133)),
+    "Tq != Tk, non-causal": (77, 300, dict(causal=False)),
+    "every tile of two CTAs skipped": (
+        300, 300, dict(causal=True, q_offset=0, k_offset=260)),
+    "window and offsets": (
+        260, 260, dict(causal=True, window=100, q_offset=500,
+                       k_offset=300)),
+}
+
+
+def backward_case(torch, fa, name, B, Tq, Tk, H, Hkv, D, dtype, kw, gen,
+                  with_dlse=False):
+    """One backward through the kernels (autograd) against the plain
+    version on the kernels' own forward outputs, under ``GRAD_BAR``, with
+    a random cotangent of ``lse`` too if ``with_dlse``; returns
+    (readings, worst abs, worst rel L2, the operands and the kernels' and
+    plain version's dq, dk, dv)."""
     from chainermn_tpu_torch.ops import flash_attention_bwd_reference
     from chainermn_tpu_torch.parallel import broadcast_kv
 
+    q = torch.randn(B, Tq, H, D, device="cuda", generator=gen, dtype=dtype)
+    k, v = (torch.randn(B, Tk, Hkv, D, device="cuda", generator=gen,
+                        dtype=dtype) for _ in range(2))
+    do = torch.randn(B, Tq, H, D, device="cuda", generator=gen, dtype=dtype)
+    dlse = torch.randn(B, Tq, H, device="cuda", generator=gen) \
+        if with_dlse else None
+    ts = [x.requires_grad_() for x in (q, k, v)]
+    kb, vb = broadcast_kv(ts[1], ts[2], H // Hkv)
+    o, lse = fa(ts[0], kb, vb, return_lse=True, **kw)
+    # the kernels' own outputs (dk, dv per broadcast copy) and, for
+    # GQA, the KV heads' gradients autograd sums from them
+    got = torch.autograd.grad(
+        (o, lse) if with_dlse else o,
+        [ts[0], kb, vb] + (ts[1:] if Hkv != H else []),
+        (do, dlse) if with_dlse else do)
+    torch.cuda.synchronize()
+    kb, vb, o, lse = (x.detach() for x in (kb, vb, o, lse))
+    want = list(flash_attention_bwd_reference(q.detach(), kb, vb, o, lse,
+                                              do, dlse, **kw))
+    checks = list(zip(("dq", "dk", "dv"), got, want))
+    if Hkv != H:   # the KV heads' sums, by the same autograd of
+        # broadcast_kv on the plain version's copies
+        k2, v2 = (x.detach().requires_grad_() for x in ts[1:])
+        sums = torch.autograd.grad(broadcast_kv(k2, v2, H // Hkv),
+                                   (k2, v2), want[1:])
+        checks += zip(("dk(KV heads)", "dv(KV heads)"), got[3:], sums)
+    readings, worst, worst_rel = [], 0.0, 0.0
+    for label, a, b in checks:
+        fault, err, rel, n_off = bar_fault(torch, a, b, GRAD_BAR)
+        require(fault is None,
+                f"{name} D={D} {dtype}: {label}: {fault}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        rms = b.float().pow(2).mean().sqrt().item()
+        readings.append(f"{label} max abs {err:.3e} rel L2 {rel:.3e} "
+                        f"outside the band {n_off} (rms {rms:.3e})")
+    masked = kw.get("k_offset", 0) - kw.get("q_offset", 0)
+    if masked > 0:
+        require(bool((got[0][:, :masked] == 0).all()),
+                f"{name} D={D} {dtype}: dq of fully masked rows is not "
+                "zero")
+    return (readings, worst, worst_rel, (q.detach(), kb, vb, o, lse, do),
+            got[:3], want)
+
+
+def phase_backward(torch, fa):
+    """Backward kernels against their plain version: the mask cases at
+    the training shape (B=8, H=16, D=64, bf16), then at D = 16, 32, 64
+    and 128 in bf16 and fp16 (B=2), and the tile cases at every D in
+    both dtypes; two runs give the same bits; returns the JSON fields of
+    the dq and dk/dv rows."""
     # the wrapper module (the package exports its function of that name)
     ops = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
     cases = [
@@ -298,62 +376,63 @@ def phase_backward(torch, fa):
         ("ragged T=2000", 2000, 16, dict(causal=True)),
         ("GQA 4 KV heads via broadcast_kv", 2048, 4, dict(causal=True)),
     ]
-    B, H, D = 8, 16, 64
+    bf16, fp16 = torch.bfloat16, torch.float16
+    variants = [(8, 64, bf16)] + [
+        (2, d, dt) for d in (16, 32, 64, 128) for dt in (bf16, fp16)
+        if (d, dt) != (64, bf16)]
+    H = 16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = worst_rel = 0.0
     rows = None
-    for name, T, Hkv, kw in cases:
-        q = torch.randn(B, T, H, D, device="cuda", generator=gen,
-                        dtype=torch.bfloat16)
-        k, v = (torch.randn(B, T, Hkv, D, device="cuda", generator=gen,
-                            dtype=torch.bfloat16) for _ in range(2))
-        do = torch.randn(B, T, H, D, device="cuda", generator=gen,
-                         dtype=torch.bfloat16)
-        ts = [x.requires_grad_() for x in (q, k, v)]
-        kb, vb = broadcast_kv(ts[1], ts[2], H // Hkv)
-        o, lse = fa(ts[0], kb, vb, return_lse=True, **kw)
-        # the kernels' own outputs (dk, dv per broadcast copy) and, for
-        # GQA, the KV heads' gradients autograd sums from them
-        got = torch.autograd.grad(
-            o, [ts[0], kb, vb] + (ts[1:] if Hkv != H else []), do)
-        torch.cuda.synchronize()
-        kb, vb, o, lse = (x.detach() for x in (kb, vb, o, lse))
-        want = list(flash_attention_bwd_reference(q.detach(), kb, vb, o,
-                                                  lse, do, **kw))
-        checks = list(zip(("dq", "dk", "dv"), got, want))
-        if Hkv != H:   # the KV heads' sums, by the same autograd of
-            # broadcast_kv on the plain version's copies
-            k2, v2 = (x.detach().requires_grad_() for x in ts[1:])
-            sums = torch.autograd.grad(broadcast_kv(k2, v2, H // Hkv),
-                                       (k2, v2), want[1:])
-            checks += zip(("dk(KV heads)", "dv(KV heads)"), got[3:], sums)
-        readings = []
-        for label, a, b in checks:
-            fault, err, rel, n_off = bar_fault(torch, a, b, GRAD_BAR)
-            require(fault is None, f"{name}: {label}: {fault}")
+    for B, D, dtype in variants:
+        for name, T, Hkv, kw in cases:
+            readings, err, rel, operands, got, want = backward_case(
+                torch, fa, name, B, T, T, H, Hkv, D, dtype, kw, gen)
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
-            rms = b.float().pow(2).mean().sqrt().item()
-            readings.append(f"{label} max abs {err:.3e} rel L2 {rel:.3e} "
-                            f"outside the band {n_off} (rms {rms:.3e})")
-        if kw.get("k_offset", 0) > kw.get("q_offset", 0):
-            masked = kw["k_offset"] - kw.get("q_offset", 0)
-            require(bool((got[0][:, :masked] == 0).all()),
-                    f"{name}: dq of fully masked rows is not zero")
-        print(f"kernel flash_bwd [{name}] B={B} T={T} H={H} Hkv={Hkv} "
-              f"D={D} against the plain version: " + "; ".join(readings))
-        if rows is None:   # the training shape: check the bar, time
-            for label, a, b in zip(("dq", "dk", "dv"), got, want):
-                print(f"kernel flash_bwd [{name}] the bar fails {label} "
-                      "with faults, relative L2: " + " ".join(
-                          f"{f} {r:.3e}" for f, r in
-                          bar_rejects_faults(torch, label, a, b,
-                                             GRAD_BAR).items()))
-            rows = time_backward(torch, ops, q.detach(), kb, vb, o, lse, do,
-                                 kw)
+            print(f"kernel flash_bwd [{name}] B={B} T={T} H={H} Hkv={Hkv} "
+                  f"D={D} {str(dtype)[6:]} against the plain version: "
+                  + "; ".join(readings))
+            if rows is None:   # the training shape: check the bar, time
+                for label, a, b in zip(("dq", "dk", "dv"), got, want):
+                    print(f"kernel flash_bwd [{name}] the bar fails {label} "
+                          "with faults, relative L2: " + " ".join(
+                              f"{f} {r:.3e}" for f, r in
+                              bar_rejects_faults(torch, label, a, b,
+                                                 GRAD_BAR).items()))
+                require(backward_is_deterministic(torch, fa, operands, kw),
+                        f"{name}: two backward runs differ")
+                print(f"kernel flash_bwd [{name}] two runs give the same "
+                      "dq, dk and dv bits")
+                rows = time_backward(torch, ops, *operands, kw)
+    for D in (16, 32, 64, 128):
+        for dtype in (bf16, fp16):
+            readings = []
+            for name, (tq, tk, kw) in BWD_TILE_CASES.items():
+                _, err, rel, *_ = backward_case(
+                    torch, fa, name, 2, tq, tk, 3, 3, D, dtype, kw, gen,
+                    with_dlse=True)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                readings.append(f"{name}: max abs {err:.3e} rel L2 "
+                                f"{rel:.3e}")
+            print(f"kernel flash_bwd tile cases B=2 H=3 D={D} "
+                  f"{str(dtype)[6:]}, worst of dq, dk, dv against the "
+                  "plain version: " + "; ".join(readings))
     for row in rows.values():
         row["max_abs_err"] = worst
         row["max_rel_l2"] = worst_rel
     return rows
+
+
+def backward_is_deterministic(torch, fa, operands, kw):
+    """Two backward runs through the kernels on the same inputs give
+    bitwise-equal dq, dk and dv."""
+    q, k, v, _, _, do = operands
+    runs = []
+    for _ in range(2):
+        ts = [x.detach().requires_grad_() for x in (q, k, v)]
+        runs.append(torch.autograd.grad(fa(*ts, **kw), ts, do))
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def time_backward(torch, ops, q, k, v, o, lse, do, kw):

@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 profile_port.py
     python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
+    python3 profile_port.py variants bwd NAME=SOURCE.cu [NAME=SOURCE.cu ...]
 
 For each path it prints the host wall time of one synchronised call,
 the device busy time (the sum of kernel times; one stream, so kernels
@@ -23,12 +24,17 @@ seed 0).
 each SOURCE has the C entry point of ``csrc/flash_fwd.cu`` (the same
 argument list), such as an earlier version from git history or a copy
 with one part taken out.  Each is compiled with the port's ``nvcc``
-flags (all at once), loaded with ctypes and called as the wrapper calls
-its kernel at the flagship scoring shape (B=8, H=16, T=2048, D=64,
-bf16); it prints each build's spills, each version's relative L2 error
-against the plain version (a copy with a part taken out is wrong by
-design), and two rounds of causal timings and one of non-causal, SDPA's
-first in each, with ``chip_smoke.cuda_ms``, in milliseconds.
+flags (all at once, ``csrc/`` on the include path for ``hopper.cuh``),
+loaded with ctypes and called as the wrapper calls its kernel at the
+flagship scoring shape (B=8, H=16, T=2048, D=64, bf16); it prints each
+build's spills, each version's relative L2 error against the plain
+version (a copy with a part taken out is wrong by design), and two
+rounds of causal timings and one of non-causal, SDPA's first in each,
+with ``chip_smoke.cuda_ms``, in milliseconds.  ``variants bwd`` does the
+same for versions of ``csrc/flash_bwd.cu`` (its two entry points) at the
+flagship training shape, causal: each version's dq, dk and dv against
+the plain versions, then two rounds of SDPA's backward (dq, dk and dv in
+one call) and each version's dq and dk/dv kernels.
 """
 
 import re
@@ -86,15 +92,41 @@ def trace(torch, fn, label):
         print(f"    {us / 1e3:9.3f} ms {us / busy:6.1%}  {name[:90]}")
 
 
+def ptxas_kernels(log):
+    """``(kernel, dtype, D, registers, static smem bytes, spill line)`` of
+    each kernel instance in the output of ``nvcc -Xptxas -v``."""
+    found, name, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(\w+?)Li"
+                      r"(\d+)E", line)
+        if m:
+            name = (m[1], m[2].lstrip("0123456789"), int(m[3]))
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            found.append((*name, int(m[1]), int(smem[1]) if smem else 0,
+                          spill))
+            name = None
+    return found
+
+
 def kernel_resources():
     """Registers, spills and shared memory of every kernel instance, from
     ``nvcc -Xptxas -v`` on each ``csrc/*.cu`` (a build apart from the
     loaded libraries, into the build directory, removed after).  The
-    forward kernel's shared memory is dynamic: its size comes from the
-    library's ``flash_fwd_smem_bytes``, the source's own constant."""
+    kernels' shared memory is dynamic: its size comes from the libraries'
+    ``flash_fwd_smem_bytes`` and ``flash_bwd_smem_bytes``, the sources'
+    own constants."""
     from chainermn_tpu_torch import _build
 
     fwd_smem = _build.load_library("flash_fwd").flash_fwd_smem_bytes
+    bwd_smem = _build.load_library("flash_bwd").flash_bwd_smem_bytes
+    dynamic_smem = {
+        "flash_fwd_kernel": fwd_smem,
+        "flash_bwd_dq_kernel": lambda d: bwd_smem(d, 0),
+        "flash_bwd_dkv_kernel": lambda d: bwd_smem(d, 1)}
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     scratch = _build.BUILD_DIR / "ptxas-report.so"
@@ -104,52 +136,51 @@ def kernel_resources():
              str(scratch), str(src)], capture_output=True, text=True,
             check=True, timeout=600)
         scratch.unlink(missing_ok=True)
-        name = spill = None
-        for line in (out.stdout + out.stderr).splitlines():
-            m = re.search(r"Compiling entry function '\S*?"
-                          r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(\w+?)Li"
-                          r"(\d+)E", line)
-            if m:
-                name = f"{m[1]}<{m[2].lstrip('0123456789')}, D={m[3]}>"
-                dynamic = (f", {fwd_smem(int(m[3]))} bytes dynamic smem"
-                           if m[1] == "flash_fwd_kernel" else "")
-            elif "spill stores" in line:
-                spill = line.strip()
-            elif name and (m := re.search(r"Used (\d+) registers", line)):
-                smem = re.search(r"(\d+) bytes smem", line)
-                print(f"  {name}: {m[1]} registers, "
-                      f"{smem[1] if smem else 0} bytes static smem{dynamic}; "
-                      f"{spill}")
-                name = None
+        for kernel, dtype, d, regs, smem, spill in ptxas_kernels(
+                out.stdout + out.stderr):
+            print(f"  {kernel}<{dtype}, D={d}>: {regs} registers, {smem} "
+                  f"bytes static smem, {dynamic_smem[kernel](d)} bytes "
+                  f"dynamic smem; {spill}")
 
 
-def build_variants(specs, out):
-    """Compile each ``(name, source)`` at once; their ``flash_fwd``."""
+def build_variants(specs, out, entry_points):
+    """Compile each ``(name, source)`` at once; for each version that
+    builds, its C entry points ``{entry: (n_ptrs, n_strides)}`` with the
+    wrapper's argument list (``ops.flash_attention._kernel``)."""
     import ctypes
 
     from chainermn_tpu_torch import _build
 
     out.mkdir(parents=True, exist_ok=True)
     procs = [(name, out / f"{name}.so", subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         str(out / f"{name}.so"), src], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)) for name, src in specs]
-    fns = {}
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+         str(_build.CSRC), "-o", str(out / f"{name}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, src in specs]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    versions = {}
     for name, so, proc in procs:
         log, _ = proc.communicate()
-        spills = sorted({line.strip() for line in log.splitlines()
-                         if "spill stores" in line})
-        print(f"build {name}: rc {proc.returncode}, spills {spills}")
+        spills = [f"{k.removesuffix('_kernel')}<{t}, D={d}> "
+                  f"{sp.replace('bytes ', '')}"
+                  for k, t, d, _, _, sp in ptxas_kernels(log)
+                  if sp and " 0 bytes spill stores" not in sp]
+        serialised = log.count("wgmma.mma_async instructions are serialized")
+        print(f"build {name}: rc {proc.returncode}, spills: "
+              + ("; ".join(spills) or "none")
+              + f"; kernels whose wgmma ptxas serialises: {serialised}")
         if proc.returncode:
             print(log[-3000:])
             continue
-        fn = ctypes.CDLL(str(so)).flash_fwd
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 12 + [i32] * 4
-                       + [ctypes.c_float, ptr])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        lib = ctypes.CDLL(str(so))
+        versions[name] = {}
+        for entry, (n_ptrs, n_strides) in entry_points.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides
+                           + [i32] * 4 + [ctypes.c_float, ptr])
+            fn.restype = ctypes.c_int
+            versions[name][entry] = fn
+    return versions
 
 
 def call_variant(torch, fn, q, k, v, causal):
@@ -173,8 +204,9 @@ def call_variant(torch, fn, q, k, v, causal):
 def variants(torch, specs):
     from chainermn_tpu_torch.ops import flash_attention_reference
 
-    fns = build_variants(specs, Path(__file__).resolve().parent / "build"
-                         / "variants")
+    fns = {name: entries["flash_fwd"] for name, entries in build_variants(
+        specs, Path(__file__).resolve().parent / "build" / "variants",
+        {"flash_fwd": (5, 12)}).items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, T, H, D = 8, 2048, 16, 64
     q, k, v = (torch.randn(B, T, H, D, device="cuda", generator=gen,
@@ -197,6 +229,74 @@ def variants(torch, specs):
                 torch, fn, q, k, v, causal))) for name, fn in fns.items()]
             print(f"{label} round {r}, B={B} H={H} T={T} D={D} bf16, ms: "
                   + "  ".join(f"{n} {t:.4f}" for n, t in times))
+
+
+def call_bwd_variant(torch, fns, q, k, v, do, lse, delta, dkv):
+    """One version's dq kernel (``dkv`` False) or dk/dv kernel, called
+    as ``_launch_dq``/``_launch_dkv`` call theirs, causal; its outputs."""
+    from chainermn_tpu_torch.ops.flash_attention import (
+        _KERNEL_DTYPES,
+        _strides,
+    )
+
+    B, T, H, D = q.shape
+    outs = [torch.empty_like(k), torch.empty_like(v)] if dkv \
+        else [torch.empty_like(q)]
+    fn = fns["flash_bwd_dkv" if dkv else "flash_bwd_dq"]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+             B, H, T, T, D, _KERNEL_DTYPES[q.dtype],
+             *_strides(q, k, v, do, *outs), 1, 0, 0, 0, D ** -0.5,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: cudaError_t {err}")
+    return outs
+
+
+def variants_bwd(torch, specs):
+    """Versions of ``csrc/flash_bwd.cu`` side by side at the flagship
+    training shape, causal, beside SDPA's backward."""
+    import importlib
+
+    from chainermn_tpu_torch.ops import flash_attention
+
+    # the wrapper module (the package exports its function of that name)
+    ops = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    versions = build_variants(
+        specs, Path(__file__).resolve().parent / "build" / "variants",
+        {"flash_bwd_dq": (7, 15), "flash_bwd_dkv": (8, 18)})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B, T, H, D = 8, 2048, 16, 64
+    q, k, v, do = (torch.randn(B, T, H, D, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    do_, lse_, delta = ops._bwd_operands(q, o, lse, do, None)
+    want = [ops._dq_reference(q, k, v, do_, lse_, delta, causal=True),
+            *ops._dkv_reference(q, k, v, do_, lse_, delta, causal=True)]
+    for name, fns in versions.items():
+        got = (call_bwd_variant(torch, fns, q, k, v, do_, lse_, delta, False)
+               + call_bwd_variant(torch, fns, q, k, v, do_, lse_, delta,
+                                  True))
+        torch.cuda.synchronize()
+        rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(got, want)]
+        print(f"{name}: relative L2 error against the plain version: dq "
+              f"{rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    for r in range(2):
+        times = [("sdpa_bwd", cuda_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True)))]
+        for name, fns in versions.items():
+            for part, dkv in (("dq", False), ("dkv", True)):
+                times.append((f"{name}.{part}", cuda_ms(
+                    lambda: call_bwd_variant(torch, fns, q, k, v, do_, lse_,
+                                             delta, dkv))))
+        print(f"causal round {r}, B={B} H={H} T={T} D={D} bf16, ms: "
+              + "  ".join(f"{n} {t:.4f}" for n, t in times))
 
 
 def main():
@@ -222,6 +322,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    if sys.argv[1:3] == ["variants", "bwd"]:
+        variants_bwd(torch, [a.split("=", 1) for a in sys.argv[3:]])
+        return 0
     if sys.argv[1:2] == ["variants"]:
         variants(torch, [a.split("=", 1) for a in sys.argv[2:]])
         return 0

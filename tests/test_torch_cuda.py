@@ -181,6 +181,45 @@ def test_cuda_backward_kernels_match_plain(cuda, kw, t, d, dtype):
         assert torch.all(got[0][:, :min(t, 100)] == 0)
 
 
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("d", (16, 32, 64, 128))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float16))
+def test_cuda_backward_tile_classes(cuda, case, d, dtype):
+    # the backward kernels' tiles (dq: 128 query rows against 128 keys, 64
+    # at D=128; dk/dv: 128 keys against 64 queries) and tile classes
+    tq, tk, kw = TILE_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(tq * d + tk + 1)
+    q, do = (torch.randn(2, tq, 3, d, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(2, tk, 3, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    dlse = torch.randn(2, tq, 3, generator=g).to(cuda)
+    got, want = _kernel_and_plain_grads(q, k, v, do, dlse, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _assert_grad_close(a, b)
+    masked = kw.get("k_offset", 0) - kw.get("q_offset", 0)
+    if masked > 0:   # rows that see no key: dq = 0
+        assert torch.all(got[0][:, :masked] == 0)
+        assert torch.all(got[0][:, masked:].abs().amax(dim=(2, 3)) > 0)
+
+
+@pytest.mark.parametrize("d", (16, 32, 64, 128))
+def test_cuda_backward_is_deterministic(cuda, d):
+    # two kernels, no atomics: the same inputs give the same bits
+    g = torch.Generator(device="cpu").manual_seed(d)
+    q, k, v, do = (torch.randn(2, 333, 4, d, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(4))
+    runs = []
+    for _ in range(2):
+        ts = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = flash_attention(*ts, causal=True, window=200)
+        runs.append(torch.autograd.grad(o, ts, do))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_cuda_backward_reads_strided_views(cuda):
     # q/k/v views of one fused projection; do a slice of a wider tensor
     # (strides the kernels read in place) and one with a stride of 65

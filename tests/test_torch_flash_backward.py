@@ -9,7 +9,9 @@ arithmetic; the kernels themselves are held against it on the card in
 loss, ``sum(o·cos o)`` (``tests/function_tests/test_pallas_attention.py``).
 
 Tolerances: fp32 inputs differ only in summation order and tile size (the
-JAX kernels sweep 32-row blocks, the port 64-row tiles), so gradients
+JAX kernels sweep 32-row blocks, or one block of the whole length; the
+port's dq sums 128-key tiles, 64 at D=128, and its dk/dv 64-query
+tiles), so gradients
 agree to rtol 5e-4 / atol 5e-5, the JAX package's own flash-vs-oracle
 gradient bound.  bf16 inputs also round ``p`` and ``ds`` to bf16 before
 their products, and the gradients themselves to bf16 (one ulp is 2^-8
@@ -42,10 +44,18 @@ def qkv(seed=0, heads=(H, H, H)):
     return [(rng.randn(B, T, h, D) * 0.5).astype(np.float32) for h in heads]
 
 
-def jax_grads(q, k, v, dtype=jnp.float32, with_lse=False, **kw):
+def multi_tile_qkv(seed, tq, tk, d=D):
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(B, tq, H, d) * 0.5).astype(np.float32)
+    k, v = ((rng.randn(B, tk, H, d) * 0.5).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+def jax_grads(q, k, v, dtype=jnp.float32, with_lse=False, block=32, **kw):
     def loss(q, k, v):
-        o, lse = jax_flash(q, k, v, block_q=32, block_k=32, interpret=True,
-                           return_lse=True, **kw)
+        o, lse = jax_flash(q, k, v, block_q=block, block_k=block,
+                           interpret=True, return_lse=True, **kw)
         o = o.astype(jnp.float32)
         out = jnp.sum(o * jnp.cos(o))
         return out + jnp.sum(jnp.sin(lse)) if with_lse else out
@@ -107,6 +117,59 @@ def test_grads_match_jax_bf16(kw):
     want = jax_grads(q, k, v, jnp.bfloat16, **kw)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, **BF16_TOL)
+
+
+# Cases over several of the backward kernels' tiles (dq: 128-key tiles,
+# 64 at D=128; dk/dv: 64-query tiles): ragged tails, Tq != Tk, a window
+# across tile edges, offsets, whole tiles masked.  The JAX kernels run
+# them as one block per axis (their lengths must be multiples of 8).
+TILE_CASES = {
+    "ragged tail, causal": (200, 200, dict(causal=True)),
+    "Tq != Tk, suffix queries": (160, 288, dict(causal=True, q_offset=128)),
+    "Tq != Tk, non-causal": (96, 288, dict(causal=False)),
+    "window across tile edges": (288, 288, dict(causal=True, window=100)),
+    "window and offsets": (
+        200, 288, dict(causal=True, window=70, q_offset=150, k_offset=40)),
+    "whole tiles masked": (288, 288,
+                           dict(causal=True, q_offset=0, k_offset=160)),
+}
+
+
+# every case at D=16, and two at D=128, where the dq kernel's K tiles
+# are 64 keys
+MULTI_TILE = [(case, D) for case in TILE_CASES] + [
+    ("window across tile edges", 128), ("Tq != Tk, suffix queries", 128)]
+
+
+@pytest.mark.parametrize("case,d", MULTI_TILE,
+                         ids=[f"{c}, D={d}" for c, d in MULTI_TILE])
+def test_multi_tile_grads_match_jax_fp32(case, d):
+    tq, tk, kw = TILE_CASES[case]
+    q, k, v = multi_tile_qkv(9, tq, tk, d)
+    got = port_grads(q, k, v, **kw)
+    want = jax_grads(q, k, v, block=max(tq, tk), **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **FP32_TOL)
+
+
+@pytest.mark.parametrize("case", ["window across tile edges",
+                                  "Tq != Tk, suffix queries"])
+def test_multi_tile_grads_match_jax_bf16(case):
+    tq, tk, kw = TILE_CASES[case]
+    q, k, v = multi_tile_qkv(11, tq, tk)
+    got = port_grads(q, k, v, torch.bfloat16, **kw)
+    want = jax_grads(q, k, v, jnp.bfloat16, block=max(tq, tk), **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **BF16_TOL)
+
+
+def test_multi_tile_grads_through_lse_match_jax():
+    tq, tk, kw = TILE_CASES["window and offsets"]
+    q, k, v = multi_tile_qkv(12, tq, tk)
+    got = port_grads(q, k, v, with_lse=True, **kw)
+    want = jax_grads(q, k, v, with_lse=True, block=max(tq, tk), **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **FP32_TOL)
 
 
 def test_gqa_grads_through_broadcast_kv_match_grouped_jax():
