@@ -1,6 +1,18 @@
-"""The flagship transformer: scoring, generation and training."""
+"""The flagship transformer (scoring, generation, training) and the
+data-parallel models: ResNet with synchronised BN, and the MNIST MLP."""
 
-from .convert import init_numpy_params, params_from_jax, params_to_numpy
+from .convert import (
+    init_mlp_numpy,
+    init_numpy_params,
+    init_resnet_numpy,
+    mlp_params_from_jax,
+    params_from_jax,
+    params_to_numpy,
+    resnet_params_from_jax,
+    resnet_to_numpy,
+)
+from .mlp import MLP, accuracy, mlp_apply, softmax_cross_entropy
+from .resnet import ResNet, ResNetConfig, resnet_apply
 from .decoding import make_generate_fn
 from .transformer import (
     TransformerConfig,
@@ -14,7 +26,19 @@ from .transformer import (
 )
 
 __all__ = [
+    "MLP",
+    "ResNet",
+    "ResNetConfig",
     "TransformerConfig",
+    "accuracy",
+    "init_mlp_numpy",
+    "init_resnet_numpy",
+    "mlp_apply",
+    "mlp_params_from_jax",
+    "resnet_apply",
+    "resnet_params_from_jax",
+    "resnet_to_numpy",
+    "softmax_cross_entropy",
     "apply_rope",
     "init_numpy_params",
     "lm_loss",

@@ -14,6 +14,16 @@ tensors with the same names, blocks stacked ``(L, ...)``;
 It needs numpy only, so :func:`init_numpy_params` can make seeded weights
 in the same layout (and at the same scales as ``init_transformer``) on a
 machine without JAX; its numbers are numpy's, not ``jax.random``'s.
+
+The same for the data-parallel models: :func:`resnet_params_from_jax`
+takes ``init_resnet``'s ``(params, state)`` (conv weights HWIO, BN
+``{"gamma", "beta"}`` and ``BatchNormState(mean, var, n)``, ``fc``
+``{"w" (in, out), "b"}``) and returns torch trees with the conv weights
+OIHW in ``channels_last`` memory format; :func:`resnet_to_numpy`
+inverts it (for parameters, gradients or state);
+:func:`init_resnet_numpy` makes seeded trees in the JAX layout at
+``init_resnet``'s scales.  :func:`mlp_params_from_jax` and
+:func:`init_mlp_numpy` do the same for ``init_mlp``'s list of layers.
 """
 
 from __future__ import annotations
@@ -23,9 +33,14 @@ import torch
 
 from chainermn_tpu_torch._device import resolve_device
 
+from chainermn_tpu_torch.links.batch_normalization import BatchNormState
+
+from .resnet import ResNetConfig
 from .transformer import TransformerConfig
 
-__all__ = ["params_from_jax", "params_to_numpy", "init_numpy_params"]
+__all__ = ["init_mlp_numpy", "init_numpy_params", "init_resnet_numpy",
+           "mlp_params_from_jax", "params_from_jax", "params_to_numpy",
+           "resnet_params_from_jax", "resnet_to_numpy"]
 
 
 def _block_shapes(cfg: TransformerConfig) -> dict:
@@ -144,3 +159,141 @@ def init_numpy_params(cfg: TransformerConfig, seed: int = 0) -> dict:
     if cfg.pos_embedding == "learned":
         params["pos"] = normal((cfg.max_seq, cfg.d_model), 0.02)
     return params
+
+
+# --------------------------------------------------------------------- #
+# ResNet and MLP
+# --------------------------------------------------------------------- #
+
+
+def _resnet_shapes(cfg: ResNetConfig):
+    """``{path: (JAX shape, kind)}`` of ``init_resnet``'s tree, kind in
+    conv / gamma / gamma0 (zero-initialised) / beta / fc_w / fc_b, and
+    the BN layer paths with their channel counts."""
+    shapes, bns = {"conv1": ((7, 7, 3, cfg.width), "conv")}, {}
+    bns["bn1"] = cfg.width
+    cin = cfg.width
+    for i, n_blocks in enumerate(cfg.stage_sizes):
+        cmid = cfg.width * 2 ** i
+        cout = cmid * 4
+        for j in range(n_blocks):
+            name = f"stage{i + 1}_block{j + 1}"
+            shapes[f"{name}/conv1"] = ((1, 1, cin, cmid), "conv")
+            shapes[f"{name}/conv2"] = ((3, 3, cmid, cmid), "conv")
+            shapes[f"{name}/conv3"] = ((1, 1, cmid, cout), "conv")
+            bns.update({f"{name}/bn1": cmid, f"{name}/bn2": cmid,
+                        f"{name}/bn3": cout})
+            if j == 0:
+                shapes[f"{name}/proj"] = ((1, 1, cin, cout), "conv")
+                bns[f"{name}/bn_proj"] = cout
+            cin = cout
+    for path, c in bns.items():
+        gamma = "gamma0" if path.endswith("/bn3") else "gamma"
+        shapes[f"{path}/gamma"] = ((c,), gamma)
+        shapes[f"{path}/beta"] = ((c,), "beta")
+    shapes["fc/w"] = ((cin, cfg.num_classes), "fc_w")
+    shapes["fc/b"] = ((cfg.num_classes,), "fc_b")
+    return shapes, bns
+
+
+def _get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _put(tree, path, value):
+    *head, last = path.split("/")
+    for k in head:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
+def resnet_params_from_jax(params, state, cfg: ResNetConfig, device=None):
+    """``init_resnet``'s ``(params, state)`` (numpy leaves) as torch
+    trees on ``device`` (CUDA unless ``"cpu"`` is named): fp32, conv
+    weights HWIO → OIHW in ``channels_last`` format, every shape
+    checked."""
+    dev = resolve_device(device)
+    shapes, bns = _resnet_shapes(cfg)
+    out_p, out_s = {}, {}
+    for path, (shape, kind) in shapes.items():
+        a = np.asarray(_get(params, path))
+        if a.shape != shape:
+            raise ValueError(f"param {path!r} has shape {a.shape}, config "
+                             f"wants {shape}")
+        t = torch.tensor(a, dtype=torch.float32, device=dev)
+        if kind == "conv":
+            t = t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        _put(out_p, path, t)
+    for path, c in bns.items():
+        mean, var, n = _get(state, path)
+        _put(out_s, path, BatchNormState(
+            torch.tensor(np.asarray(mean), dtype=torch.float32, device=dev),
+            torch.tensor(np.asarray(var), dtype=torch.float32, device=dev),
+            torch.tensor(np.asarray(n), dtype=torch.int32, device=dev)))
+    return out_p, out_s
+
+
+def resnet_to_numpy(tree):
+    """A port ResNet tree (parameters, their gradients, or the BN
+    state) as numpy in the JAX layout: 4-D conv leaves back to HWIO,
+    ``BatchNormState`` kept."""
+    def leaf(t):
+        a = t.detach().to("cpu").numpy().copy()
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = resnet_to_numpy(v)
+        elif isinstance(v, BatchNormState):
+            out[k] = BatchNormState(*(leaf(t) for t in v))
+        else:
+            out[k] = leaf(v)
+    return out
+
+
+def init_resnet_numpy(cfg: ResNetConfig, seed: int = 0):
+    """Seeded ``(params, state)`` in ``init_resnet``'s layout and
+    scales, with numpy's numbers: conv weights ``normal·√(2/fan_in)``,
+    ``fc.w`` ``normal·√(1/in)``, γ one (zero for each bottleneck's last
+    BN), β and ``fc.b`` zero, running mean zero, variance one."""
+    rng = np.random.default_rng(seed)
+    shapes, bns = _resnet_shapes(cfg)
+    params, state = {}, {}
+    for path, (shape, kind) in shapes.items():
+        if kind == "conv":
+            fan_in = shape[0] * shape[1] * shape[2]
+            a = rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32(np.sqrt(2.0 / fan_in))
+        elif kind == "fc_w":
+            a = rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32(np.sqrt(1.0 / shape[0]))
+        else:
+            a = np.full(shape, 1.0 if kind == "gamma" else 0.0, np.float32)
+        _put(params, path, a)
+    for path, c in bns.items():
+        _put(state, path, BatchNormState(np.zeros(c, np.float32),
+                                         np.ones(c, np.float32),
+                                         np.zeros((), np.int32)))
+    return params, state
+
+
+def mlp_params_from_jax(params, device=None) -> list:
+    """``init_mlp``'s list of ``{"w", "b"}`` layers as fp32 tensors."""
+    dev = resolve_device(device)
+    return [{k: torch.tensor(np.asarray(layer[k]), dtype=torch.float32,
+                             device=dev) for k in ("w", "b")}
+            for layer in params]
+
+
+def init_mlp_numpy(sizes, seed: int = 0) -> list:
+    """Seeded layers in ``init_mlp``'s layout and scales (He normal
+    weights, zero biases), with numpy's numbers."""
+    rng = np.random.default_rng(seed)
+    return [{"w": rng.standard_normal((i, o), dtype=np.float32)
+             * np.float32(np.sqrt(2.0 / i)),
+             "b": np.zeros((o,), np.float32)}
+            for i, o in zip(sizes[:-1], sizes[1:])]

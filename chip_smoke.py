@@ -32,17 +32,35 @@ Phases (any failure exits non-zero before the last line is printed):
    one warm-up and five timed steps, every layer's forward, recompute
    and backward through the kernels, its first loss checked against the
    forward's cross-entropy and its gradients against an fp32
-   plain-attention step.
+   plain-attention step;
+7. ChainerMN's data-parallel path at the JAX package's headline config
+   (``bench.py``): ResNet-50 with synchronised BN, 224 px, global batch
+   256, bf16, ``sgd(0.1, momentum=0.9)`` and a bf16 gradient wire, through
+   ``examples/imagenet/train_imagenet_torch.py``'s ``build`` (the
+   example's ``init_distributed`` → ``create_communicator`` → lazy
+   synthetic images → ``scatter_dataset`` → ``SerialIterator`` →
+   ``create_multi_node_optimizer`` → ``StandardUpdater`` → ``Trainer``
+   with the multi-node evaluator and ``LogReport``) in a one-rank NCCL
+   world: a few iterations, then the step timed on a fixed batch on the
+   card and through the host data path, the gradient exchange alone,
+   and its checks (the exchange equals ``bf16(g)`` bitwise, its
+   all-reduces within the fused budget, the BN statistics moved, fp32
+   logits against the CPU forward, bf16 gradients against fp32);
+8. the MNIST example (``examples/mnist/train_mnist_torch.py``) for one
+   epoch in the same world, its validation accuracy above a floor.
 
-Phases 3 and 6 are the main paths: each starts with every launch count
-at 0 and reads the counts when it ends.  It prints the card's name and
-power limit, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
-"device": {...}}``.  Weights are random, from numpy seed 0.  fp32
+Phases 3 and 6 are the main paths of the kernels: each starts with
+every launch count at 0 and reads the counts when it ends; phases 7
+and 8 run no hand-written kernel, and hold their counts at 0.  It
+prints the card's name and power limit, a ``{"dp_resnet50": {...}}``
+line of phase 7's metrics, a ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.  Weights are random, from numpy seed 0.  fp32
 references run with TF32 off.
 """
 
 import dataclasses
 import importlib
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -51,6 +69,8 @@ import time
 from pathlib import Path
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
+# bench.py:34: a ResNet-50 training step on one 224 px image
+RESNET50_TRAIN_FLOPS = 3 * 2 * 4.089e9
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 SEED = 0
 # the flagship GQA config of bench_transformer.py:29,45-49, full width
@@ -573,6 +593,240 @@ def phase_training(torch, np, cfg, params, forward):
     return counts
 
 
+def load_example(root, rel, name):
+    spec = importlib.util.spec_from_file_location(name, root / rel)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def event_ms(torch, fn):
+    """Milliseconds of one ``fn()`` between two CUDA events, the card
+    idle before it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_dp_resnet(torch, np, root, smi):
+    """ChainerMN's data-parallel path: ResNet-50, sync BN, batch 256,
+    bf16, bf16 wire, one NCCL rank.  Returns the printed metrics."""
+    import itertools
+
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch.links import BatchNormState
+    from chainermn_tpu_torch.models import resnet_apply, \
+        softmax_cross_entropy
+    from chainermn_tpu_torch.ops import fused
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    ex = load_example(root, "examples/imagenet/train_imagenet_torch.py",
+                      "train_imagenet_torch")
+    iters = 3
+    # 2000 synthetic images: 1800 to train (the trainer's 3 iterations,
+    # 3 more through the host path), 200 to validate
+    args = ex.parse_args(["--grad-dtype", "bfloat16", "--iterations",
+                          str(iters), "--n-images", "2000", "--out",
+                          str(root / "build" / "chip_smoke" / "imagenet")])
+    torch.backends.cudnn.benchmark = True
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    t0 = time.perf_counter()
+    run = ex.build(args, quiet=True)
+    comm, cfg, up = run.comm, run.cfg, run.updater
+    require(comm.size == 1 and comm.device.type == "cuda",
+            f"world of {comm.size} on {comm.device}")
+    n_params = sum(p.numel() for p in pytree.tree_leaves(up.params))
+    state0 = pytree.tree_map(torch.clone, up.state)
+    print(f"dp resnet50: {n_params / 1e6:.2f} M params, world "
+          f"{comm.size} rank on {comm.device}, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    losses = []
+    run.trainer.extend(lambda tr: losses.append(
+        float(tr.observation["main/loss"])), trigger=(1, "iteration"),
+        name="losses")
+    t0 = time.perf_counter()
+    run.trainer.run()
+    log = run.log.log[-1]
+    print(f"dp resnet50 trainer: {iters} iterations in "
+          f"{time.perf_counter() - t0:.1f} s (cuDNN autotuning, synthetic "
+          f"images made on the host), losses {losses}, log {log}")
+    require(len(losses) == iters and all(np.isfinite(losses)),
+            f"losses {losses}")
+    require(np.isfinite(log["validation/loss"]), f"validation {log}")
+    bn = pytree.tree_leaves(up.state,
+                            is_leaf=lambda t: isinstance(t, BatchNormState))
+    require(len(bn) == 53 and all(int(s.n) == iters for s in bn),
+            f"BN counts {sorted({int(s.n) for s in bn})} after {iters} "
+            "iterations")
+    moved = [float((a - b).abs().max()) for a, b in zip(
+        pytree.tree_leaves(up.state), pytree.tree_leaves(state0))
+        if a.dtype == torch.float32]
+    require(min(moved) > 0, "a BN running statistic did not move")
+
+    # the host data path: pull, make 256 synthetic images, move, step
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        up.update()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(host)
+    host_pull = up.observation["main/host_time"] * 1e3
+
+    # a fixed batch on the card through updater.update()
+    batch = args.batchsize // comm.size
+    rng = np.random.RandomState(SEED)
+    x = torch.as_tensor(rng.randn(batch, run.image, run.image, 3).astype(
+        np.float32), device=comm.device)
+    y = torch.as_tensor(rng.randint(0, cfg.num_classes, batch),
+                        device=comm.device)
+    up.iterator = itertools.repeat((x, y))
+    for _ in range(2):
+        up.update()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, per_step = [], []
+    for _ in range(5):
+        before = comm.n_collectives
+        steps.append(event_ms(torch, up.update))
+        per_step.append(comm.n_collectives - before)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(steps)
+    images_s = batch * comm.size / (step_ms / 1e3)
+    mfu = images_s * RESNET50_TRAIN_FLOPS / PEAK_BF16_FLOPS
+
+    # the gradient exchange alone, on this batch's gradients
+    leaves, treedef = pytree.tree_flatten(up.params)
+    loss, _ = up.loss_fn(up.params, up.state, x, y)
+    grads = pytree.tree_unflatten(
+        list(torch.autograd.grad(loss, leaves)), treedef)
+    bf16 = torch.bfloat16
+    before = comm.n_collectives
+    mean = comm.multi_node_mean_grad(pytree.tree_map(torch.clone, grads),
+                                     bf16)
+    n_exchange = comm.n_collectives - before
+    bitwise = all(torch.equal(m, g.to(bf16).to(g.dtype)) for m, g in zip(
+        pytree.tree_leaves(mean), pytree.tree_leaves(grads)))
+    wire_bytes = sum(g.numel() * 2 for g in pytree.tree_leaves(grads))
+    budget = fused.fused_collective_budget(wire_bytes,
+                                           fused.DEFAULT_BUCKET_BYTES)
+    print(f"dp resnet50 exchange: {n_exchange} NCCL all-reduces for "
+          f"{wire_bytes / 2**20:.1f} MiB of bf16 wire (budget {budget}); "
+          f"equal to bf16(g) bitwise: {bitwise}; collectives in one step "
+          f"(exchange, sync BN forward and backward, the loss) {per_step}")
+    require(bitwise, "the size-1 exchange is not bf16(g) bitwise")
+    require(0 < n_exchange <= budget,
+            f"{n_exchange} all-reduces, budget {budget}")
+
+    g_clone = pytree.tree_map(torch.clone, grads)
+    buckets, spec = fused.flatten_buckets(g_clone, fused.DEFAULT_BUCKET_BYTES,
+                                          bf16)
+
+    def nccl():
+        for b in buckets:
+            comm.allreduce_sum_(b)
+            b.div_(comm.size)
+
+    ex_parts = dict(
+        total=cuda_ms(lambda: comm.multi_node_mean_grad(g_clone, bf16),
+                      reps=5),
+        pack_cast=cuda_ms(lambda: fused.flatten_buckets(
+            g_clone, fused.DEFAULT_BUCKET_BYTES, bf16), reps=5),
+        nccl=cuda_ms(nccl, reps=5),
+        unpack=cuda_ms(lambda: fused.unflatten_buckets(buckets, spec),
+                       reps=5))
+    share = ex_parts["total"] / step_ms
+
+    # bf16 against fp32 gradients (32 images, local BN), and fp32 logits
+    # on the card against the CPU forward (2 images), TF32 off
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def grad_tree(c, n):
+        lg, _ = resnet_apply(c, up.params, up.state, x[:n])
+        return torch.autograd.grad(softmax_cross_entropy(lg, y[:n]),
+                                   leaves)
+
+    g16, g32 = grad_tree(cfg, 32), grad_tree(cfg32, 32)
+    grad_err = (sum(((a - b).float().norm() ** 2).item()
+                    for a, b in zip(g16, g32))
+                / sum((b.norm() ** 2).item() for b in g32)) ** 0.5
+    del g16, g32
+    with torch.no_grad():
+        lg_card, _ = resnet_apply(cfg32, up.params, up.state, x[:2])
+        to_cpu = lambda t: t.detach().cpu() if torch.is_tensor(t) else t
+        lg_cpu, _ = resnet_apply(cfg32, pytree.tree_map(to_cpu, up.params),
+                                 pytree.tree_map(to_cpu, up.state),
+                                 x[:2].cpu())
+    logit_err = rel_err(lg_card.cpu(), lg_cpu)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+    metrics = dict(
+        device=smi, batch=batch * comm.size, world=comm.size,
+        step_ms=step_ms, steps_ms=steps, images_per_s=images_s, mfu=mfu,
+        host_path_step_ms=host_ms, host_path_steps_ms=host,
+        host_pull_ms=host_pull,
+        host_path_images_per_s=batch * comm.size / (host_ms / 1e3),
+        exchange_ms=ex_parts, exchange_share=share,
+        exchange_allreduces=n_exchange, exchange_budget=budget,
+        collectives_per_step=per_step[0], peak_gib=peak / 2**30,
+        bf16_vs_fp32_grad_rel_l2=grad_err, fp32_card_vs_cpu_logits=logit_err,
+        flash_launches=counts)
+    print(f"dp resnet50 step, fixed batch of {batch} on the card: "
+          f"{step_ms:.2f} ms (median of 5, CUDA events; "
+          f"{[round(t, 2) for t in steps]}) = {images_s:.1f} images/s, MFU "
+          f"{mfu:.2%} of 989 TFLOP/s at 24.534 GFLOP an image; peak memory "
+          f"{peak / 2**30:.2f} GiB; through the host data path "
+          f"{host_ms:.1f} ms (pull and make {batch} images "
+          f"{host_pull:.1f} ms); exchange {ex_parts['total']:.3f} ms = "
+          f"{share:.2%} of the step (pack and cast "
+          f"{ex_parts['pack_cast']:.3f}, NCCL {ex_parts['nccl']:.3f}, "
+          f"unpack {ex_parts['unpack']:.3f} ms); bf16 against fp32 "
+          f"gradients rel L2 {grad_err:.3e}; fp32 logits card vs CPU rel L2 "
+          f"{logit_err:.3e}")
+    print(json.dumps({"dp_resnet50": metrics}))
+    require(counts == (0, 0, 0), f"flash launches {counts} on this path")
+    # bf16 activations and weights through 53 conv/BN layers against the
+    # same gradients in fp32: 4.103e-2 on the H100 (the flagship
+    # transformer's bf16 step sits at 4.9e-2 from its fp32 step); the bar
+    # leaves 2.4x for other batches and cuDNN's choice of algorithms
+    require(grad_err < 0.1, f"bf16 gradients off fp32: {grad_err}")
+    # cuDNN's fp32 algorithms (TF32 off) against the CPU's: the same
+    # products summed in other orders, through 53 layers of BN (2.3e-7
+    # on the H100); a layout or padding fault is of order one
+    require(logit_err < 1e-4, f"fp32 logits card vs CPU: {logit_err}")
+    torch.backends.cudnn.benchmark = False
+    return metrics
+
+
+def phase_mnist(torch, np, root):
+    """The MNIST example, one epoch, in the same one-rank world."""
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    ex = load_example(root, "examples/mnist/train_mnist_torch.py",
+                      "train_mnist_torch")
+    args = ex.parse_args(["--epoch", "1", "--out",
+                          str(root / "build" / "chip_smoke" / "mnist")])
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    t0 = time.perf_counter()
+    log = ex.train(args, quiet=True).log
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+    last = log[-1]
+    print(f"mnist: 1 epoch in {time.perf_counter() - t0:.2f} s, log {log}")
+    require(counts == (0, 0, 0), f"flash launches {counts} on this path")
+    require(np.isfinite(last["main/loss"]), f"loss {last}")
+    # the synthetic classes are separable: the JAX example and the port
+    # reach 1.0 on the CPU after one epoch
+    require(last["validation/accuracy"] >= 0.95,
+            f"validation accuracy {last['validation/accuracy']}")
+    return last
+
+
 def tree_rel_err(a, b):
     """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
     from chainermn_tpu_torch.training.optimizers import tree_leaves
@@ -600,6 +854,7 @@ def main():
     import numpy as np
 
     from chainermn_tpu_torch import _build
+    from chainermn_tpu_torch.communicators import init_distributed
     from chainermn_tpu_torch.models import (
         TransformerConfig,
         init_numpy_params,
@@ -724,6 +979,13 @@ def main():
 
     # 6. training at full width ---------------------------------------
     counts = phase_training(torch, np, cfg, params, forward)
+    del params, forward
+
+    # 7. data-parallel ResNet-50 and 8. MNIST, one NCCL rank ------------
+    init_distributed()
+    phase_dp_resnet(torch, np, root, smi)
+    phase_mnist(torch, np, root)
+    torch.distributed.destroy_process_group()
 
     src = "chainermn_tpu_torch/csrc/"
     tpu = "chainermn_tpu/ops/pallas_attention.py:"

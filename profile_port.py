@@ -8,6 +8,7 @@ each hand-written kernel's registers, spills and shared memory as
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 profile_port.py
+    python3 profile_port.py resnet
     python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
     python3 profile_port.py variants bwd NAME=SOURCE.cu [NAME=SOURCE.cu ...]
 
@@ -19,6 +20,16 @@ that take most of it.  The training step is ``make_train_step`` with
 ``adamw(3e-4)``, remat on, on ``bench_transformer.py``'s 8 x 2048-token
 batch, traced after one warm-up step.  Weights are random (numpy
 seed 0).
+
+``resnet`` traces ChainerMN's data-parallel step instead, as
+``chip_smoke.py`` phase 7 drives it (ResNet-50 with synchronised BN,
+224 px, batch 256, bf16, ``sgd(0.1, momentum=0.9)``, a bf16 gradient
+wire, one NCCL rank, a fixed batch on the card, three warm-up steps):
+one ``updater.update()``, then the gradient exchange alone
+(``multi_node_mean_grad`` of that step's gradients), by kind of kernel
+(cuDNN convolutions, the BN and ReLU elementwise passes, reductions,
+copies and casts — the bucket pack and unpack among them, NCCL, the
+SGD foreach kernels).
 
 ``variants`` times versions of the forward kernel side by side instead:
 each SOURCE has the C entry point of ``csrc/flash_fwd.cu`` (the same
@@ -52,12 +63,24 @@ def kind(name):
         if kernel + "_kernel" in name:
             return kernel
     low = name.lower()
+    if "nccl" in low:
+        return "NCCL collectives"
     if "multi_tensor_apply" in low:
         return "optimizer (torch.optim foreach kernels)"
+    # cuDNN's convolutions (forward, data and weight gradients) before
+    # the matmul rule: their implicit-GEMM kernels say xmma/gemm too
+    if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad")):
+        return "convolution (cuDNN)"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout transposes (cuDNN)"
     if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                               "cublas")):
         return "matmul (cuBLAS)"
-    return "other (elementwise, reductions, copies)"
+    if "reduce_kernel" in low:
+        return "reductions"
+    if "copy" in low:
+        return "copies and casts"
+    return "other elementwise"
 
 
 def trace(torch, fn, label):
@@ -299,6 +322,42 @@ def variants_bwd(torch, specs):
               + "  ".join(f"{n} {t:.4f}" for n, t in times))
 
 
+def profile_resnet(torch):
+    """Trace one data-parallel ResNet-50 step and its exchange alone."""
+    import itertools
+
+    import numpy as np
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch.communicators import init_distributed
+    from chip_smoke import load_example
+
+    root = Path(__file__).resolve().parent
+    ex = load_example(root, "examples/imagenet/train_imagenet_torch.py",
+                      "train_imagenet_torch")
+    init_distributed()
+    torch.backends.cudnn.benchmark = True
+    run = ex.build(ex.parse_args(
+        ["--grad-dtype", "bfloat16", "--n-images", "300", "--out",
+         str(root / "build" / "profile_port")]), quiet=True)
+    up, comm = run.updater, run.comm
+    rng = np.random.RandomState(SEED)
+    x = torch.as_tensor(rng.randn(256, 224, 224, 3).astype(np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rng.randint(0, 1000, 256), device="cuda")
+    up.iterator = itertools.repeat((x, y))
+    for _ in range(3):
+        up.update()
+    trace(torch, up.update, "dp resnet50 step, batch 256, bf16, bf16 wire")
+    leaves, treedef = pytree.tree_flatten(up.params)
+    loss, _ = up.loss_fn(up.params, up.state, x, y)
+    grads = pytree.tree_unflatten(
+        list(torch.autograd.grad(loss, leaves)), treedef)
+    trace(torch, lambda: comm.multi_node_mean_grad(grads, torch.bfloat16),
+          "dp resnet50 gradient exchange alone (pack, cast, NCCL, unpack)")
+    torch.distributed.destroy_process_group()
+
+
 def main():
     import torch
 
@@ -322,6 +381,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    if sys.argv[1:2] == ["resnet"]:
+        profile_resnet(torch)
+        return 0
     if sys.argv[1:3] == ["variants", "bwd"]:
         variants_bwd(torch, [a.split("=", 1) for a in sys.argv[3:]])
         return 0

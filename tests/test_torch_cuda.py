@@ -327,3 +327,102 @@ def test_cuda_flash_train_step_matches_local(cuda):
     _, state, first = step(params, state, x, y)
     _, _, second = step(params, state, x, y)
     assert second.item() < first.item()
+
+
+# --------------------------------------------------------------------- #
+# ChainerMN's data-parallel path: NCCL at one rank, the exchange, ResNet
+# --------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def nccl_comm(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on the card only")
+    from chainermn_tpu_torch.communicators import (
+        create_communicator,
+        init_distributed,
+    )
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    init_distributed(init_method=f"file://{store}", world_size=1, rank=0)
+    yield create_communicator()
+    torch.distributed.destroy_process_group()
+
+
+def test_cuda_nccl_world_of_one(nccl_comm):
+    comm = nccl_comm
+    assert torch.distributed.get_backend() == "nccl"
+    assert (comm.size, comm.rank, comm.device.type) == (1, 0, "cuda")
+    x = torch.randn(3, 4, device="cuda")
+    for op in ("sum", "mean", "max", "min", "prod"):
+        torch.testing.assert_close(comm.allreduce(x, op), x)
+    torch.testing.assert_close(comm.bcast(x), x)
+    torch.testing.assert_close(comm.allgather(x), x[None])
+    torch.testing.assert_close(comm.alltoall(x[None]), x[None])
+    torch.testing.assert_close(comm.reduce_scatter(x[None]), x)
+    torch.testing.assert_close(comm.scatter(x[None]), x)
+    assert comm.allgather_obj({"a": 1}) == [{"a": 1}]
+    assert comm.alltoall_obj([("x", 2)]) == [("x", 2)]
+    comm.barrier()
+    with pytest.raises(ValueError, match="given to a communicator on cuda"):
+        comm.allreduce(torch.ones(2))             # no gloo for CPU tensors
+
+
+def test_cuda_exchange_is_bf16_bitwise(nccl_comm):
+    from chainermn_tpu_torch.ops import fused
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tree = {"big": torch.randn(3_000_001, generator=g).cuda(),
+            "w": [torch.randn(64, 3, 7, 7, generator=g).cuda()
+                  for _ in range(4)],
+            "steps": torch.tensor([7, 1 << 20], device="cuda"),
+            "empty": torch.zeros(0, 4, device="cuda")}
+    before = nccl_comm.n_collectives
+    out = nccl_comm.multi_node_mean_grad(
+        {k: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+         for k, v in tree.items()}, torch.bfloat16)
+    count = nccl_comm.n_collectives - before
+    bf = lambda t: t.to(torch.bfloat16).to(t.dtype)
+    assert torch.equal(out["big"], bf(tree["big"]))
+    assert all(torch.equal(a, bf(b)) for a, b in zip(out["w"], tree["w"]))
+    assert torch.equal(out["steps"], tree["steps"])   # ints never take bf16
+    assert out["empty"].shape == (0, 4)
+    wire = 2 * (tree["big"].numel() + 4 * 64 * 3 * 49) + 8 * 2
+    assert 0 < count <= fused.fused_collective_budget(
+        wire, fused.DEFAULT_BUCKET_BYTES, 2)
+
+
+def test_cuda_sync_bn_through_nccl_equals_local(nccl_comm):
+    from chainermn_tpu_torch.links import (
+        init_batch_norm,
+        multi_node_batch_normalization,
+    )
+
+    params, state = init_batch_norm(16, device="cuda")
+    x = torch.randn(8, 16, 5, 5, device="cuda", dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    y1, s1 = multi_node_batch_normalization(params, state, x, nccl_comm)
+    y0, s0 = multi_node_batch_normalization(params, state, x)
+    assert y1.dtype == torch.bfloat16 and torch.equal(y1, y0)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s0))
+
+
+def test_cuda_resnet_fp32_forward_matches_cpu(cuda):
+    from chainermn_tpu_torch.models import (
+        ResNetConfig,
+        init_resnet_numpy,
+        resnet_apply,
+        resnet_params_from_jax,
+    )
+
+    cfg = ResNetConfig(depth=50, num_classes=8, width=8, dtype="float32")
+    tree = init_resnet_numpy(cfg, 0)
+    x = np.random.RandomState(0).randn(4, 33, 33, 3).astype(np.float32)
+    for train in (True, False):
+        got, _ = resnet_apply(cfg, *resnet_params_from_jax(*tree, cfg),
+                              torch.tensor(x, device="cuda"), train=train)
+        want, _ = resnet_apply(cfg, *resnet_params_from_jax(*tree, cfg,
+                                                           device="cpu"),
+                               torch.tensor(x), train=train)
+        # cuDNN's fp32 algorithms (TF32 off) and the CPU's sum the same
+        # products in other orders
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -33,8 +33,11 @@ def _imported_modules(path):
             yield node.module
 
 
+EXAMPLES = [ROOT / "examples" / "mnist" / "train_mnist_torch.py",
+            ROOT / "examples" / "imagenet" / "train_imagenet_torch.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                            ROOT / "profile_port.py"]
+                                            ROOT / "profile_port.py"] \
+    + EXAMPLES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -53,6 +56,15 @@ def test_flash_wrapper_has_no_fallback():
 
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py", ROOT / "chip_smoke.py"]
+# ChainerMN's data-parallel path: the communicators (no gloo in place of
+# NCCL, no CPU in place of the card), the exchange, the loop, the model
+DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
+    (PORT / "training").glob("*.py")) + [
+    PORT / "ops" / "fused.py", PORT / "ops" / "collectives.py",
+    PORT / "links" / "batch_normalization.py", PORT / "models" / "resnet.py",
+    PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
+    PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
+    PORT / "iterators" / "_convert.py"] + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,
@@ -62,6 +74,22 @@ def test_training_path_has_no_fallback(path):
     # smoke phases: a failure surfaces, it is never caught and replaced
     tree = ast.parse(path.read_text())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("path", DP_PATH,
+                         ids=[str(p.relative_to(ROOT)) for p in DP_PATH])
+def test_dp_path_catches_no_failure(path):
+    # a try on this path only ends an iteration (StopIteration) or
+    # releases something (finally): no handler catches a failure of
+    # NCCL, the card or a step and carries on another way
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try):
+            for h in node.handlers:
+                assert isinstance(h.type, ast.Name) \
+                    and h.type.id == "StopIteration", \
+                    f"{path.relative_to(ROOT)}:{h.lineno} catches " \
+                    f"{ast.unparse(h.type) if h.type else 'everything'}"
 
 
 @pytest.fixture
@@ -93,6 +121,36 @@ def test_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
     _, _, loss = make_train_step(cfg, opt, device="cpu")(
         params, opt.init(params), toks, toks)
     assert loss.device.type == "cpu"
+
+
+def test_dp_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
+    from chainermn_tpu_torch.communicators import (
+        LoopbackCommunicator,
+        create_communicator,
+        init_distributed,
+    )
+    from chainermn_tpu_torch.models import (
+        ResNetConfig,
+        init_mlp_numpy,
+        init_resnet_numpy,
+        mlp_params_from_jax,
+        resnet_params_from_jax,
+    )
+
+    cfg = ResNetConfig(depth=50, num_classes=4, width=4, dtype="float32")
+    params, state = init_resnet_numpy(cfg, 0)
+    mlp = init_mlp_numpy([6, 4, 3], 0)
+    for call in (lambda: create_communicator(),
+                 lambda: LoopbackCommunicator(),
+                 lambda: init_distributed(),
+                 lambda: resnet_params_from_jax(params, state, cfg),
+                 lambda: mlp_params_from_jax(mlp)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    p, s = resnet_params_from_jax(params, state, cfg, device="cpu")
+    assert p["conv1"].device.type == "cpu" and p["conv1"].is_contiguous(
+        memory_format=torch.channels_last)
+    assert mlp_params_from_jax(mlp, device="cpu")[0]["w"].shape == (6, 4)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
