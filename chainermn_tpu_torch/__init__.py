@@ -13,7 +13,10 @@ and ChainerMN's data-parallel training path: :func:`create_communicator`
 :class:`SerialIterator`, :func:`create_multi_node_optimizer` (fused
 bf16 bucket all-reduce), :class:`StandardUpdater`, :class:`Trainer` and
 :func:`create_multi_node_evaluator`, running ResNet with synchronised
-BN or the MNIST MLP.  Entry points run on CUDA unless the caller passes
+BN or the MNIST MLP — and its fault tolerance
+(:mod:`chainermn_tpu_torch.extensions`: per-rank CRC-checked
+checkpoints with fallback resume, preemption, the except hook, the
+watchdog).  Entry points run on CUDA unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`).
 """
 
@@ -21,18 +24,21 @@ from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch import (
     communicators,
     datasets,
+    extensions,
     iterators,
     links,
     models,
     ops,
     parallel,
     training,
+    utils,
 )
 from chainermn_tpu_torch.communicators import (
     create_communicator,
     init_distributed,
 )
 from chainermn_tpu_torch.datasets import scatter_dataset
+from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
 from chainermn_tpu_torch.iterators import SerialIterator
 from chainermn_tpu_torch.training import (
     Evaluator,
@@ -47,7 +53,8 @@ from chainermn_tpu_torch.training import (
 __all__ = [
     "Evaluator", "LogReport", "PrintReport", "SerialIterator",
     "StandardUpdater", "Trainer", "communicators", "create_communicator",
-    "create_multi_node_evaluator", "create_multi_node_optimizer",
-    "datasets", "init_distributed", "iterators", "links", "models", "ops",
-    "parallel", "resolve_device", "scatter_dataset", "training",
+    "create_multi_node_checkpointer", "create_multi_node_evaluator",
+    "create_multi_node_optimizer", "datasets", "extensions",
+    "init_distributed", "iterators", "links", "models", "ops", "parallel",
+    "resolve_device", "scatter_dataset", "training", "utils",
 ]

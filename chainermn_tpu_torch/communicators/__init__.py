@@ -48,6 +48,11 @@ __all__ = [
 ]
 
 
+# the key-value store of the world init_distributed started (None when
+# the default group was started elsewhere)
+_STORE = None
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -66,7 +71,9 @@ def init_distributed(init_method: Optional[str] = None,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``);
     without that environment it starts a one-rank world on a free local
     port.  ``init_method`` (e.g. ``file://...``) with ``world_size`` and
-    ``rank`` names the rendezvous explicitly.  On CUDA (the default
+    ``rank`` names the rendezvous explicitly.  The rendezvous's
+    key-value store is kept: communicators built on this world carry it
+    as ``comm.store``.  On CUDA (the default
     device) it selects ``cuda:LOCAL_RANK`` before NCCL starts and uses
     the NCCL backend, which must be present; ``device="cpu"`` uses gloo.
     A second call does nothing."""
@@ -95,8 +102,18 @@ def init_distributed(init_method: Optional[str] = None,
         backend = "nccl"
     else:
         backend = "gloo"
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size, timeout=timeout)
+    # the rendezvous that init_process_group would run, made here so the
+    # world's key-value store stays reachable (the watchdog's cross-rank
+    # heartbeats); the group gets its own prefix, as it would itself
+    global _STORE
+    store, rank, world_size = next(dist.rendezvous(
+        init_method, rank, world_size, timeout=timeout))
+    store.set_timeout(timeout)
+    dist.init_process_group(backend, store=dist.PrefixStore("default_pg",
+                                                            store),
+                            rank=rank, world_size=world_size,
+                            timeout=timeout)
+    _STORE = store
 
 
 def create_communicator(
@@ -148,4 +165,5 @@ def create_communicator(
     obj_group = dist.new_group(backend="gloo", timeout=timeout)
     return TorchDistCommunicator(
         dist.group.WORLD, obj_group, list(range(dist.get_world_size())),
-        dev, grad_dtype=allreduce_grad_dtype, timeout=timeout)
+        dev, grad_dtype=allreduce_grad_dtype, timeout=timeout,
+        store=_STORE)

@@ -20,6 +20,7 @@ class LoopbackCommunicator(CommunicatorBase):
         self._device = resolve_device(device)
         self._queue: list = []
         self.n_collectives = 0      # none is ever issued
+        self.store = None           # no world, no key-value store
 
     size = property(lambda self: 1)
     rank = property(lambda self: 0)

@@ -16,6 +16,8 @@ its own ring or tree on one node; Queue A item 2).
 
 ``n_collectives`` counts the tensor collectives this communicator
 issued, so a caller can count the all-reduces of one gradient exchange.
+``store`` is the world's key-value store when ``init_distributed``
+started the world (the training watchdog's heartbeats go there).
 """
 
 from __future__ import annotations
@@ -53,8 +55,11 @@ class TorchDistCommunicator(CommunicatorBase):
 
     def __init__(self, group, obj_group, ranks: Sequence[int],
                  device: torch.device, grad_dtype=None,
-                 timeout: timedelta = DEFAULT_TIMEOUT):
+                 timeout: timedelta = DEFAULT_TIMEOUT, store=None):
         self._group, self._obj_group = group, obj_group
+        # the world's key-value store (init_distributed's rendezvous), or
+        # None when the default group was started elsewhere
+        self.store = store
         self._ranks = list(ranks)
         self._device = device
         self._grad_dtype = grad_dtype
@@ -94,7 +99,8 @@ class TorchDistCommunicator(CommunicatorBase):
         group = dist.new_group(ranks, backend=backend, **kw)
         obj_group = dist.new_group(ranks, backend="gloo", **kw)
         return TorchDistCommunicator(group, obj_group, ranks, self._device,
-                                     self._grad_dtype, self._timeout)
+                                     self._grad_dtype, self._timeout,
+                                     self.store)
 
     # -- tensor collectives -------------------------------------------- #
 

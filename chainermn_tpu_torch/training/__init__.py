@@ -10,6 +10,8 @@ from .optimizers import (
     adamw,
     create_multi_node_optimizer,
     cross_replica_mean,
+    load_optimizer_state_tree,
+    optimizer_state_tree,
     sgd,
 )
 from .trainer import LogReport, PrintReport, Trainer, make_extension
@@ -29,6 +31,8 @@ __all__ = [
     "create_multi_node_optimizer",
     "cross_replica_mean",
     "get_trigger",
+    "load_optimizer_state_tree",
     "make_extension",
+    "optimizer_state_tree",
     "sgd",
 ]

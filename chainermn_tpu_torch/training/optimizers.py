@@ -28,11 +28,12 @@ steps the inner optimizer.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
 __all__ = ["adamw", "create_multi_node_optimizer", "cross_replica_mean",
-           "sgd"]
+           "load_optimizer_state_tree", "optimizer_state_tree", "sgd"]
 
 
 def tree_leaves(tree) -> list:
@@ -64,6 +65,67 @@ class _TorchOptimizer:
             p.grad = g
         opt_state.step()
         opt_state.zero_grad(set_to_none=True)
+
+
+def _numeric(v) -> bool:
+    """A number, or a tuple of numbers (Adam's ``betas``): what a
+    ``param_groups`` entry may put in the snapshot's leaves."""
+    if isinstance(v, tuple):
+        return bool(v) and all(_numeric(x) for x in v)
+    return (isinstance(v, (int, float)) and not isinstance(v, bool)) \
+        or torch.is_tensor(v)
+
+
+def optimizer_state_tree(opt_state: torch.optim.Optimizer) -> dict:
+    """The optimizer's state as a tree of tensors and numbers:
+    ``{"state": [one dict a parameter, in the order of init's leaves:
+    SGD's ``momentum_buffer``, Adam's ``exp_avg``, ``exp_avg_sq`` and
+    ``step``], "param_groups": [the numeric entries of each group]}``.
+    The non-numeric entries (``params``, the flags, ``foreach``) stay
+    out of the leaves, as the JAX container keeps strings out; the
+    optimizer built over the same parameters already holds them.  The
+    tensors are the optimizer's own, not copies."""
+    sd = opt_state.state_dict()
+    n = sum(len(g["params"]) for g in sd["param_groups"])
+    return {
+        "state": [dict(sd["state"].get(i, {})) for i in range(n)],
+        "param_groups": [{k: v for k, v in g.items() if _numeric(v)}
+                         for g in sd["param_groups"]],
+    }
+
+
+def _plain(v):
+    """A loaded number (a 0-d array, or a tuple of them) as Python's."""
+    if isinstance(v, tuple):
+        return tuple(_plain(x) for x in v)
+    return v if torch.is_tensor(v) else np.asarray(v).item()
+
+
+def load_optimizer_state_tree(opt_state: torch.optim.Optimizer,
+                              tree: dict) -> None:
+    """Load :func:`optimizer_state_tree`'s tree (as saved, or as
+    ``load_state`` returns it) into ``opt_state``, a fresh optimizer
+    built by ``init`` over the same parameter tensors.  The tensors are
+    copied onto each parameter's device by ``load_state_dict``; Adam's
+    ``step`` keeps its dtype, so a resumed AdamW step is bitwise the
+    straight one."""
+    sd = opt_state.state_dict()
+    n = sum(len(g["params"]) for g in sd["param_groups"])
+    if len(tree["state"]) != n \
+            or len(tree["param_groups"]) != len(sd["param_groups"]):
+        raise ValueError(
+            f"optimizer state for {len(tree['state'])} parameters in "
+            f"{len(tree['param_groups'])} groups does not fit an optimizer "
+            f"over {n} parameters in {len(sd['param_groups'])} groups")
+    state = {}
+    for i, st in enumerate(tree["state"]):
+        if st:
+            state[i] = {k: torch.as_tensor(v) if v is not None else None
+                        for k, v in st.items()}
+    for group, saved in zip(sd["param_groups"], tree["param_groups"]):
+        group.update({k: _plain(v) for k, v in saved.items()})
+    sd["state"] = state
+    opt_state.load_state_dict(sd)
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,

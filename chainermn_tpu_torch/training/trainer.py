@@ -157,7 +157,9 @@ class LogReport:
                 "count": self._count}
 
     def load_state_dict(self, st: dict) -> None:
-        self.log = [dict(e) for e in st["log"]]
+        # a loaded snapshot holds 0-d arrays: back to Python numbers
+        self.log = [{k: v.item() if hasattr(v, "item") else v
+                     for k, v in e.items()} for e in st["log"]]
         self._accum = {k: float(v) for k, v in st["accum"].items()}
         self._count = int(st["count"])
 

@@ -827,6 +827,396 @@ def phase_mnist(torch, np, root):
     return last
 
 
+def clone_tree(torch, tree):
+    """``tree`` with every tensor cloned."""
+    from chainermn_tpu_torch.utils import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [
+        t.detach().clone() if torch.is_tensor(t) else t for t in leaves])
+
+
+def grab(torch, up):
+    """Copies of everything a step reads and writes: the parameters, the
+    BN state, the optimizer's tree, the iterator's state, the
+    iteration."""
+    from chainermn_tpu_torch.training import optimizer_state_tree
+
+    it = up.iterator
+    return dict(params=clone_tree(torch, up.params),
+                state=clone_tree(torch, up.state),
+                opt=clone_tree(torch, optimizer_state_tree(up.opt_state)),
+                iterator=it.state_dict() if hasattr(it, "state_dict")
+                else None, iteration=up.iteration,
+                epoch_detail=up.epoch_detail)
+
+
+def put(torch, up, g):
+    """Load :func:`grab`'s copies back into ``up`` (the parameters in
+    place, so the optimizer keeps its references)."""
+    import numpy as np
+
+    from chainermn_tpu_torch.training import load_optimizer_state_tree
+    from chainermn_tpu_torch.training._resume import copy_tree_into
+
+    copy_tree_into(up.params, g["params"], "params")
+    copy_tree_into(up.state, g["state"], "state")
+    load_optimizer_state_tree(up.opt_state, clone_tree(torch, g["opt"]))
+    # the iterator keeps the arrays it is given: hand it copies
+    up.iterator.load_state_dict({
+        k: v.copy() if isinstance(v, np.ndarray) else v
+        for k, v in g["iterator"].items()})
+    up.iteration, up.epoch_detail = g["iteration"], g["epoch_detail"]
+
+
+def tree_diff(torch, np, a, b):
+    """``(bitwise equal, max abs difference)`` of two trees of tensors,
+    arrays and numbers; numpy arrays and numbers must match exactly."""
+    from chainermn_tpu_torch.utils import tree_flatten
+
+    la, da = tree_flatten(a)
+    lb, db = tree_flatten(b)
+    if da != db or len(la) != len(lb):
+        return False, float("inf")
+    equal, worst = True, 0.0
+    for x, y in zip(la, lb):
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            x, y = torch.as_tensor(x), torch.as_tensor(y).to(x.device)
+            if x.shape != y.shape or x.dtype != y.dtype:
+                return False, float("inf")
+            if not torch.equal(x, y):
+                equal = False
+                if x.is_floating_point():
+                    worst = max(worst, (x.double() - y.double()).abs().max()
+                                .item())
+                else:
+                    worst = float("inf")
+        elif not np.array_equal(np.asarray(x), np.asarray(y)):
+            equal, worst = False, float("inf")
+    return equal, worst
+
+
+def mnist_drill_args(ex, root, out):
+    return ex.parse_args(["--epoch", "1", "--out",
+                          str(root / "build" / "chip_smoke" / out)])
+
+
+def kill_drill_child(ckpt_dir):
+    """The killed half of phase 9's SIGKILL drill, in a process of its
+    own: the MNIST example for one epoch with a sync checkpoint every 3
+    iterations (``history=2``), SIGKILL after iteration 10."""
+    import torch  # noqa: F401  (the card's runtime before the world)
+
+    from chainermn_tpu_torch.communicators import init_distributed
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.testing import FaultInjector, FaultPlan
+
+    root = Path(__file__).resolve().parent
+    ex = load_example(root, "examples/mnist/train_mnist_torch.py",
+                      "train_mnist_torch")
+    init_distributed()
+    run = ex.build(mnist_drill_args(ex, root, "mnist_killed"), quiet=True)
+    cp = create_multi_node_checkpointer(run.comm, ckpt_dir, history=2)
+    run.trainer.extend(cp, trigger=(3, "iteration"))
+    run.trainer.extend(FaultInjector(FaultPlan(kill_at_iteration=10),
+                                     run.comm, checkpointer=cp))
+    run.trainer.run()
+    return 0                          # not reached: the injector kills
+
+
+def phase_mnist_kill_drill(torch, np, root):
+    """A real SIGKILL on the card: the MNIST example killed after
+    iteration 10 (last save at 9) in a child process, resumed here and
+    finished; its final parameters, per-iteration losses and log must
+    be bitwise those of an uninterrupted run."""
+    import shutil
+
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+
+    ex = load_example(root, "examples/mnist/train_mnist_torch.py",
+                      "train_mnist_torch")
+    ckpt = root / "build" / "chip_smoke" / "mnist_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def job(out):
+        run = ex.build(mnist_drill_args(ex, root, out), quiet=True)
+        losses = {}
+        run.trainer.extend(lambda tr: losses.__setitem__(
+            tr.updater.iteration, float(tr.observation["main/loss"])),
+            trigger=(1, "iteration"), name="losses")
+        return run, losses
+
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--kill-drill",
+         str(ckpt)], capture_output=True, text=True, timeout=300,
+        cwd=str(root))
+    child_s = time.perf_counter() - t0
+    require(child.returncode == -9,
+            f"the drill's child ended with {child.returncode}, not SIGKILL:"
+            f"\n{child.stdout[-2000:]}\n{child.stderr[-2000:]}")
+    files = sorted(f.name for f in ckpt.iterdir())
+    require(files == ["snapshot_iter_6.0", "snapshot_iter_9.0"],
+            f"the killed run left {files}")
+
+    ref, ref_losses = job("mnist_ref")
+    ref.trainer.run()
+    run, losses = job("mnist_resumed")
+    cp = create_multi_node_checkpointer(run.comm, str(ckpt), history=2)
+    resumed = cp.maybe_load(run.updater, run.trainer)
+    require(resumed == 9, f"resumed at {resumed}, want 9")
+    run.trainer.extend(cp, trigger=(3, "iteration"))
+    run.trainer.run()
+    params_equal, worst = tree_diff(torch, np, run.updater.params,
+                                    ref.updater.params)
+    n = ref.updater.iteration
+    tail = {i: ref_losses[i] for i in range(10, n + 1)}
+    # the wall-clock entries (elapsed, host, device and step times) differ
+    strip = lambda log: [{k: v for k, v in e.items()
+                          if not k.endswith("_time")} for e in log]
+    logs_equal = strip(run.log.log) == strip(ref.log.log)
+    print(f"mnist SIGKILL drill: child killed after iteration 10 in "
+          f"{child_s:.1f} s (files {files}); resumed at {resumed}, "
+          f"finished at {run.updater.iteration} of {n}; params bitwise "
+          f"{params_equal} (max |diff| {worst:.3e}); losses 10..{n} "
+          f"bitwise {losses == tail}; log bitwise {logs_equal}")
+    require(run.updater.iteration == n, "the resumed run did not finish")
+    require(params_equal, f"resumed params differ by {worst}")
+    require(losses == tail, "resumed losses differ from the straight run")
+    require(logs_equal, f"log {run.log.log} vs {ref.log.log}")
+    return dict(params_bitwise=params_equal, losses_bitwise=True,
+                log_bitwise=logs_equal, child_s=child_s,
+                iterations=n, resumed_at=resumed)
+
+
+def phase_checkpoint(torch, np, root, smi):
+    """9. ChainerMN's checkpoint and resume on phase 7's ResNet-50 (full
+    width and depth, 224 px, batch 256, bf16, bf16 wire, sgd momentum,
+    one NCCL rank), then the MNIST SIGKILL drill.  Returns the metrics
+    line."""
+    import itertools
+    import os
+    import shutil
+
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.testing import corrupt_file
+    from chainermn_tpu_torch.training._resume import updater_state
+    from chainermn_tpu_torch.utils import load_state, tree_flatten
+    from chainermn_tpu_torch.utils.serialization import (
+        _host_array as host_array,
+        _leaf_crc as leaf_crc,
+    )
+
+    ex = load_example(root, "examples/imagenet/train_imagenet_torch.py",
+                      "train_imagenet_torch")
+    # bitwise resume needs the same algorithms on every run: phase 7
+    # autotunes cuDNN, this phase pins it
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    ckpt = root / "build" / "chip_smoke" / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def job(seed):
+        args = ex.parse_args([
+            "--grad-dtype", "bfloat16", "--iterations", "2", "--n-images",
+            "1000", "--seed", str(seed), "--out",
+            str(root / "build" / "chip_smoke" / f"ckpt_out{seed}")])
+        run = ex.build(args, quiet=True)
+        cp = create_multi_node_checkpointer(run.comm, str(ckpt), history=2)
+        return run, cp
+
+    def timed(fn, box):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            box.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    a, cp_a = job(0)
+    up = a.updater
+    sync_ms = []
+    cp_a.save = timed(cp_a.save, sync_ms)
+    a.trainer.extend(cp_a, trigger=(2, "iteration"))
+    a.trainer.run()                               # saves at iteration 2
+    require(up.iteration == 2 and len(sync_ms) == 1,
+            f"iteration {up.iteration}, saves {sync_ms}")
+    path2 = ckpt / "snapshot_iter_2.0"
+    nbytes = os.path.getsize(path2)
+    saved = grab(torch, up)
+
+    # 1. a fresh job from other weights resumes bitwise
+    b, cp_b = job(1)
+    fresh_equal, _ = tree_diff(torch, np, b.updater.params, saved["params"])
+    require(not fresh_equal, "the fresh job's weights equal the saved ones")
+    t0 = time.perf_counter()
+    resumed = cp_b.maybe_load(b.updater, b.trainer)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    require(resumed == 2, f"maybe_load returned {resumed}, want 2")
+    got = grab(torch, b.updater)
+    checks = {k: tree_diff(torch, np, got[k], saved[k])[0]
+              for k in ("params", "state", "opt", "iterator")}
+    checks["iteration"] = got["iteration"] == saved["iteration"] \
+        and got["epoch_detail"] == saved["epoch_detail"]
+    checks["log"] = b.log.log == a.log.log
+    print(f"checkpoint: saved iteration 2 ({nbytes / 1e6:.1f} MB a rank, "
+          f"sync save {sync_ms[0]:.1f} ms), fresh job from seed 1 resumed "
+          f"at {resumed} in {load_ms:.1f} ms; bitwise {checks}")
+    require(all(checks.values()), f"the loaded state differs: {checks}")
+
+    # 2. step 3: twice straight from the same state, once resumed
+    up.update()
+    torch.cuda.synchronize()
+    straight1 = grab(torch, up)
+    put(torch, up, saved)
+    up.update()
+    torch.cuda.synchronize()
+    straight2 = grab(torch, up)
+    b.updater.update()
+    torch.cuda.synchronize()
+    resumed3 = grab(torch, b.updater)
+    keys = ("params", "state", "opt")
+    straight_equal = all(tree_diff(torch, np, straight1[k], straight2[k])[0]
+                         for k in keys)
+    spread = max(tree_diff(torch, np, straight1[k], straight2[k])[1]
+                 for k in keys)
+    resumed_equal = all(tree_diff(torch, np, resumed3[k], straight1[k])[0]
+                        for k in keys)
+    resumed_diff = max(tree_diff(torch, np, resumed3[k], straight1[k])[1]
+                       for k in keys)
+    print(f"checkpoint: step 3 twice straight bitwise {straight_equal} "
+          f"(spread {spread:.3e}); resumed step 3 bitwise {resumed_equal} "
+          f"(max |diff| {resumed_diff:.3e})")
+    if straight_equal:
+        require(resumed_equal, f"resumed step 3 differs by {resumed_diff}"
+                " where two straight runs agree bitwise")
+    else:
+        require(resumed_diff <= spread, f"resumed step 3 differs by "
+                f"{resumed_diff}, beyond the straight runs' {spread}")
+
+    # 3. async: the file holds the values before the next step
+    cp_async = create_multi_node_checkpointer(up.comm, str(ckpt),
+                                              history=2, async_write=True)
+    async_ms, writer_ms = [], []
+    cp_async._write_part = timed(cp_async._write_part, writer_ms)
+    before = grab(torch, up)                       # iteration 3
+    t0 = time.perf_counter()
+    cp_async.save(up, a.trainer)
+    async_ms.append((time.perf_counter() - t0) * 1e3)
+    up.update()                                    # mutates in place
+    cp_async.finalize()
+    on_disk = load_state(str(ckpt / "snapshot_iter_3.0"))
+    async_checks = {
+        "params": tree_diff(torch, np, on_disk["params"],
+                            before["params"])[0],
+        "state": tree_diff(torch, np, on_disk["model_state"],
+                           before["state"])[0],
+        "opt": tree_diff(torch, np, on_disk["opt_state"], before["opt"])[0],
+        "moved": not tree_diff(torch, np, up.params, before["params"])[0]}
+    print(f"checkpoint: async save of iteration 3 took {async_ms[0]:.1f} ms "
+          f"on the main thread, {writer_ms[0]:.1f} ms on the writer; the "
+          f"file holds the pre-step values bitwise {async_checks}")
+    require(all(async_checks.values()), f"async file: {async_checks}")
+
+    # 4. corrupt the newest file: quarantine and fall back to iteration 2
+    corrupt_file(str(ckpt / "snapshot_iter_3.0"), seed=SEED)
+    resumed = cp_b.maybe_load(b.updater, b.trainer)
+    files = sorted(f.name for f in ckpt.iterdir())
+    fallback = tree_diff(torch, np, b.updater.params, saved["params"])[0]
+    print(f"checkpoint: after corrupting iteration 3, maybe_load returned "
+          f"{resumed}; files {files}; params of iteration 2 bitwise "
+          f"{fallback}")
+    require(resumed == 2 and fallback and files == [
+        "snapshot_iter_2.0", "snapshot_iter_3.0.corrupt"],
+        f"fallback: {resumed}, {files}, {fallback}")
+
+    # where a sync save's time goes: the copies to the host, the CRCs,
+    # the npz write
+    leaves = tree_flatten(updater_state(up, a.trainer))[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [host_array(x)[0] for x in leaves]
+    parts = dict(copy_to_host=(time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for h in host:
+        leaf_crc(h)
+    parts["crc"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with open(ckpt / "parts.npz", "wb") as f:
+        np.savez(f, **{f"leaf_{i:05d}": h for i, h in enumerate(host)})
+    parts["npz_write"] = (time.perf_counter() - t0) * 1e3
+    os.remove(ckpt / "parts.npz")
+    del host
+    print(f"checkpoint: a sync save's parts (ms): {parts}")
+
+    # the step with and without a save on it, on a fixed batch on the card
+    batch = 256 // up.comm.size
+    rng = np.random.RandomState(SEED)
+    x = torch.as_tensor(rng.randn(batch, a.image, a.image, 3).astype(
+        np.float32), device=up.comm.device)
+    y = torch.as_tensor(rng.randint(0, a.cfg.num_classes, batch),
+                        device=up.comm.device)
+    up.iterator = itertools.repeat((x, y))
+
+    def step_ms(save=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up.update()
+        if save is not None:
+            save(up)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    step_ms()
+    plain = [step_ms() for _ in range(3)]
+    with_sync = step_ms(cp_a.save)
+    # the first async save that fills the second half of the double
+    # buffer allocates it; later ones reuse a half, and each joins the
+    # previous write before it starts its own
+    copy_ms = []
+    cp_async.save = timed(cp_async.save, async_ms)
+    cp_async._host_snapshot = timed(cp_async._host_snapshot, copy_ms)
+    with_async = [step_ms(cp_async.save) for _ in range(3)]
+    cp_async.finalize()
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+    require(counts == (0, 0, 0), f"flash launches {counts} on this path")
+    torch.backends.cudnn.deterministic = False
+    resnet_s = time.perf_counter() - t_phase
+
+    drill = phase_mnist_kill_drill(torch, np, root)
+    metrics = dict(
+        device=smi, snapshot_bytes_per_rank=nbytes, sync_save_ms=sync_ms[0],
+        async_save_main_thread_ms=async_ms[0], async_writer_ms=writer_ms[0],
+        maybe_load_ms=load_ms, step_ms=statistics.median(plain),
+        steps_ms=plain, step_with_sync_save_ms=with_sync,
+        step_with_async_save_ms=with_async, async_save_ms=async_ms,
+        async_copy_ms=copy_ms, sync_save_parts_ms=parts,
+        loaded_bitwise=checks,
+        straight_step3_bitwise=straight_equal, straight_spread=spread,
+        resumed_step3_bitwise=resumed_equal,
+        resumed_step3_max_abs_diff=resumed_diff, async_pre_step_bitwise=
+        async_checks, fallback_resumed_at=resumed, mnist_kill_drill=drill,
+        resnet_part_s=resnet_s, flash_launches=counts)
+    print(f"checkpoint: step {metrics['step_ms']:.1f} ms (fixed batch, host "
+          f"clock, median of 3), with a sync save {with_sync:.1f} ms, with "
+          f"an async save {[round(t, 1) for t in with_async]} ms (the save "
+          f"itself {[round(t, 1) for t in async_ms[1:]]} ms, its copy "
+          f"{[round(t, 1) for t in copy_ms]} ms); ResNet part {resnet_s:.1f} "
+          f"s, phase {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"checkpoint": metrics}))
+    return metrics
+
+
 def tree_rel_err(a, b):
     """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
     from chainermn_tpu_torch.training.optimizers import tree_leaves
@@ -985,6 +1375,9 @@ def main():
     init_distributed()
     phase_dp_resnet(torch, np, root, smi)
     phase_mnist(torch, np, root)
+
+    # 9. checkpoint and resume, and a SIGKILL drill ---------------------
+    phase_checkpoint(torch, np, root, smi)
     torch.distributed.destroy_process_group()
 
     src = "chainermn_tpu_torch/csrc/"
@@ -1011,4 +1404,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kill-drill"]:
+        # phase 9's child: it never returns, the fault plan kills it
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(kill_drill_child(sys.argv[2]))
     sys.exit(main())

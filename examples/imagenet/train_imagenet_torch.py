@@ -12,8 +12,8 @@ One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``):
 rank iterates its ``scatter_dataset`` shard with ``batchsize // world``.
 The data is the lazy synthetic ImageNet-shaped set unless
 ``--train-npz`` names arrays ``x``/``y``; ``--tiny`` is the 32 px,
-width-8 CPU smoke run.  Weights come from numpy's seed 0.  The other
-architectures (``alex``, ``nin``, ``vgg16``, ``googlenet``) and
+width-8 CPU smoke run.  Weights come from numpy's seed ``--seed`` (0).
+The other architectures (``alex``, ``nin``, ``vgg16``, ``googlenet``) and
 ``--loader native`` are not ported yet (ROADMAP Queue A items 9 and 3).
 """
 
@@ -73,6 +73,8 @@ def parse_args(argv=None):
                    help="synthetic dataset size (default 512 with --tiny, "
                         "else 50000)")
     p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0,
+                   help="numpy seed of the initial weights")
     p.add_argument("--grad-dtype", default=None,
                    help="allreduce_grad_dtype, e.g. bfloat16")
     p.add_argument("--train-npz", default=None)
@@ -131,8 +133,8 @@ def build(args, quiet=False):
     train_set = cmn.scatter_dataset(train_set, comm, shuffle=True, seed=0)
     test_set = cmn.scatter_dataset(test_set, comm)
 
-    params, state = resnet_params_from_jax(*init_resnet_numpy(cfg, 0), cfg,
-                                           device=comm.device)
+    params, state = resnet_params_from_jax(
+        *init_resnet_numpy(cfg, args.seed), cfg, device=comm.device)
 
     def loss_fn(params, state, x, y):
         logits, new_state = resnet_apply(cfg, params, state, x, train=True,

@@ -55,10 +55,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def train(args, params=None, quiet=False):
-    """Run the example; returns rank 0's ``LogReport`` (None on the
-    other ranks).  ``params`` (a list of ``{"w", "b"}`` tensors)
+def build(args, params=None, quiet=False):
+    """The example's trainer, not yet run: a namespace of ``comm``,
+    ``updater``, ``trainer`` and ``log`` (rank 0's ``LogReport``; None
+    on the other ranks).  ``params`` (a list of ``{"w", "b"}`` tensors)
     replaces the seeded initial weights."""
+    import types
+
     import chainermn_tpu_torch as cmn
     from chainermn_tpu_torch import training
     from chainermn_tpu_torch.models import (
@@ -107,7 +110,16 @@ def train(args, params=None, quiet=False):
             trainer.extend(cmn.PrintReport(
                 ["epoch", "main/loss", "validation/loss",
                  "validation/accuracy", "elapsed_time"], log_report=log))
-    trainer.run()
+    return types.SimpleNamespace(comm=comm, updater=updater,
+                                 trainer=trainer, log=log)
+
+
+def train(args, params=None, quiet=False):
+    """Run the example; returns rank 0's ``LogReport`` (None on the
+    other ranks)."""
+    run = build(args, params, quiet)
+    run.trainer.run()
+    log = run.log
     if log is not None and log.log and not quiet:
         print(f"final validation accuracy: "
               f"{log.log[-1].get('validation/accuracy', float('nan')):.4f}")

@@ -426,3 +426,75 @@ def test_cuda_resnet_fp32_forward_matches_cpu(cuda):
         # cuDNN's fp32 algorithms (TF32 off) and the CPU's sum the same
         # products in other orders
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
+# checkpoints of tensors on the card
+# --------------------------------------------------------------------- #
+
+def test_cuda_snapshot_round_trip_is_bitwise(cuda, tmp_path):
+    from chainermn_tpu_torch.utils import load_state, save_state
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    wide = torch.randn(64, 96, device="cuda", generator=g)
+    conv = torch.randn(8, 16, 3, 3, device="cuda", generator=g)
+    tree = {"fp32": torch.randn(1000, device="cuda", generator=g),
+            "bf16": torch.randn(33, 7, device="cuda",
+                                generator=g).to(torch.bfloat16),
+            "bf16_t": wide.to(torch.bfloat16).t(),     # not contiguous
+            "sliced": wide[:, 1::3],                    # not contiguous
+            "channels_last": conv.contiguous(
+                memory_format=torch.channels_last),
+            "count": torch.tensor(5, dtype=torch.int32, device="cuda")}
+    save_state(str(tmp_path / "s.npz"), tree)
+    got = load_state(str(tmp_path / "s.npz"))
+    for k, want in tree.items():
+        back = torch.as_tensor(got[k]).to("cuda")
+        assert back.dtype == want.dtype and back.shape == want.shape, k
+        assert torch.equal(back, want), k
+
+
+def test_cuda_async_save_survives_inplace_update(cuda, tmp_path):
+    """The card's in-place hazard: the next step's optimizer mutates the
+    parameters and momentum right after an async ``save`` returns; the
+    file must hold the values before it, bitwise."""
+    from types import SimpleNamespace
+
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+
+    comm = LoopbackCommunicator()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    params = {"w": torch.randn(4_000_000, device="cuda", generator=g),
+              "v": torch.randn(512, 512, device="cuda",
+                               generator=g).to(torch.bfloat16)}
+    opt = training.sgd(0.1, momentum=0.9)
+    up = SimpleNamespace(comm=comm, iteration=7, params=params,
+                         opt_state=opt.init(params), state=None)
+
+    def step():
+        opt.update({k: torch.ones_like(t) for k, t in params.items()},
+                   up.opt_state, params)
+
+    step()
+    before = {k: t.clone() for k, t in params.items()}
+    mom = [up.opt_state.state[t]["momentum_buffer"].clone()
+           for t in params.values()]
+    cp = create_multi_node_checkpointer(comm, str(tmp_path),
+                                        async_write=True)
+    cp.save(up)
+    for _ in range(3):
+        step()                       # queued right behind the copies
+    cp.finalize()
+    fresh = {k: torch.zeros_like(t) for k, t in params.items()}
+    up2 = SimpleNamespace(comm=comm, iteration=0, params=fresh,
+                          opt_state=opt.init(fresh), state=None)
+    assert create_multi_node_checkpointer(
+        comm, str(tmp_path)).maybe_load(up2) == 7
+    for k in params:
+        assert torch.equal(fresh[k], before[k]), k
+        assert not torch.equal(params[k], before[k]), k
+    got = [up2.opt_state.state[t]["momentum_buffer"] for t in fresh.values()]
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, mom))

@@ -35,9 +35,12 @@ def _imported_modules(path):
 
 EXAMPLES = [ROOT / "examples" / "mnist" / "train_mnist_torch.py",
             ROOT / "examples" / "imagenet" / "train_imagenet_torch.py"]
+# the test helpers the port's drills import or run in children
+TEST_HELPERS = [ROOT / "tests" / "test_torch_world.py",
+                ROOT / "tests" / "_torch_fault_worker.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                             ROOT / "profile_port.py"] \
-    + EXAMPLES
+    + EXAMPLES + TEST_HELPERS
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -90,6 +93,58 @@ def test_dp_path_catches_no_failure(path):
                     and h.type.id == "StopIteration", \
                     f"{path.relative_to(ROOT)}:{h.lineno} catches " \
                     f"{ast.unparse(h.type) if h.type else 'everything'}"
+
+
+# The fault-tolerance layer: every handler it holds, by file, and why it
+# may catch.  A file not named here, or a handler not in its list, fails.
+FAULT_HANDLERS = {
+    "utils/serialization.py": {
+        "FileNotFoundError": "re-raised: a file a peer's GC removed is "
+                             "gone, not damaged",
+        "_UNREADABLE": "numpy, zip and pickle read errors, re-raised as "
+                       "SnapshotCorruptError",
+        "ForeignSnapshotError": "re-raised with the file's path",
+    },
+    "extensions/checkpoint.py": {
+        "SnapshotCorruptError": "the fallback: quarantine the file, vote "
+                                "the set down, resume from an older one",
+        "FileNotFoundError": "a file a peer's GC removed votes its set "
+                             "down, and is not removed twice",
+        "OSError": "a failed quarantine rename must not leave the "
+                   "verdict allgather the peers wait in",
+        "BaseException": "the writer thread's error box, re-raised at "
+                         "the join",
+    },
+    "extensions/watchdog.py": {
+        "Exception": "the on_stall callback: a failing callback must not "
+                     "crash a healthy job (the JAX package's rule)",
+        "dist.DistError": "the peers' heartbeat read: the store's host "
+                          "(rank 0) died, which stalls every peer in the "
+                          "report and keeps the local check running",
+    },
+}
+FAULT_PATH = sorted((PORT / "extensions").glob("*.py")) + [
+    PORT / "utils" / "serialization.py", PORT / "testing.py"]
+
+
+def _handler_names(h):
+    if h.type is None:
+        return ["everything"]
+    kinds = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+    return [ast.unparse(k) for k in kinds]
+
+
+@pytest.mark.parametrize("path", FAULT_PATH,
+                         ids=[str(p.relative_to(ROOT)) for p in FAULT_PATH])
+def test_fault_layer_catches_only_what_it_names(path):
+    allowed = FAULT_HANDLERS.get(str(path.relative_to(PORT)), {})
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try):
+            for h in node.handlers:
+                for name in _handler_names(h):
+                    assert name in allowed, \
+                        f"{path.relative_to(ROOT)}:{h.lineno} catches {name}"
 
 
 @pytest.fixture

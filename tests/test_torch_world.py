@@ -24,7 +24,7 @@ import torch
 JOIN_TIMEOUT_S = 240
 
 
-def _child(rank, n, store, battery, payload_path, out_dir):
+def _child(rank, n, init_method, battery, payload_path, out_dir):
     import torch.distributed as dist
 
     from chainermn_tpu_torch.communicators import (
@@ -35,7 +35,7 @@ def _child(rank, n, store, battery, payload_path, out_dir):
     torch.set_num_threads(1)
     out = Path(out_dir) / f"{rank}.pkl"
     try:
-        init_distributed(init_method=f"file://{store}", world_size=n,
+        init_distributed(init_method=init_method, world_size=n,
                          rank=rank, device="cpu")
         comm = create_communicator("tpu_xla", device="cpu")
         with open(payload_path, "rb") as f:
@@ -45,21 +45,35 @@ def _child(rank, n, store, battery, payload_path, out_dir):
         result = ("error", traceback.format_exc())
     with open(out, "wb") as f:
         pickle.dump(result, f)
+    # a battery's finale runs after its result is written: a drill that
+    # ends the processes itself (the global except hook)
+    finale = globals().get(f"{battery}_finale")
+    if finale is not None and result[0] == "ok":
+        finale(comm, payload)
     if dist.is_initialized():
         dist.destroy_process_group()
 
 
-def run_world(tmp_path, n, battery, payload, timeout=JOIN_TIMEOUT_S):
+def run_world(tmp_path, n, battery, payload, timeout=JOIN_TIMEOUT_S,
+              info=None, tcp=False):
     """Every rank's result of ``battery(comm, payload)`` in an
-    ``n``-process gloo world."""
+    ``n``-process gloo world.  ``info``, a dict, receives the ranks'
+    exit codes (``exitcodes``) and the monotonic time at which the last
+    one had ended (``ended_at``).  ``tcp=True`` rendezvouses through a
+    ``TCPStore`` that rank 0's process hosts on a free local port, as
+    ``torchrun`` does, instead of the ``FileStore``."""
+    from chainermn_tpu_torch.communicators import _free_port
+
     tmp_path = Path(tmp_path) / f"world-{battery}-{n}"
     tmp_path.mkdir(parents=True)
+    init_method = (f"tcp://127.0.0.1:{_free_port()}" if tcp
+                   else f"file://{tmp_path / 'store'}")
     payload_path = tmp_path / "payload.pkl"
     with open(payload_path, "wb") as f:
         pickle.dump(payload, f)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_child,
-                         args=(r, n, str(tmp_path / "store"), battery,
+                         args=(r, n, init_method, battery,
                                str(payload_path), str(tmp_path)))
              for r in range(n)]
     for p in procs:
@@ -68,6 +82,9 @@ def run_world(tmp_path, n, battery, payload, timeout=JOIN_TIMEOUT_S):
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    if info is not None:
+        info["ended_at"] = time.monotonic()
+        info["exitcodes"] = [p.exitcode for p in procs]
     for p in procs:
         if p.is_alive():
             p.kill()
@@ -319,6 +336,253 @@ def battery_data_parallel(comm, p):
             losses.append(float(up.observation["main/loss"]))
         out[name] = dict(losses=losses, params=np_tree(up.params))
     return out
+
+
+# --------------------------------------------------------------------- #
+# checkpoint, resume and the trainer extensions
+# --------------------------------------------------------------------- #
+
+
+def linear_dataset(n=64):
+    """The resume drills' regression set (the JAX package's
+    ``tests/extension_tests/test_resume_equivalence.py``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(n, 4).astype(np.float32)
+    w = rng.randn(4).astype(np.float32)
+    y = (x @ w).astype(np.float32)
+    return [(x[i], y[i]) for i in range(n)]
+
+
+def linear_loss(params, x, y):
+    pred = x @ params["w"] + params["b"]
+    return torch.mean((pred - y) ** 2)
+
+
+def linear_job(comm, root, seed=5, async_write=False, history=1,
+               ckpt_every=3, epochs=6, data=None):
+    """The resume drills' job: ``sgd(0.05)`` on a linear model, batch 16
+    of 64 examples (4 iterations an epoch), a ``LogReport`` an epoch and
+    a checkpoint every ``ckpt_every`` iterations (3: not aligned with
+    the epoch, so a resume lands mid-epoch and mid-shuffle).  Returns
+    ``(trainer, updater, checkpointer, log)``."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+
+    root = Path(root)
+    it = SerialIterator(data or linear_dataset(), batch_size=16,
+                        shuffle=True, seed=seed)
+    opt = training.create_multi_node_optimizer(training.sgd(0.05), comm)
+    params = {"w": torch.zeros(4), "b": torch.zeros(())}
+    up = training.StandardUpdater(it, opt, linear_loss, params, comm)
+    trainer = training.Trainer(up, stop_trigger=(epochs, "epoch"),
+                               out=str(root / "out"))
+    log = training.LogReport(trigger=(1, "epoch"))
+    trainer.extend(log)
+    cp = create_multi_node_checkpointer(comm, str(root / "ckpt"),
+                                        async_write=async_write,
+                                        history=history)
+    if ckpt_every:
+        trainer.extend(cp, trigger=(ckpt_every, "iteration"))
+    return trainer, up, cp, log
+
+
+class FakeUpdater:
+    """What the checkpointer reads of an updater: a parameter ``w`` of
+    3 values, SGD with momentum over it, the iteration."""
+
+    def __init__(self, comm, value=0.0, iteration=0):
+        from chainermn_tpu_torch import training
+
+        self.comm = comm
+        self.iteration = iteration
+        self.params = {"w": torch.full((3,), float(value))}
+        self.opt_state = training.sgd(0.1, momentum=0.9).init(self.params)
+        self.state = None
+
+
+def _snapshot_files(path):
+    import os
+
+    return sorted(f for f in os.listdir(path) if f.startswith("snapshot"))
+
+
+def battery_extensions(comm, p):
+    """The checkpointer's agreement across ranks (fallback resume with a
+    quarantine on one rank, ``history`` GC of agreed sets), SIGTERM on
+    one rank, the persistent-value mean, the observation mean and the
+    watchdog's heartbeats through the world's store."""
+    import signal
+    from types import SimpleNamespace
+
+    from chainermn_tpu_torch.extensions import (
+        AllreducePersistentValues,
+        ObservationAggregator,
+        PreemptionCheckpointer,
+        TrainingWatchdog,
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.links import BatchNormState
+    from chainermn_tpu_torch.testing import FaultInjector, FaultPlan, \
+        corrupt_file
+
+    r = comm.rank
+    root = Path(p["root"])
+    out = {}
+
+    # -- fallback resume: rank 1's newest file is corrupt --------------- #
+    d = root / "fallback"
+    cp = create_multi_node_checkpointer(comm, str(d), history=2)
+    cp._cleanup = lambda keep: None          # keep every set for now
+    for it in (5, 10, 15):
+        cp.save(FakeUpdater(comm, it, it))
+    comm.barrier()
+    if r == 1:
+        corrupt_file(str(d / "snapshot_iter_15.1"), seed=1)
+    comm.barrier()
+    up = FakeUpdater(comm)
+    cp2 = create_multi_node_checkpointer(comm, str(d), history=2)
+    out["fallback_resumed"] = cp2.maybe_load(up)
+    out["fallback_w"] = up.params["w"].tolist()
+    comm.barrier()
+    out["fallback_files"] = _snapshot_files(d)
+    comm.barrier()
+    # the next save runs the agreed GC: 15 is complete on rank 0 only,
+    # so it takes no history slot; the quarantined file stays
+    cp2.save(FakeUpdater(comm, 20, 20))
+    comm.barrier()                           # every rank's GC is done
+    out["gc_files"] = _snapshot_files(d)
+    comm.barrier()
+    out["second_resume"] = create_multi_node_checkpointer(
+        comm, str(d), history=2).maybe_load(FakeUpdater(comm))
+    # both of the two newest sets broken, one file on each rank
+    d2 = root / "fallback2"
+    cp = create_multi_node_checkpointer(comm, str(d2))
+    cp._cleanup = lambda keep: None
+    for it in (5, 10, 15):
+        cp.save(FakeUpdater(comm, it, it))
+    comm.barrier()
+    corrupt_file(str(d2 / f"snapshot_iter_{15 - 5 * r}.{r}"), seed=2 + r)
+    comm.barrier()
+    up = FakeUpdater(comm)
+    out["twice_resumed"] = create_multi_node_checkpointer(
+        comm, str(d2)).maybe_load(up)
+    out["twice_w"] = up.params["w"].tolist()
+
+    # -- SIGTERM on rank 1: both ranks save the same iteration ---------- #
+    d3 = root / "sigterm"
+    trainer, up, cp, _ = linear_job(comm, d3, ckpt_every=None, epochs=50)
+    pre = PreemptionCheckpointer(cp, comm)
+    trainer.extend(pre)
+    trainer.extend(FaultInjector(
+        FaultPlan(sigterm_at_iteration=2, sigterm_rank=1), comm))
+    trainer.run()
+    comm.barrier()
+    out["sigterm"] = dict(
+        iteration=up.iteration, signaled=pre.signaled,
+        stop_reason=trainer.stop_reason, files=_snapshot_files(d3 / "ckpt"),
+        handler_restored=signal.getsignal(signal.SIGTERM)
+        is signal.SIG_DFL)
+    t2, up2, cp2, _ = linear_job(comm, d3, ckpt_every=None, epochs=50)
+    out["sigterm"]["resumed"] = cp2.maybe_load(up2, t2)
+    out["sigterm"]["same_w"] = torch.equal(up2.params["w"],
+                                           up.params["w"])
+
+    # -- AllreducePersistentValues: BN statistics a rank --------------- #
+    st = BatchNormState(torch.tensor(p["bn_mean"][r]),
+                        torch.tensor(p["bn_var"][r]),
+                        torch.tensor(3, dtype=torch.int32))
+    holder = SimpleNamespace(state=st)
+    AllreducePersistentValues(comm).allreduce_persistent(holder)
+    out["persistent"] = np_tree(tuple(holder.state))
+
+    # -- ObservationAggregator ------------------------------------------ #
+    obs = {"main/loss": torch.tensor(p["obs_loss"][r]),
+           "main/host_time": p["obs_time"][r],
+           f"only{r}": float(r + 7)}
+    tr = SimpleNamespace(observation=obs)
+    ObservationAggregator(comm).observe(tr)
+    out["observation"] = {k: float(v) for k, v in tr.observation.items()}
+
+    # -- the watchdog's cross-rank heartbeats --------------------------- #
+    reports = []
+    wd = TrainingWatchdog(stall_timeout=0.5, check_interval=0.1, comm=comm,
+                          on_stall=reports.append,
+                          report_path=str(root / f"stall.{r}.json"))
+    wd.start()
+    for i in range(3):
+        wd.heartbeat(iteration=i)
+    comm.barrier()
+    if r == 1:
+        time.sleep(2.5)                      # rank 1 stops beating
+    else:
+        for i in range(50):
+            wd.heartbeat(iteration=3 + i)
+            time.sleep(0.05)
+    comm.barrier()
+    wd.stop()
+    out["watchdog"] = [(rep["kind"], sorted(rep["stalled_peers"]),
+                        rep["peer_heartbeats"]) for rep in reports]
+    return out
+
+
+def battery_watchdog_store_host_exit(comm, p):
+    """The watchdog when the world's store dies with its host: rank 0,
+    which hosts the ``TCPStore``, leaves with ``os._exit`` (the finale);
+    rank 1 stops beating after the barrier, as a rank stuck in a
+    collective would, and must still report its peer and its own
+    stall."""
+    from chainermn_tpu_torch.extensions import TrainingWatchdog
+
+    reports = []
+    wd = TrainingWatchdog(stall_timeout=p["stall_timeout"],
+                          check_interval=0.1, comm=comm,
+                          on_stall=reports.append,
+                          report_path=str(Path(p["root"]) /
+                                          f"stall.{comm.rank}.json"))
+    wd.start()
+    for i in range(3):
+        wd.heartbeat(iteration=i)
+    comm.barrier()
+    if comm.rank == 0:
+        wd.stop()
+        return []
+    deadline = time.monotonic() + p["wait_s"]
+    while time.monotonic() < deadline and not (
+            any(r["store_unreachable"] for r in reports)
+            and "local-stall" in [r["kind"] for r in reports]):
+        time.sleep(0.05)
+    wd.stop()
+    return [(r["kind"], sorted(r["stalled_peers"]), r["store_unreachable"])
+            for r in reports]
+
+
+def battery_watchdog_store_host_exit_finale(comm, p):
+    import os
+
+    if comm.rank == 0:
+        os._exit(0)
+
+
+def battery_extensions_finale(comm, p):
+    """The global except hook: rank 1 raises, rank 0 waits in a barrier
+    for it; the hook must end both processes."""
+    import sys
+
+    from chainermn_tpu_torch.extensions import add_global_except_hook
+
+    add_global_except_hook(trace_dir=p["root"])
+    Path(p["root"], f"finale.{comm.rank}").write_text(str(time.monotonic()))
+    try:
+        if comm.rank == 1:
+            raise RuntimeError("rank 1 fails")
+        comm.barrier()                 # rank 1 never arrives
+    except BaseException:
+        sys.excepthook(*sys.exc_info())
 
 
 # --------------------------------------------------------------------- #
