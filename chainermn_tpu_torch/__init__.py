@@ -16,8 +16,12 @@ bf16 bucket all-reduce), :class:`StandardUpdater`, :class:`Trainer` and
 BN or the MNIST MLP — and its fault tolerance
 (:mod:`chainermn_tpu_torch.extensions`: per-rank CRC-checked
 checkpoints with fallback resume, preemption, the except hook, the
-watchdog).  Entry points run on CUDA unless the caller passes
-``device="cpu"`` (see :func:`resolve_device`).
+watchdog) — and ChainerMN's model parallelism (the differentiable
+point-to-point transfers of :mod:`chainermn_tpu_torch.ops` and
+:class:`links.MultiNodeChainList`) and its host feed (the C++ batch
+loader of :mod:`chainermn_tpu_torch.native` and the pinned prefetch
+ring of :class:`PrefetchIterator`).  Entry points run on CUDA unless
+the caller passes ``device="cpu"`` (see :func:`resolve_device`).
 """
 
 from chainermn_tpu_torch._device import resolve_device
@@ -39,7 +43,12 @@ from chainermn_tpu_torch.communicators import (
 )
 from chainermn_tpu_torch.datasets import scatter_dataset
 from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
-from chainermn_tpu_torch.iterators import SerialIterator
+from chainermn_tpu_torch.iterators import (
+    DeviceWindow,
+    PrefetchIterator,
+    SerialIterator,
+    StagingConverter,
+)
 from chainermn_tpu_torch.training import (
     Evaluator,
     LogReport,
@@ -51,8 +60,8 @@ from chainermn_tpu_torch.training import (
 )
 
 __all__ = [
-    "Evaluator", "LogReport", "PrintReport", "SerialIterator",
-    "StandardUpdater", "Trainer", "communicators", "create_communicator",
+    "DeviceWindow", "Evaluator", "LogReport", "PrefetchIterator",
+    "PrintReport", "SerialIterator", "StagingConverter", "StandardUpdater", "Trainer", "communicators", "create_communicator",
     "create_multi_node_checkpointer", "create_multi_node_evaluator",
     "create_multi_node_optimizer", "datasets", "extensions",
     "init_distributed", "iterators", "links", "models", "ops", "parallel",

@@ -111,6 +111,16 @@ class CommunicatorBase(abc.ABC):
         ``ppermute`` of one pair): ``dest`` returns it, every other rank
         returns zeros of ``x``'s shape."""
 
+    @abc.abstractmethod
+    def permute(self, x, perm, recv=None):
+        """The JAX package's ``ppermute`` of ``perm``, ``[(source, dest),
+        ...]`` (each rank at most once a source and once a dest): this
+        rank sends ``x`` to its dest and returns what its source sent,
+        or zeros where it has none.  ``x`` may be None on a rank that
+        sends nothing; ``recv``, a tensor of the message's shape and
+        dtype, is then what it receives into.  Not differentiable
+        (:mod:`chainermn_tpu_torch.ops.point_to_point` is)."""
+
     # ------------------------------------------------------------------ #
     # object (control-plane) collectives
     # ------------------------------------------------------------------ #
@@ -182,6 +192,20 @@ class CommunicatorBase(abc.ABC):
     def __repr__(self) -> str:  # pragma: no cover
         return (f"<{type(self).__name__} size={self.size} rank={self.rank} "
                 f"device={self.device}>")
+
+
+def check_perm(perm, size: int):
+    """``perm`` as a list of ``(source, dest)`` pairs of ranks below
+    ``size``, each rank at most once a source and once a dest."""
+    perm = [(int(s), int(d)) for s, d in perm]
+    for what, ranks in (("source", [s for s, _ in perm]),
+                        ("dest", [d for _, d in perm])):
+        if len(set(ranks)) != len(ranks):
+            raise ValueError(f"perm {perm} names a {what} twice")
+        if any(not 0 <= r < size for r in ranks):
+            raise ValueError(f"perm {perm} names a rank outside "
+                             f"0..{size - 1}")
+    return perm
 
 
 def tree_reduce(objs, op: str):

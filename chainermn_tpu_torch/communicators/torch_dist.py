@@ -33,7 +33,7 @@ import torch.utils._pytree as pytree
 
 from chainermn_tpu_torch.ops import fused as _fused
 
-from .base import CommunicatorBase, tree_reduce
+from .base import CommunicatorBase, check_perm, tree_reduce
 
 _REDUCE_OPS = ("sum", "mean", "max", "min", "prod")
 DEFAULT_TIMEOUT = timedelta(minutes=5)
@@ -73,6 +73,12 @@ class TorchDistCommunicator(CommunicatorBase):
         self._intra_rank = hosts[:self._rank].count(mine)
         self._inter_rank = nodes.index(mine)
         self._inter_size = len(nodes)
+        if device.type == "cuda":
+            # NCCL starts a group's communicator at its first collective,
+            # which every member must join; start it now, so that a later
+            # batch of sends between some of the members (``permute``)
+            # finds it started
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
 
     # -- topology ------------------------------------------------------ #
 
@@ -203,6 +209,34 @@ class TorchDistCommunicator(CommunicatorBase):
             dist.recv(out, src=self._global(source), group=self._group)
             return out
         return torch.zeros_like(x)
+
+    def permute(self, x, perm, recv=None):
+        perm = check_perm(perm, self.size)
+        me = self.rank
+        dests = [d for s, d in perm if s == me]
+        sources = [s for s, d in perm if d == me]
+        if dests and x is None:
+            raise ValueError(f"rank {me} sends in {perm} but has no tensor")
+        like = recv if recv is not None else x
+        if like is None:
+            raise ValueError("permute needs x or recv for the result's "
+                             "shape")
+        self._check(like)
+        if not sources:
+            out = torch.zeros_like(like)
+        elif sources == [me]:
+            out = x.clone()
+        else:
+            out = torch.empty_like(like) if recv is None else recv
+        ops = [dist.P2POp(dist.isend, x.contiguous(), self._global(d),
+                          self._group) for d in dests if d != me]
+        ops += [dist.P2POp(dist.irecv, out, self._global(s), self._group)
+                for s in sources if s != me]
+        if ops:
+            self.n_collectives += 1
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return out
 
     # -- object collectives (the gloo group) ----------------------------- #
 

@@ -30,7 +30,7 @@ a copy on a side stream ordered by ``wait_stream`` would hide it, at the
 price of a buffer the next step may not touch until an event says so.
 
 Not ported, each raising: ``shard_only=True``, ``elastic=True`` and
-``rebind_world`` (elastic training, ROADMAP Queue A item 9).  Not
+``rebind_world`` (elastic training, ROADMAP Queue A item 11).  Not
 ported, and absent: the metrics counters and telemetry spans (item 10).
 """
 
@@ -74,7 +74,7 @@ _FILE_RE = re.compile(r"^(?P<name>.+)_iter_(?P<iter>\d+)\.(?P<rank>\d+)$")
 def _not_ported(what):
     return NotImplementedError(
         f"MultiNodeCheckpointer {what} is not ported to chainermn_tpu_torch "
-        "yet (elastic training, ROADMAP Queue A item 9)")
+        "yet (elastic training, ROADMAP Queue A item 11)")
 
 
 def _snapshot_filename(name: str, iteration: int, rank: int) -> str:
@@ -422,7 +422,7 @@ def create_multi_node_checkpointer(
     as a sync save.  ``history`` (default 1) is how many of the newest
     complete sets GC keeps; use 2 so a corrupted newest set has an older
     one to fall back to.  ``elastic=True`` and ``shard_only=True``
-    raise (ROADMAP Queue A item 9)."""
+    raise (ROADMAP Queue A item 11)."""
     return MultiNodeCheckpointer(comm, path, name,
                                  async_write=async_write, history=history,
                                  elastic=elastic, shard_only=shard_only)

@@ -14,7 +14,7 @@ ChainerMN's lost everything since its last periodic snapshot.
 - Then the trainer stops cleanly (``trainer.stop()``): ``finalize``
   joins an async write and restores the previous handlers.
 
-Not ported: ``membership=`` (elastic relaunch, ROADMAP Queue A item 9).
+Not ported: ``membership=`` (elastic relaunch, ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class PreemptionCheckpointer:
             raise NotImplementedError(
                 "PreemptionCheckpointer(membership=...) is not ported to "
                 "chainermn_tpu_torch yet (elastic training, ROADMAP Queue "
-                "A item 9)")
+                "A item 11)")
         self.checkpointer = checkpointer
         self.comm = comm
         self.signaled = False
@@ -97,7 +97,7 @@ class PreemptionCheckpointer:
         raise NotImplementedError(
             "PreemptionCheckpointer.rebind_world is not ported to "
             "chainermn_tpu_torch yet (elastic training, ROADMAP Queue A "
-            "item 9)")
+            "item 11)")
 
     def _global_flag(self) -> bool:
         if self.comm is None or self.comm.size <= 1:

@@ -12,9 +12,9 @@ In the port each rank iterates its own shard (``scatter_dataset``), so
 its batch size is the *local* batch: the JAX package's global
 ``batch_size`` divided by ``comm.size``.
 
-Not ported yet, each raising: ``PrefetchIterator`` and
-``StagingConverter`` (ROADMAP Queue A item 3; the native loader with
-them).
+The prefetching feed (:class:`PrefetchIterator`,
+:class:`StagingConverter`) is in :mod:`.prefetch`; the C++ batch loader
+in :mod:`chainermn_tpu_torch.native`.
 """
 
 from __future__ import annotations
@@ -24,35 +24,25 @@ from typing import Optional
 import numpy as np
 
 from ._convert import apply_batch_policy, default_converter, local_rows
+from .prefetch import (
+    DeviceWindow,
+    PrefetchIterator,
+    StagingConverter,
+    assemble_window,
+)
 
 __all__ = [
+    "DeviceWindow",
     "PrefetchIterator",
     "SerialIterator",
     "StagingConverter",
     "apply_batch_policy",
+    "assemble_window",
     "create_multi_node_iterator",
     "create_synchronized_iterator",
     "default_converter",
     "local_rows",
 ]
-
-
-class PrefetchIterator:
-    """Not ported yet (ROADMAP Queue A item 3); raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PrefetchIterator is not ported to chainermn_tpu_torch yet "
-            "(ROADMAP Queue A item 3)")
-
-
-class StagingConverter:
-    """Not ported yet (ROADMAP Queue A item 3); raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StagingConverter is not ported to chainermn_tpu_torch yet "
-            "(ROADMAP Queue A item 3)")
 
 
 def _array_columns(dataset):

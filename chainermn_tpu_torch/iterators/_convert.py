@@ -1,7 +1,6 @@
 """Batch → columns, and the world-size divisibility policy (the JAX
 package's ``iterators/prefetch.py:60 default_converter`` and ``:173
-apply_batch_policy``).  ``PrefetchIterator`` and ``StagingConverter``
-are not ported yet (ROADMAP Queue A item 3)."""
+apply_batch_policy``)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Links: synchronised batch normalisation."""
+"""Links: synchronised batch normalisation and the cross-rank model
+graph of model parallelism."""
 
 from .batch_normalization import (
     BatchNormState,
@@ -6,6 +7,8 @@ from .batch_normalization import (
     init_batch_norm,
     multi_node_batch_normalization,
 )
+from .multi_node_chain_list import MultiNodeChainList
 
 __all__ = ["BatchNormState", "MultiNodeBatchNormalization",
-           "init_batch_norm", "multi_node_batch_normalization"]
+           "MultiNodeChainList", "init_batch_norm",
+           "multi_node_batch_normalization"]

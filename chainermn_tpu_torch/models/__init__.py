@@ -2,6 +2,7 @@
 data-parallel models: ResNet with synchronised BN, and the MNIST MLP."""
 
 from .convert import (
+    chain_params_from_jax,
     init_mlp_numpy,
     init_numpy_params,
     init_resnet_numpy,
@@ -31,6 +32,7 @@ __all__ = [
     "ResNetConfig",
     "TransformerConfig",
     "accuracy",
+    "chain_params_from_jax",
     "init_mlp_numpy",
     "init_resnet_numpy",
     "mlp_apply",

@@ -38,8 +38,8 @@ from chainermn_tpu_torch.links.batch_normalization import BatchNormState
 from .resnet import ResNetConfig
 from .transformer import TransformerConfig
 
-__all__ = ["init_mlp_numpy", "init_numpy_params", "init_resnet_numpy",
-           "mlp_params_from_jax", "params_from_jax", "params_to_numpy",
+__all__ = ["chain_params_from_jax", "init_mlp_numpy", "init_numpy_params",
+           "init_resnet_numpy", "mlp_params_from_jax", "params_from_jax", "params_to_numpy",
            "resnet_params_from_jax", "resnet_to_numpy"]
 
 
@@ -287,6 +287,27 @@ def mlp_params_from_jax(params, device=None) -> list:
     return [{k: torch.tensor(np.asarray(layer[k]), dtype=torch.float32,
                              device=dev) for k in ("w", "b")}
             for layer in params]
+
+
+def chain_params_from_jax(params_list, chain) -> list:
+    """A JAX ``MultiNodeChainList.init`` list for the port's ``chain``:
+    the components ``chain``'s rank owns as fp32 tensors on its
+    communicator's device (a ``{"w", "b"}`` layer or a list of them,
+    through :func:`mlp_params_from_jax`), None for the others; pass it
+    to ``chain.load_params``."""
+    if len(params_list) != len(chain.components):
+        raise ValueError(f"got {len(params_list)} param sets for "
+                         f"{len(chain.components)} components")
+    dev = chain.comm.device
+    out = []
+    for i, p in enumerate(params_list):
+        if not chain.owns(i):
+            out.append(None)
+        elif isinstance(p, dict):
+            out.append(mlp_params_from_jax([p], dev)[0])
+        else:
+            out.append(mlp_params_from_jax(p, dev))
+    return out
 
 
 def init_mlp_numpy(sizes, seed: int = 0) -> list:

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels with their plain PyTorch versions, the
-differentiable collectives and the fused gradient all-reduce."""
+differentiable collectives and point-to-point transfers, and the fused
+gradient all-reduce."""
 
 from .collectives import (
     allgather,
@@ -18,6 +19,15 @@ from .flash_attention import (
     flash_attention_reference,
     flash_attention_supported,
 )
+from .point_to_point import (
+    ppermute,
+    pseudo_connect,
+    recv,
+    send,
+    send_recv,
+    shift_down,
+    shift_up,
+)
 from .fused import (
     DEFAULT_BUCKET_BYTES,
     FusedSpec,
@@ -32,6 +42,7 @@ __all__ = [
     "alltoall", "bcast", "flash_attention", "flash_attention_bwd_reference",
     "flash_attention_reference", "flash_attention_supported",
     "flatten_buckets", "fused_allreduce", "fused_collective_budget",
-    "gather", "pmean", "psum", "reduce_scatter", "scatter",
-    "unflatten_buckets",
+    "gather", "pmean", "ppermute", "pseudo_connect", "psum", "recv",
+    "reduce_scatter", "scatter", "send", "send_recv", "shift_down",
+    "shift_up", "unflatten_buckets",
 ]

@@ -15,8 +15,8 @@ collective, the transposes JAX's ``lax`` collectives carry:
 
 They take a communicator where the JAX functions take a mesh axis
 name; tensors are per rank.  ``allreduce`` with ``max`` or ``min`` is
-forward only.  ``ops/point_to_point.py`` (``send``/``recv`` and
-``pseudo_connect``) is not ported yet (ROADMAP Queue A item 1).
+forward only.  The point-to-point transfers are in
+``ops/point_to_point.py``.
 """
 
 from __future__ import annotations

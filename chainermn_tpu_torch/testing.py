@@ -6,10 +6,10 @@ stop, a stalled rank → watchdog, NaN → abort) is driven by a fault
 scripted by iteration number, not by luck.
 
 Not ported, each raising: the resize faults (``resize_at_iteration``,
-``resize_live_at_iteration``; elastic training, ROADMAP Queue A item 9)
+``resize_live_at_iteration``; elastic training, ROADMAP Queue A item 11)
 and the serving and fleet faults (``serve_*``, ``fleet_*``,
 :meth:`FaultInjector.attach_engine`, :meth:`FaultInjector.attach_fleet`;
-serving, item 11).
+serving, item 12).
 """
 
 from __future__ import annotations
@@ -121,12 +121,12 @@ class FaultPlan:
             if getattr(self, f) is not None:
                 raise NotImplementedError(
                     f"FaultPlan.{f} is not ported to chainermn_tpu_torch "
-                    "yet (elastic training, ROADMAP Queue A item 9)")
+                    "yet (elastic training, ROADMAP Queue A item 11)")
         for f in _SERVING_FIELDS:
             if getattr(self, f) is not None:
                 raise NotImplementedError(
                     f"FaultPlan.{f} is not ported to chainermn_tpu_torch "
-                    "yet (serving, ROADMAP Queue A item 11)")
+                    "yet (serving, ROADMAP Queue A item 12)")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
@@ -153,7 +153,7 @@ class FaultInjector:
             raise NotImplementedError(
                 "FaultInjector(resize_controller=...) is not ported to "
                 "chainermn_tpu_torch yet (elastic training, ROADMAP Queue "
-                "A item 9)")
+                "A item 11)")
         self.plan = plan
         self.comm = comm
         self.checkpointer = checkpointer
@@ -212,9 +212,9 @@ class FaultInjector:
     def attach_engine(self, engine):
         raise NotImplementedError(
             "FaultInjector.attach_engine is not ported to "
-            "chainermn_tpu_torch yet (serving, ROADMAP Queue A item 11)")
+            "chainermn_tpu_torch yet (serving, ROADMAP Queue A item 12)")
 
     def attach_fleet(self, router):
         raise NotImplementedError(
             "FaultInjector.attach_fleet is not ported to "
-            "chainermn_tpu_torch yet (serving, ROADMAP Queue A item 11)")
+            "chainermn_tpu_torch yet (serving, ROADMAP Queue A item 12)")

@@ -11,7 +11,7 @@ no device mesh (``axis_names`` and ``mesh_shape`` are ``None``).
 
 Not ported, each raising: re-laying a state onto another world size
 (:func:`relayout_state`), :class:`ElasticMembership` and
-:class:`ResizeController` (elastic training, ROADMAP Queue A item 9).
+:class:`ResizeController` (elastic training, ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ _COMPARE_KEYS = ("format", "world_size", "inter_size", "axis_names",
 def _not_ported(what):
     return NotImplementedError(
         f"{what} is not ported to chainermn_tpu_torch yet (elastic "
-        "training, ROADMAP Queue A item 9)")
+        "training, ROADMAP Queue A item 11)")
 
 
 def _sharding_mode(sig: Optional[dict]) -> Optional[str]:

@@ -14,12 +14,19 @@ the two agree up to the rounding of the wire dtype.
 of the scalar), as in the JAX package.  A ragged last batch of an epoch
 runs as an ordinary step of its own size.
 
+With ``prefetch`` the iterator is wrapped in a
+:class:`~chainermn_tpu_torch.iterators.PrefetchIterator`, whose worker
+pulls, converts and copies the next batch to the device while this one
+computes; ``update()`` takes its :class:`DeviceWindow` as it is.  The
+port's step is already asynchronous on the card (the host enqueues a
+step while the card runs the last), so ``max_inflight`` stays 1.
+
 Not ported yet, each raising: ``steps_per_execution > 1``,
 ``accum_steps > 1``, ``max_inflight > 1`` and :func:`fuse_steps`
 (ROADMAP Queue A item 4; on the card a fused window would be a CUDA
-graph), ``prefetch`` (item 3), ``exchange_probe_every`` and the
-telemetry hooks ``mark_steady``/``register_memory`` (item 10), and
-``rebind_world`` (elastic training, item 11).
+graph), ``exchange_probe_every`` and the telemetry hooks
+``mark_steady``/``register_memory`` (item 10), and ``rebind_world``
+(elastic training, item 11).
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ from typing import Callable
 import torch
 import torch.utils._pytree as pytree
 
-from chainermn_tpu_torch.iterators import default_converter
+from chainermn_tpu_torch.iterators import (
+    PrefetchIterator,
+    default_converter,
+)
 
 __all__ = ["StandardUpdater", "fuse_steps"]
 
@@ -73,6 +83,15 @@ class StandardUpdater:
         own batch, so no batch is split and nothing is dropped.
       state: optional tree of non-trained tensors, broadcast like
         ``params`` and replaced by ``loss_fn``'s ``new_state`` each step.
+      prefetch: the depth of a :class:`PrefetchIterator` around
+        ``iterator`` (``True`` → 2; 0 keeps the serial feed); the
+        default converter then becomes the prefetcher's
+        :class:`StagingConverter` (pinned on the card).  A
+        ``PrefetchIterator`` passed as ``iterator`` is adopted; its
+        window and ``drop_remainder`` must agree with this updater's.
+        ``self.iterator`` is the prefetcher, whose ``state_dict`` is the
+        base iterator's at the consumer's position, so checkpoints
+        resume as in the serial feed.
 
     Observations: ``main/loss`` (global mean), ``main/host_time``
     (pull, convert, move to the device), ``main/device_time`` (the wait
@@ -101,10 +120,30 @@ class StandardUpdater:
                 ("steps_per_execution > 1", steps_per_execution != 1, 4),
                 ("accum_steps > 1", accum_steps != 1 or accum_dtype, 4),
                 ("max_inflight > 1", max_inflight not in (None, 1), 4),
-                ("prefetch", prefetch, 3),
                 ("exchange_probe_every", exchange_probe_every, 10)):
             if on:
                 raise _not_ported(what, item)
+        self.prefetch = 2 if prefetch is True else int(prefetch or 0)
+        if self.prefetch < 0:
+            raise ValueError("prefetch depth must be >= 0")
+        if isinstance(iterator, PrefetchIterator):
+            # a pre-built prefetcher implies prefetch mode, and must
+            # agree with this updater's window contract
+            if iterator._n_steps != steps_per_execution:
+                raise ValueError(
+                    f"PrefetchIterator was built with steps_per_execution="
+                    f"{iterator._n_steps}, updater wants "
+                    f"{steps_per_execution}")
+            if iterator._drop_remainder != drop_remainder:
+                raise ValueError("PrefetchIterator and updater disagree "
+                                 "on drop_remainder")
+            self.prefetch = iterator.depth
+        elif self.prefetch:
+            iterator = PrefetchIterator(
+                iterator, comm,
+                converter=(None if converter is default_converter
+                           else converter),
+                depth=self.prefetch, drop_remainder=drop_remainder)
         self.iterator = iterator
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -144,15 +183,24 @@ class StandardUpdater:
         raise _not_ported("rebind_world (elastic training)", 11)
 
     def finalize(self):
-        """Nothing to release: the feed is the caller's iterator."""
+        """Release the feed: a prefetching iterator's worker is joined
+        and its unconsumed lookahead returned to the base iterator.  The
+        trainer calls this when ``run()`` exits; the feed restarts if
+        training resumes."""
+        if isinstance(self.iterator, PrefetchIterator):
+            self.iterator.close()
 
     def _to_device(self, a):
         return torch.as_tensor(a).to(self.device)
 
     def update(self):
         t0 = time.perf_counter()
-        arrays = tuple(self._to_device(a)
-                       for a in self.converter(next(self.iterator)))
+        if self.prefetch:
+            # a DeviceWindow, already on the device
+            arrays = next(self.iterator).arrays
+        else:
+            arrays = tuple(self._to_device(a)
+                           for a in self.converter(next(self.iterator)))
         host_time = time.perf_counter() - t0
 
         leaves, treedef = pytree.tree_flatten(self.params)

@@ -27,7 +27,7 @@ leaf loads as a numpy array, as in the JAX package.
 
 Not ported: the shard-only covering-set parts (``build_shard_part``,
 ``assemble_shard_state``, ``ShardSetError``; ``save_state(shard_part=...)``
-raises, ROADMAP Queue A item 9) and the telemetry spans around a save
+raises, ROADMAP Queue A item 11) and the telemetry spans around a save
 and a load (item 10).
 """
 
@@ -173,7 +173,7 @@ def save_state(path: str, pytree, topology=None, shard_part=None) -> None:
     if shard_part is not None:
         raise NotImplementedError(
             "save_state(shard_part=...) is not ported to chainermn_tpu_torch "
-            "yet (shard-only snapshot sets, ROADMAP Queue A item 9)")
+            "yet (shard-only snapshot sets, ROADMAP Queue A item 11)")
     leaves, treedef = tree_flatten(pytree)
     payload, dtypes, crcs = {}, [], []
     for i, leaf in enumerate(leaves):

@@ -47,11 +47,21 @@ Phases (any failure exits non-zero before the last line is printed):
    all-reduces within the fused budget, the BN statistics moved, fp32
    logits against the CPU forward, bf16 gradients against fp32);
 8. the MNIST example (``examples/mnist/train_mnist_torch.py``) for one
-   epoch in the same world, its validation accuracy above a floor.
+   epoch in the same world, its validation accuracy above a floor;
+9. checkpoint and resume of phase 7's ResNet-50 and a SIGKILL drill of
+   the MNIST example;
+10. the host feed: phase 7's ResNet-50 step through the host over 1280
+    images materialised by the example's ``--loader native``, fed by a
+    ``SerialIterator``, by the C++ ``NativeBatchIterator``, and by the
+    C++ loader behind a ``PrefetchIterator`` (pinned staging, a copy
+    stream), with the batches, the parameters and a mid-run resume held
+    bitwise;
+11. ``MultiNodeChainList`` on one card: the model-parallel MNIST MLP as
+    a one-rank chain of self-sends against the plain sequential MLP.
 
 Phases 3 and 6 are the main paths of the kernels: each starts with
 every launch count at 0 and reads the counts when it ends; phases 7
-and 8 run no hand-written kernel, and hold their counts at 0.  It
+to 11 run no hand-written kernel, and hold their counts at 0.  It
 prints the card's name and power limit, a ``{"dp_resnet50": {...}}``
 line of phase 7's metrics, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from numpy seed 0.  fp32
@@ -1217,6 +1227,288 @@ def phase_checkpoint(torch, np, root, smi):
     return metrics
 
 
+def phase_host_feed(torch, np, root, smi, dp):
+    """10. The host feed at full width: phase 7's ResNet-50 (224 px,
+    batch 256, bf16, bf16 wire, sgd momentum, one NCCL rank), cuDNN
+    pinned as in phase 9, over 1280 synthetic images materialised once
+    by the ImageNet example's ``--loader native``.  The host-path step
+    (2 warm-ups, median of 5, each step synchronised) through (a) a
+    ``SerialIterator`` over the arrays, (b) the example's serial
+    ``NativeBatchIterator`` and (c) ``NativeBatchIterator`` +
+    ``PrefetchIterator(depth=2)``, beside phase 7's fixed-batch step;
+    the batches of (b) and (c) bitwise ``_native_perm``'s, the
+    parameters after 5 steps of (c) bitwise (b)'s, and a save and resume
+    in the middle of (c) continuing bitwise.  Returns the metrics."""
+    import shutil
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.iterators import PrefetchIterator
+    from chainermn_tpu_torch.native import NativeBatchIterator, _native_perm
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    ex = load_example(root, "examples/imagenet/train_imagenet_torch.py",
+                      "train_imagenet_torch")
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    # 1423 images: 1280 to train (5 batches of 256), 143 to validate
+    args = ex.parse_args([
+        "--grad-dtype", "bfloat16", "--loader", "native", "--n-images",
+        "1423", "--iterations", "1", "--out",
+        str(root / "build" / "chip_smoke" / "feed")])
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    t0 = time.perf_counter()
+    run = ex.build(args, quiet=True)
+    build_s = time.perf_counter() - t0
+    comm, up_b = run.comm, run.updater
+    xs, ys = up_b.iterator._arrays
+    batch = args.batchsize // comm.size
+    require(xs.shape == (1280, run.image, run.image, 3)
+            and xs.dtype == np.float32, f"materialised {xs.shape} {xs.dtype}")
+    start = (clone_tree(torch, up_b.params), clone_tree(torch, up_b.state))
+
+    def updater(it):
+        opt = cmn.create_multi_node_optimizer(
+            training.sgd(0.1, momentum=0.9), comm,
+            allreduce_grad_dtype=torch.bfloat16)
+        return cmn.StandardUpdater(it, opt, up_b.loss_fn,
+                                   clone_tree(torch, start[0]), comm,
+                                   state=clone_tree(torch, start[1]))
+
+    def native():
+        return NativeBatchIterator([xs, ys], batch, shuffle=True, seed=1)
+
+    def timed(up):
+        steps, after5 = [], None
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            up.update()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            if i == 4:
+                # not grab(): the prefetcher's state_dict stops its worker
+                after5 = dict(params=clone_tree(torch, up.params),
+                              state=clone_tree(torch, up.state))
+        return statistics.median(steps[2:]), steps, after5
+
+    feeds = {}
+    up_a = updater(cmn.SerialIterator((xs, ys), batch, shuffle=True,
+                                      seed=1))
+    feeds["a_serial_arrays"] = timed(up_a)
+    del up_a
+    feeds["b_native_serial"] = timed(up_b)
+    up_c = updater(PrefetchIterator(native(), comm, depth=2))
+    feeds["c_native_prefetch"] = timed(up_c)
+    host = {k: up.observation["main/host_time"] * 1e3
+            for k, up in (("b_native_serial", up_b),
+                          ("c_native_prefetch", up_c))}
+    params_equal, worst = tree_diff(
+        torch, np, feeds["b_native_serial"][2]["params"],
+        feeds["c_native_prefetch"][2]["params"])
+    state_equal = tree_diff(torch, np, feeds["b_native_serial"][2]["state"],
+                            feeds["c_native_prefetch"][2]["state"])[0]
+
+    # the batches of (b) and (c): _native_perm's order, bitwise
+    plain_b, plain_c = native(), PrefetchIterator(native(), comm, depth=2)
+    batches_equal = []
+    for step in range(7):
+        ep, k = divmod(step, len(xs) // batch)
+        idx = _native_perm(len(xs), 1, ep)[k * batch:(k + 1) * batch]
+        got_b = next(plain_b)
+        got_c = next(plain_c).arrays
+        batches_equal.append(
+            np.array_equal(got_b[0], xs[idx])
+            and np.array_equal(got_b[1], ys[idx])
+            and np.array_equal(got_c[0].cpu().numpy(), xs[idx])
+            and np.array_equal(got_c[1].cpu().numpy(), ys[idx]))
+    plain_c.close()
+    del got_b, got_c, plain_b
+
+    # where a host-path batch's time goes (median of 3, host clock,
+    # synchronised): the gather of (a), the copy out of a C++ slot of
+    # (b), a pageable copy to the card; (c)'s copy into pinned staging
+    # and its copy to the card from there
+    idx = _native_perm(len(xs), 1, 0)[:batch]
+    loader = native()            # the slot's memory lives as long as it
+    slot = next(loader)[0]
+    pinned = torch.empty(slot.shape, dtype=torch.float32, pin_memory=True)
+
+    def part(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    parts = dict(
+        gather=part(lambda: xs[idx]), slot_copy=part(lambda: np.array(slot)),
+        pageable_to_card=part(lambda: torch.from_numpy(slot).to(comm.device)),
+        pinned_stage=part(lambda: np.copyto(pinned.numpy(), slot)),
+        pinned_to_card=part(lambda: pinned.to(comm.device, non_blocking=True)))
+    del slot, loader, pinned
+
+    # a restore 90 epochs (450 batches) in: the loader starts there and
+    # replays nothing, so it costs a rebuild, not 450 gathers
+    far = native()
+    t0 = time.perf_counter()
+    far.load_state_dict({"popped": 90 * (len(xs) // batch)})
+    restore_far_ms = (time.perf_counter() - t0) * 1e3
+    idx = _native_perm(len(xs), 1, 90)[:batch]
+    got_far = next(far)
+    far_equal = bool(np.array_equal(got_far[0], xs[idx])
+                     and np.array_equal(got_far[1], ys[idx]))
+    del got_far, far
+
+    # save in the middle of (c) (iteration 7, the worker ahead), go on
+    # two steps, resume from the file into the same job, replay them
+    ckpt = root / "build" / "chip_smoke" / "feed_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cp = create_multi_node_checkpointer(comm, str(ckpt))
+    cp.save(up_c)
+    straight = []
+    for _ in range(2):
+        up_c.update()
+        straight.append(float(up_c.observation["main/loss"]))
+    want = grab(torch, up_c)
+    resumed_at = cp.maybe_load(up_c)
+    replay = []
+    for _ in range(2):
+        up_c.update()
+        replay.append(float(up_c.observation["main/loss"]))
+    got = grab(torch, up_c)
+    resume_equal = replay == straight and all(
+        tree_diff(torch, np, got[k], want[k])[0]
+        for k in ("params", "state", "opt"))
+    up_c.finalize()
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+    torch.backends.cudnn.deterministic = False
+
+    step = {k: v[0] for k, v in feeds.items()}
+    metrics = dict(
+        device=smi, batch=batch * comm.size, images=len(xs),
+        materialise_s=build_s, host_path_step_ms=step,
+        host_path_steps_ms={k: v[1] for k, v in feeds.items()},
+        last_host_time_ms=host, batch_parts_ms=parts,
+        images_per_s={k: batch * comm.size / (v / 1e3)
+                      for k, v in step.items()},
+        fixed_batch_step_ms_phase7=dp["step_ms"],
+        lazy_host_path_step_ms_phase7=dp["host_path_step_ms"],
+        # prefetch's own gain, over the same materialised arrays
+        prefetch_speedup_c_over_a=step["a_serial_arrays"]
+        / step["c_native_prefetch"],
+        prefetch_speedup_c_over_b=step["b_native_serial"]
+        / step["c_native_prefetch"],
+        # materialising the images up front (outside the timed steps)
+        # and prefetch together, against phase 7's lazy images
+        materialised_c_over_lazy_phase7=dp["host_path_step_ms"]
+        / step["c_native_prefetch"],
+        restore_90_epochs_in_ms=restore_far_ms,
+        restore_90_epochs_in_bitwise=far_equal,
+        batches_bitwise=all(batches_equal),
+        params_after5_b_c_bitwise=params_equal,
+        params_after5_max_abs_diff=worst, bn_state_after5_bitwise=state_equal,
+        resumed_at=resumed_at, resume_bitwise=resume_equal,
+        flash_launches=counts)
+    print(f"host feed: 1280 images materialised by --loader native in "
+          f"{build_s:.1f} s; host-path step (median of 5 after 2 warm-ups, "
+          f"each synchronised): (a) serial over the arrays "
+          f"{step['a_serial_arrays']:.2f} ms, (b) native serial "
+          f"{step['b_native_serial']:.2f} ms, (c) native + prefetch depth 2 "
+          f"{step['c_native_prefetch']:.2f} ms; phase 7: fixed batch "
+          f"{dp['step_ms']:.2f} ms, lazy images through the host "
+          f"{dp['host_path_step_ms']:.1f} ms; a batch's parts (ms) "
+          f"{ {k: round(v, 2) for k, v in parts.items()} }; prefetch's "
+          f"gain (a)/(c) {metrics['prefetch_speedup_c_over_a']:.3f}x, "
+          f"(b)/(c) {metrics['prefetch_speedup_c_over_b']:.3f}x; a restore "
+          f"90 epochs in {restore_far_ms:.2f} ms (bitwise {far_equal}); "
+          f"batches bitwise "
+          f"{batches_equal}; params after 5 steps (b) = (c) bitwise "
+          f"{params_equal} (max |diff| {worst:.3e}); resumed at "
+          f"{resumed_at}, next 2 steps bitwise {resume_equal}")
+    print(json.dumps({"host_feed": metrics}))
+    require(counts == (0, 0, 0), f"flash launches {counts} on this path")
+    require(all(batches_equal), f"batches off _native_perm: {batches_equal}")
+    require(params_equal and state_equal,
+            f"(c) after 5 steps differs from (b) by {worst}")
+    require(resumed_at == 7 and resume_equal,
+            f"resume at {resumed_at}: {replay} vs {straight}")
+    require(far_equal, "the loader restored 90 epochs in is off "
+            "_native_perm's order")
+    return metrics
+
+
+def phase_model_parallel(torch, np, root, smi):
+    """11. ``MultiNodeChainList`` on one card: the model-parallel MNIST
+    MLP's two stages (``[784, 256, 256]`` → ``[256, 10]``) as a one-rank
+    chain (NCCL refuses two ranks on one GPU), every component on rank 0
+    and the transfers self-sends, held against a plain sequential run of
+    the same MLP on the card: loss and gradients."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.links import MultiNodeChainList
+    from chainermn_tpu_torch.models import (
+        init_mlp_numpy, mlp_apply, softmax_cross_entropy)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    comm = create_communicator()
+    mn = MultiNodeChainList(comm)
+    mn.add_link(lambda s: init_mlp_numpy([784, 256, 256], s), mlp_apply,
+                owner=0, rank_out=0, name="lower_half")
+    mn.add_link(lambda s: init_mlp_numpy([256, 10], s), mlp_apply,
+                owner=0, rank_in=0, name="upper_half")
+    numpy_params = mn.init(seed=0)
+    mn.load_params(numpy_params)
+    dev = comm.device
+    seq = [[{k: torch.tensor(v, device=dev, requires_grad=True)
+             for k, v in layer.items()} for layer in part]
+           for part in numpy_params]
+    mnist = load_example(root, "examples/mnist/train_mnist_torch.py",
+                         "train_mnist_torch")
+    train, _ = mnist.make_dataset()
+    x = torch.as_tensor(np.stack([a for a, _ in train[:128]]), device=dev)
+    y = torch.as_tensor(np.stack([b for _, b in train[:128]]), device=dev)
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    t0 = time.perf_counter()
+    loss = softmax_cross_entropy(mn(x), y)
+    loss.backward()
+    grads = mn.reduce_grads(mn.grads())
+    torch.cuda.synchronize()
+    mp_ms = (time.perf_counter() - t0) * 1e3
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+    ref = softmax_cross_entropy(mlp_apply(seq[1], mlp_apply(seq[0], x)), y)
+    leaves = pytree.tree_leaves(seq)
+    ref_grads = torch.autograd.grad(ref, leaves)
+    got = pytree.tree_leaves(grads)
+    loss_equal = torch.equal(loss.detach(), ref.detach())
+    grads_equal = all(torch.equal(a, b) for a, b in zip(got, ref_grads))
+    err = tree_rel_err(got, list(ref_grads))
+    metrics = dict(device=smi, loss=loss.item(), loss_bitwise=loss_equal,
+                   grads_bitwise=grads_equal, grads_rel_l2=err,
+                   step_ms=mp_ms, flash_launches=counts)
+    print(f"model parallel: one-rank chain (2 components, self-sends) on "
+          f"{comm.device}: loss {loss.item():.6f} vs sequential "
+          f"{ref.item():.6f} bitwise {loss_equal}; gradients bitwise "
+          f"{grads_equal} (rel L2 {err:.3e}); forward and backward "
+          f"{mp_ms:.1f} ms (first call)")
+    print(json.dumps({"model_parallel": metrics}))
+    require(counts == (0, 0, 0), f"flash launches {counts} on this path")
+    require(len(got) == len(ref_grads) == 6, f"{len(got)} gradients")
+    # the same kernels on the same inputs; the transfers are copies and
+    # the ties add zeros
+    require(abs(loss.item() - ref.item()) <= 1e-6 * abs(ref.item())
+            and err <= 1e-6, f"chain off the sequential MLP: {err}")
+    return metrics
+
+
 def tree_rel_err(a, b):
     """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
     from chainermn_tpu_torch.training.optimizers import tree_leaves
@@ -1373,11 +1665,15 @@ def main():
 
     # 7. data-parallel ResNet-50 and 8. MNIST, one NCCL rank ------------
     init_distributed()
-    phase_dp_resnet(torch, np, root, smi)
+    dp = phase_dp_resnet(torch, np, root, smi)
     phase_mnist(torch, np, root)
 
     # 9. checkpoint and resume, and a SIGKILL drill ---------------------
     phase_checkpoint(torch, np, root, smi)
+
+    # 10. the host feed and 11. model parallelism, one NCCL rank --------
+    phase_host_feed(torch, np, root, smi, dp)
+    phase_model_parallel(torch, np, root, smi)
     torch.distributed.destroy_process_group()
 
     src = "chainermn_tpu_torch/csrc/"

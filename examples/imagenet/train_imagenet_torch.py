@@ -13,8 +13,10 @@ rank iterates its ``scatter_dataset`` shard with ``batchsize // world``.
 The data is the lazy synthetic ImageNet-shaped set unless
 ``--train-npz`` names arrays ``x``/``y``; ``--tiny`` is the 32 px,
 width-8 CPU smoke run.  Weights come from numpy's seed ``--seed`` (0).
-The other architectures (``alex``, ``nin``, ``vgg16``, ``googlenet``) and
-``--loader native`` are not ported yet (ROADMAP Queue A items 9 and 3).
+``--loader native`` materialises this rank's shard once and batches it
+with the C++ loader (``chainermn_tpu_torch.native``, built with ``g++``
+on first use).  The other architectures (``alex``, ``nin``, ``vgg16``,
+``googlenet``) are not ported yet (ROADMAP Queue A item 9).
 """
 
 import argparse
@@ -105,9 +107,6 @@ def build(args, quiet=False):
     if not args.arch.startswith("resnet"):
         raise NotImplementedError(
             f"--arch {args.arch} is not ported yet (ROADMAP Queue A item 9)")
-    if args.loader != "serial":
-        raise NotImplementedError(
-            "--loader native is not ported yet (ROADMAP Queue A item 3)")
     comm = cmn.create_communicator(args.communicator, device=args.device)
     if comm.rank == 0 and not quiet:
         print(f"world: {comm.size} ranks on {comm.inter_size} nodes, "
@@ -145,8 +144,31 @@ def build(args, quiet=False):
         training.sgd(args.lr, momentum=0.9), comm,
         allreduce_grad_dtype=(getattr(torch, args.grad_dtype)
                               if args.grad_dtype else None))
-    train_it = cmn.SerialIterator(train_set, local_batch, shuffle=True,
-                                  seed=1)
+    if args.loader == "native":
+        from chainermn_tpu_torch.native import NativeBatchIterator
+
+        # the native loader batches memory-resident field arrays:
+        # materialise this rank's shard once up front — bounded, because
+        # a full-size synthetic shard would be tens of GB
+        # (SyntheticImages is lazy for exactly that reason)
+        est = len(train_set) * image * image * 3 * 4
+        if est > 4 << 30:
+            raise SystemExit(
+                f"--loader native materialises the local shard "
+                f"(~{est / 2**30:.0f} GB here): use --tiny or point "
+                "--train-npz at a real on-disk dataset")
+        xs = np.stack([train_set[i][0] for i in range(len(train_set))])
+        ys = np.asarray([train_set[i][1] for i in range(len(train_set))],
+                        np.int32)
+        # its batches are views into recycled slots; the updater's move
+        # to the device (a synchronous copy on the card) has read a
+        # batch, and on the CPU the step has used it, before the next
+        # pull releases the slot, so no converter copies them out
+        train_it = NativeBatchIterator([xs, ys], local_batch, shuffle=True,
+                                       seed=1)
+    else:
+        train_it = cmn.SerialIterator(train_set, local_batch, shuffle=True,
+                                      seed=1)
     test_it = cmn.SerialIterator(test_set, local_batch, repeat=False)
     updater = cmn.StandardUpdater(train_it, opt, loss_fn, params, comm,
                                   state=state)

@@ -387,24 +387,24 @@ def _unported():
     c = LoopbackCommunicator(device="cpu")
     return {
         "shard_only": (lambda: create_multi_node_checkpointer(
-            c, "x", shard_only=True), 9),
+            c, "x", shard_only=True), 11),
         "elastic": (lambda: create_multi_node_checkpointer(
-            c, "x", elastic=True), 9),
+            c, "x", elastic=True), 11),
         "rebind_world": (lambda: create_multi_node_checkpointer(
-            c, "x").rebind_world(c), 9),
-        "relayout_state": (lambda: elastic.relayout_state({}, {}, {}), 9),
-        "membership": (lambda: elastic.ElasticMembership(), 9),
-        "resize_controller": (lambda: elastic.ResizeController(), 9),
-        "shard_part": (lambda: tser.save_state("x", {}, shard_part={}), 9),
-        "plan_resize": (lambda: FaultPlan(resize_at_iteration=3), 9),
+            c, "x").rebind_world(c), 11),
+        "relayout_state": (lambda: elastic.relayout_state({}, {}, {}), 11),
+        "membership": (lambda: elastic.ElasticMembership(), 11),
+        "resize_controller": (lambda: elastic.ResizeController(), 11),
+        "shard_part": (lambda: tser.save_state("x", {}, shard_part={}), 11),
+        "plan_resize": (lambda: FaultPlan(resize_at_iteration=3), 11),
         "plan_live_resize": (
-            lambda: FaultPlan(resize_live_at_iteration=3), 9),
+            lambda: FaultPlan(resize_live_at_iteration=3), 11),
         "injector_resize": (lambda: FaultInjector(
-            FaultPlan(), resize_controller=object()), 9),
-        "plan_serving": (lambda: FaultPlan(serve_raise_at_round=1), 11),
-        "plan_fleet": (lambda: FaultPlan(fleet_kill_at_step=1), 11),
+            FaultPlan(), resize_controller=object()), 11),
+        "plan_serving": (lambda: FaultPlan(serve_raise_at_round=1), 12),
+        "plan_fleet": (lambda: FaultPlan(fleet_kill_at_step=1), 12),
         "attach_engine": (
-            lambda: FaultInjector(FaultPlan()).attach_engine(None), 11),
+            lambda: FaultInjector(FaultPlan()).attach_engine(None), 12),
         "zero1_signature": (lambda: elastic.topology_signature(
             c, zero1=True), 8),
     }
@@ -426,7 +426,7 @@ def test_elastic_resume_onto_changed_topology_raises(comm, tmp_path):
                          up.opt_state)},
                     topology=dict(TOPOLOGY, world_size=2, inter_size=2))
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 9"):
+                       match="ROADMAP Queue A item 11"):
         create_multi_node_checkpointer(comm, str(tmp_path), elastic=True)
     with pytest.raises(RuntimeError, match="same world size"):
         create_multi_node_checkpointer(comm, str(tmp_path)).maybe_load(up)

@@ -498,3 +498,81 @@ def test_cuda_async_save_survives_inplace_update(cuda, tmp_path):
         assert not torch.equal(params[k], before[k]), k
     got = [up2.opt_state.state[t]["momentum_buffer"] for t in fresh.values()]
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, mom))
+
+
+# --------------------------------------------------------------------- #
+# the host feed on the card
+# --------------------------------------------------------------------- #
+
+def _feed_arrays(n=64, side=64):
+    rng = np.random.RandomState(2)
+    return (rng.randn(n, side, side, 3).astype(np.float32),
+            rng.randint(0, 1000, n).astype(np.int32))
+
+
+def test_prefetch_delivers_on_the_card_from_its_stream(cuda):
+    """Batches arrive on the card, copied on the worker's side stream
+    (an event behind the copies), through a pinned staging ring, equal
+    to the serial feed's, over the serial iterator and the C++ loader."""
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+    from chainermn_tpu_torch.iterators import (
+        PrefetchIterator, SerialIterator, StagingConverter)
+    from chainermn_tpu_torch.native import NativeBatchIterator
+
+    xs, ys = _feed_arrays()
+    comm = LoopbackCommunicator(device="cuda")
+    feeds = (lambda: SerialIterator((xs, ys), 16, shuffle=True, seed=1),
+             lambda: NativeBatchIterator([xs, ys], 16, shuffle=True,
+                                         seed=1))
+    for make in feeds:
+        pf, ref = PrefetchIterator(make(), comm, depth=2), make()
+        conv = pf._converter
+        assert isinstance(conv, StagingConverter) and conv.pin_memory
+        assert pf._stream is not None \
+            and pf._stream != torch.cuda.current_stream()
+        for _ in range(6):
+            rec = next(pf)
+            want = tuple(np.array(a) for a in next(ref))
+            assert isinstance(rec.event, torch.cuda.Event)
+            for t, w in zip(rec.arrays, want):
+                assert t.is_cuda
+                np.testing.assert_array_equal(t.cpu().numpy(), w)
+        bufs = [b for ring in conv._rings.values() for b in ring]
+        assert bufs and all(b.tensor.is_pinned() for b in bufs)
+        pf.close()
+
+
+def test_recycled_staging_buffer_waits_for_its_copy(cuda):
+    """A two-buffer ring and 48 MB batches: every reuse of a buffer finds
+    the event of the copy that read it, and the copy has completed when
+    the buffer is written again."""
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+    from chainermn_tpu_torch.iterators import (
+        PrefetchIterator, SerialIterator, StagingConverter)
+
+    class Spy(StagingConverter):
+        reuses = 0
+
+        def _staging(self, key, shape, dtype):
+            ring = self._rings.get(key, [])
+            i = self._turn.get(key, 0)
+            fence = ring[i].fence if i < len(ring) else None
+            out = super()._staging(key, shape, dtype)
+            if fence is not None:
+                Spy.reuses += 1
+                assert fence.query(), "buffer rewritten before its copy"
+            return out
+
+    rng = np.random.RandomState(3)
+    xs = rng.randn(8 * 16, 256, 256, 3).astype(np.float32)  # 48 MB a batch
+    comm = LoopbackCommunicator(device="cuda")
+    pf = PrefetchIterator(SerialIterator((xs,), 16), comm,
+                          converter=Spy(n_buffers=2, pin_memory=True),
+                          depth=2)
+    ref = SerialIterator((xs,), 16)
+    for _ in range(8):
+        got = next(pf).arrays[0]
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), next(ref)[0])
+    pf.close()
+    assert Spy.reuses >= 5

@@ -569,20 +569,13 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
         training.create_multi_node_optimizer(training.sgd(0.1), object(),
                                              plan="auto")
-    from chainermn_tpu_torch.iterators import (
-        PrefetchIterator,
-        StagingConverter,
-    )
-
     for call, item in ((lambda: fused.hierarchical_allreduce([], None), 2),
                        (lambda: fused.overlap_exchange([], None), 2),
-                       (lambda: fused.plan_allreduce([], None, {}), 10),
-                       (lambda: PrefetchIterator(iter([]), None), 3),
-                       (lambda: StagingConverter(), 3)):
+                       (lambda: fused.plan_allreduce([], None, {}), 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
     for kw, item in ((dict(steps_per_execution=2), 4),
-                     (dict(accum_steps=2), 4), (dict(prefetch=2), 3),
+                     (dict(accum_steps=2), 4), (dict(max_inflight=2), 4),
                      (dict(exchange_probe_every=5), 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             training.StandardUpdater(iter([]), None, None, {}, None, **kw)

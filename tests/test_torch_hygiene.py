@@ -3,6 +3,7 @@ its entry points never fall back to the CPU on their own, and the CUDA
 wrapper never falls back to its plain version."""
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +35,7 @@ def _imported_modules(path):
 
 
 EXAMPLES = [ROOT / "examples" / "mnist" / "train_mnist_torch.py",
+            ROOT / "examples" / "mnist" / "train_mnist_model_parallel_torch.py",
             ROOT / "examples" / "imagenet" / "train_imagenet_torch.py"]
 # the test helpers the port's drills import or run in children
 TEST_HELPERS = [ROOT / "tests" / "test_torch_world.py",
@@ -64,6 +66,8 @@ TRAINING_PATH = [PORT / "models" / "transformer.py",
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     (PORT / "training").glob("*.py")) + [
     PORT / "ops" / "fused.py", PORT / "ops" / "collectives.py",
+    PORT / "ops" / "point_to_point.py",
+    PORT / "links" / "multi_node_chain_list.py",
     PORT / "links" / "batch_normalization.py", PORT / "models" / "resnet.py",
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
@@ -122,9 +126,32 @@ FAULT_HANDLERS = {
                           "(rank 0) died, which stalls every peer in the "
                           "report and keeps the local check running",
     },
+    # the host feed
+    "iterators/prefetch.py": {
+        "queue.Full": "the worker's bounded put polls the stop flag",
+        "queue.Empty": "the consumer's take and the halt's drain poll "
+                       "the worker",
+        "StopIteration": "the base iterator's end, delivered as the "
+                         "stream's end",
+        "BaseException": "the worker's error box, re-raised from next() "
+                         "in the consumer",
+        "RuntimeError": "close() warns and abandons a worker blocked in "
+                        "the base iterator's next() (the JAX package's "
+                        "rule) instead of hanging shutdown; state_dict "
+                        "and reset raise",
+    },
+    "native/__init__.py": {
+        "FileNotFoundError": "no g++: re-raised as RuntimeError naming the "
+                             "build",
+        "RuntimeError": "native_available() answers False; load() and "
+                        "NativeBatchIterator raise",
+        "OSError": "native_available() answers False for a library that "
+                   "will not load; load() raises",
+    },
 }
 FAULT_PATH = sorted((PORT / "extensions").glob("*.py")) + [
-    PORT / "utils" / "serialization.py", PORT / "testing.py"]
+    PORT / "utils" / "serialization.py", PORT / "testing.py",
+    PORT / "iterators" / "prefetch.py", PORT / "native" / "__init__.py"]
 
 
 def _handler_names(h):
@@ -220,3 +247,75 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(FileNotFoundError):
         _build.load_library("no_such_kernel")
 
+
+
+def _queue_a_numbers():
+    """The A-numbers ROADMAP's Queue A labels its items with."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text[text.index("### Queue A"):text.index("### Queue B")]
+    return {int(n) for n in re.findall(r"\*\*A(\d+):", queue)}
+
+
+def _named_items(path):
+    """Every Queue A item number ``path`` names: in its text (adjacent
+    string literals joined, whitespace folded), and in the
+    ``_not_ported`` calls and ``(what, condition, item)`` tables that
+    build a message from a number."""
+    src = path.read_text()
+    text = re.sub(r"\s+", " ", re.sub(r"[\"']\s*\n\s*f?[\"']", "", src))
+    for m in re.finditer(r"Queue A items? (\d+)((?:,? and \d+|, \d+)*)",
+                         text):
+        yield int(m.group(1))
+        yield from (int(n) for n in re.findall(r"\d+", m.group(2)))
+    if "_not_ported" not in src:
+        return
+    for node in ast.walk(ast.parse(src)):
+        args = None
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "id", None) == "_not_ported":
+            args = node.args
+        elif isinstance(node, ast.Tuple) and len(node.elts) == 3 \
+                and isinstance(node.elts[0], ast.Constant) \
+                and isinstance(node.elts[0].value, str):
+            args = node.elts
+        if args and isinstance(args[-1], ast.Constant) \
+                and isinstance(args[-1].value, int):
+            yield args[-1].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_queue_a_items_are_a_numbers(path):
+    # "item N" in a message is AN: a number ROADMAP does not label an
+    # item with points a user at nothing, or at the wrong work
+    known = _queue_a_numbers()
+    assert {1, 3, 11, 12} <= known
+    for n in _named_items(path):
+        assert n in known, f"{path.relative_to(ROOT)} names Queue A " \
+            f"item {n}; ROADMAP labels A{sorted(known)}"
+
+
+def test_queue_a_item_scan_sees_split_messages(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text('raise E("x (ROADMAP Queue "\n    "A item 7)")\n'
+                     '# Queue A items 2 and 10\n'
+                     'def _not_ported(w, i): ...\n'
+                     'T = (("a", True, 5),)\n_not_ported("b", 9)\n')
+    assert sorted(_named_items(probe)) == [2, 5, 7, 9, 10]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_path_under_the_jax_package(path):
+    # a path into chainermn_tpu/ is allowed only as a file:line
+    # reference (the kernel table's "replaces"), never as a component
+    # to join, so nothing of the JAX package is opened or loaded
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and not re.search(r"\s", node.value):
+            v = node.value
+            assert v != "chainermn_tpu" and "_libcmn_native" not in v, \
+                f"{path.relative_to(ROOT)}:{node.lineno} {v!r}"
+            if "chainermn_tpu/" in v:
+                assert re.fullmatch(r"chainermn_tpu/[\w/]+\.py:\d*", v), \
+                    f"{path.relative_to(ROOT)}:{node.lineno} {v!r}"

@@ -586,6 +586,153 @@ def battery_extensions_finale(comm, p):
 
 
 # --------------------------------------------------------------------- #
+# point-to-point transfers and MultiNodeChainList (4 ranks)
+# --------------------------------------------------------------------- #
+
+# the raw transfers: name -> (op, keyword arguments); perms in ranks of 4
+P2P_CASES = {
+    "send": ("send", dict(dest=1, source=0)),
+    "send_recv": ("send_recv", dict(perm=[(0, 2), (2, 3), (3, 0), (1, 1)])),
+    "send_recv_partial": ("send_recv", dict(perm=[(3, 1), (1, 0)])),
+    "shift_up": ("shift_up", dict()),
+    "shift_up_wrap": ("shift_up", dict(wrap=True)),
+    "shift_down": ("shift_down", dict()),
+    "shift_down_wrap": ("shift_down", dict(wrap=True)),
+}
+
+# chain graphs: (kind, owner, rank_in, rank_out, (d_in, d_out)) a
+# component; kind "dense" is tanh(h @ w + b), "add" joins two inputs as
+# a + b and "fifo" as a - 2 b (two messages on one pair, whose order
+# shows)
+CHAINS = {
+    "seq3": dict(broadcast=True, x=(4, 6), comps=[
+        ("dense", 0, None, 1, (6, 5)), ("dense", 1, 0, 2, (5, 4)),
+        ("dense", 2, 1, None, (4, 3))]),
+    "nobcast": dict(broadcast=False, x=(4, 6), comps=[
+        ("dense", 0, None, 1, (6, 5)), ("dense", 1, 0, 2, (5, 4)),
+        ("dense", 2, 1, None, (4, 3))]),
+    "dag": dict(broadcast=True, x=(2, 4), comps=[
+        ("dense", 0, None, [1, 2], (4, 4)), ("dense", 1, 0, 3, (4, 4)),
+        ("dense", 2, 0, 3, (4, 4)), ("add", 3, [1, 2], None, (4, 4))]),
+    "fifo": dict(broadcast=True, x=(3, 4), comps=[
+        ("dense", 0, None, 1, (4, 5)), ("dense", 0, None, 1, (4, 5)),
+        ("fifo", 1, [0, 0], None, (5, 3))]),
+    "self": dict(broadcast=True, x=(3, 4), comps=[
+        ("dense", 0, None, 0, (4, 5)), ("dense", 0, 0, None, (5, 3))]),
+}
+CHAIN_ERRORS = {
+    "unconsumed": [("dense", 0, None, 1, (4, 4)),
+                   ("dense", 1, None, None, (4, 4))],
+    "missing": [("dense", 0, 7, None, (4, 4))],
+}
+
+
+def chain_apply(kind, tanh):
+    """A component's apply function over either package's arrays."""
+    if kind == "dense":
+        return lambda p, h: tanh(h @ p["w"] + p["b"])
+    if kind == "add":
+        return lambda p, a, b: tanh((a + b) @ p["w"] + p["b"])
+    return lambda p, a, b: tanh((a - 2.0 * b) @ p["w"] + p["b"])
+
+
+def port_chain(comm, comps, broadcast=True):
+    from chainermn_tpu_torch.links import MultiNodeChainList
+
+    mn = MultiNodeChainList(comm, broadcast_output=broadcast)
+    for kind, owner, rank_in, rank_out, _ in comps:
+        mn.add_link(None, chain_apply(kind, torch.tanh), owner=owner,
+                    rank_in=rank_in, rank_out=rank_out, name=kind)
+    return mn
+
+
+def battery_point_to_point(comm, p):
+    """Every transfer of ``P2P_CASES`` (forward and the gradient of
+    ``sum(out * w)``), ``pseudo_connect`` on a rank that only sends,
+    every graph of ``CHAINS`` (output, and the reduced gradients of
+    ``sum(y ** 2)``), the two graph errors, and the model-parallel MNIST
+    example in two 2-rank halves of the world."""
+    import importlib.util
+
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.models import chain_params_from_jax
+
+    r = comm.rank
+    out = {"ops": {}, "chains": {}, "errors": {}}
+    for name, (op, kw) in P2P_CASES.items():
+        x = torch.tensor(p["x"][r], requires_grad=True)
+        y = getattr(ops, op)(x, comm, **kw)
+        (y * torch.tensor(p["w"][r])).sum().backward()
+        out["ops"][name] = (y.detach().numpy().copy(),
+                            x.grad.numpy().copy())
+
+    # rank 0 sends to 1 and uses nothing it received
+    x = torch.tensor(p["x"][r], requires_grad=True)
+    phi = ops.send(x, comm, dest=1, source=0)
+    y = ops.pseudo_connect(phi, x * 2.0)
+    (y * (r + 1.0)).sum().backward()
+    out["pseudo_connect"] = x.grad.numpy().copy()
+
+    objs = [0]
+    for op in ("send_obj", "recv_obj", "bcast_obj"):
+        def counted(*a, _real=getattr(comm, op), **kw):
+            objs[0] += 1
+            return _real(*a, **kw)
+        setattr(comm, op, counted)
+
+    def as_numpy(grads):
+        return [None if g is None else {k: v.numpy().copy()
+                                        for k, v in g.items()}
+                for g in grads]
+
+    out["chain_cache"] = {}
+    for name, spec in CHAINS.items():
+        mn = port_chain(comm, spec["comps"], spec["broadcast"])
+        mn.load_params(chain_params_from_jax(p["chain_params"][name], mn))
+        x = torch.tensor(p["chain_x"][name])
+        y = mn(x)
+        loss = (y ** 2).sum()
+        loss.backward()
+        grads = mn.reduce_grads(mn.grads())
+        out["chains"][name] = (y.detach().numpy().copy(), float(loss),
+                               as_numpy(grads))
+        # again with x's shape known: no object message, the same output,
+        # and the gradients accumulate to twice the first; then a new
+        # shape of x exchanges the shapes again
+        objs[0] = 0
+        y2 = mn(x)
+        (y2 ** 2).sum().backward()
+        again = objs[0]
+        with torch.no_grad():
+            y3 = mn(x[:1])
+        out["chain_cache"][name] = (
+            again, objs[0] - again, torch.equal(y2, y),
+            as_numpy(mn.reduce_grads(mn.grads())), y3.numpy().copy())
+
+    for name, comps in CHAIN_ERRORS.items():
+        mn = port_chain(comm, comps)
+        mn.load_params([{"w": torch.eye(4), "b": torch.zeros(4)}
+                        if mn.owns(i) else None for i in range(len(comps))])
+        try:
+            mn(torch.zeros(2, 4))
+            out["errors"][name] = None
+        except ValueError as e:
+            out["errors"][name] = str(e)
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "train_mnist_model_parallel_torch",
+        root / "examples" / "mnist" / "train_mnist_model_parallel_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    half = comm.split(color=r // 2, key=r)
+    out["example"] = ex.train(ex.parse_args(
+        ["--device", "cpu", "--epoch", "1", "--iterations", "2"]),
+        comm=half, quiet=True)
+    return out
+
+
+# --------------------------------------------------------------------- #
 # the harness's own tests
 # --------------------------------------------------------------------- #
 
