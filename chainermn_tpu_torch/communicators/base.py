@@ -67,6 +67,27 @@ class CommunicatorBase(abc.ABC):
         ranked by ``key`` (MPI_Comm_split: every rank calls it with its
         own pair)."""
 
+    def hierarchy(self):
+        """``(intra, inter)``: the communicator of this rank's node
+        (ranked by ``intra_rank``) and that of the ranks with its
+        ``intra_rank`` on every node (ranked by ``inter_rank``), the two
+        stages of :func:`~chainermn_tpu_torch.ops.hierarchical_allreduce`.
+        Built once, by two ``split`` calls every rank makes together.
+        Every node must hold as many ranks (the JAX package's mesh is a
+        rectangle); otherwise every rank raises ``ValueError``."""
+        if getattr(self, "_hierarchy", None) is None:
+            nodes = self.allgather_obj(self.inter_rank)
+            sizes = [nodes.count(n) for n in sorted(set(nodes))]
+            if len(set(sizes)) != 1:
+                raise ValueError(
+                    f"hierarchy() needs as many ranks on every node; the "
+                    f"nodes hold {sizes}: reduce over the flat "
+                    f"communicator instead")
+            intra = self.split(self.inter_rank, self.intra_rank)
+            inter = self.split(self.intra_rank, self.inter_rank)
+            self._hierarchy = (intra, inter)
+        return self._hierarchy
+
     # ------------------------------------------------------------------ #
     # per-rank array collectives
     # ------------------------------------------------------------------ #
@@ -179,8 +200,11 @@ class CommunicatorBase(abc.ABC):
         ``torch.bfloat16``).  ``fused`` (the default) packs the tree
         into dtype-grouped flat buckets of ``bucket_bytes`` and issues
         one all-reduce per bucket (:func:`~chainermn_tpu_torch.ops.fused_allreduce`);
-        ``fused=False`` issues one per leaf.  ``plan`` (a tuned
-        exchange) is not ported and raises."""
+        ``fused=False`` issues one per leaf.  When the world spans
+        several nodes with as many ranks each, the fused exchange is the
+        two-stage one over :meth:`hierarchy` (the JAX package's
+        ``tpu_xla`` does the same when its world factors over hosts).
+        ``plan`` (a tuned exchange) is not ported and raises."""
 
     # alias, ChainerMN kept both names
     def allreduce_grad(self, grads, dtype=None, fused: bool = True,

@@ -43,6 +43,9 @@ class LoopbackCommunicator(CommunicatorBase):
     def bcast(self, x, root: int = 0):
         return x.clone()
 
+    def allreduce_sum_(self, x):
+        return x
+
     def allreduce(self, x, op: str = "sum"):
         if op not in _REDUCE_OPS:
             raise ValueError(f"op must be one of {_REDUCE_OPS}")

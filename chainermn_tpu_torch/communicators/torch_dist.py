@@ -10,9 +10,10 @@ falls back from NCCL to gloo.
 
 ``multi_node_mean_grad`` takes the fused path of
 :func:`~chainermn_tpu_torch.ops.fused_allreduce` (the JAX package's
-``_fused_mean``).  Not ported: ``plan=`` and its autotuner (ROADMAP
-Queue A item 10) and the hierarchical two-stage lowering (NCCL picks
-its own ring or tree on one node; Queue A item 2).
+``_fused_mean``), two-stage over :meth:`hierarchy` when the world spans
+several nodes of as many ranks each (``communicators/tpu_xla.py:549-610``
+of the JAX package); on one node it stays flat.  Not ported: ``plan=``
+and its autotuner (ROADMAP Queue A item 10).
 
 ``n_collectives`` counts the tensor collectives this communicator
 issued, so a caller can count the all-reduces of one gradient exchange.
@@ -73,6 +74,7 @@ class TorchDistCommunicator(CommunicatorBase):
         self._intra_rank = hosts[:self._rank].count(mine)
         self._inter_rank = nodes.index(mine)
         self._inter_size = len(nodes)
+        self._node_sizes = [hosts.count(h) for h in nodes]
         if device.type == "cuda":
             # NCCL starts a group's communicator at its first collective,
             # which every member must join; start it now, so that a later
@@ -326,10 +328,13 @@ class TorchDistCommunicator(CommunicatorBase):
                 "measured exchange planner is ROADMAP Queue A item 10")
         dtype = dtype or self._grad_dtype
         if fused:
+            comm, inter = self, None
+            if self._inter_size > 1 and len(set(self._node_sizes)) == 1:
+                comm, inter = self.hierarchy()
             return _fused.fused_allreduce(
-                grads, self, op="mean",
+                grads, comm, op="mean",
                 bucket_bytes=bucket_bytes or _fused.DEFAULT_BUCKET_BYTES,
-                wire_dtype=dtype)
+                wire_dtype=dtype, inter_comm=inter)
         def one(g):
             wire = dtype if dtype is not None \
                 and g.dtype.is_floating_point else g.dtype

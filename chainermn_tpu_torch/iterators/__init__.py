@@ -29,6 +29,7 @@ from .prefetch import (
     PrefetchIterator,
     StagingConverter,
     assemble_window,
+    put_window,
 )
 
 __all__ = [
@@ -38,6 +39,7 @@ __all__ = [
     "StagingConverter",
     "apply_batch_policy",
     "assemble_window",
+    "put_window",
     "create_multi_node_iterator",
     "create_synchronized_iterator",
     "default_converter",

@@ -18,8 +18,12 @@ Three layers, lowest first:
   columns (a :class:`~chainermn_tpu_torch.native.NativeBatchIterator`
   slot) are copied into the ring too: the copy out of a recycled slot,
   and the source of an asynchronous copy to the card.
-- :func:`assemble_window` — the window-fill contract, for windows of
-  one step.
+- :func:`assemble_window` and :func:`put_window` — the window-fill
+  contract and the window's stacked copy, shared by the serial
+  updater's feed and the worker: up to ``steps_per_execution`` batches
+  of one shape (an ``accum_steps`` window's microbatches too), stacked
+  into ``(k, batch, ...)`` columns (into a pinned staging window on the
+  card's path), a ragged end-of-epoch batch riding along as the tail.
 - :class:`PrefetchIterator` — the slot-ring worker.  It yields
   :class:`DeviceWindow` records (tensors already on ``comm.device``),
   re-raises a worker's exception from ``next()``, joins its worker on
@@ -45,9 +49,8 @@ Like the port's serial updater, the feed splits no batch: every rank
 is fed its own, so the JAX package's divisibility policy is not
 applied (``drop_remainder`` is kept for the updater's agreement check).
 
-Not ported: ``steps_per_execution > 1`` (fused windows, ROADMAP Queue A
-item 4, which raises), and the telemetry spans and occupancy counter and
-``utils.comm_model.choose_prefetch_depth`` (item 10).
+Not ported: the telemetry spans and occupancy counter and
+``utils.comm_model.choose_prefetch_depth`` (ROADMAP Queue A item 10).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ __all__ = [
     "PrefetchIterator",
     "StagingConverter",
     "assemble_window",
+    "put_window",
 ]
 
 
@@ -123,7 +127,10 @@ class StagingConverter:
             ring.append(buf)
             self._by_id[id(buf.array)] = buf
         buf = ring[i]
-        self._turn[key] = (i + 1) % self._n_buffers
+        # a stacked window is read by one fenced copy only, so two
+        # buffers suffice; a batch must outlive its window's assembly
+        n = 2 if key[0] == "window" else self._n_buffers
+        self._turn[key] = (i + 1) % n
         if buf.fence is not None:
             buf.fence.synchronize()     # its last copy has read it
             buf.fence = None
@@ -162,6 +169,19 @@ class StagingConverter:
         # decides the dtype exactly as default_converter would
         return np.stack(col)
 
+    def stack_window(self, col_idx, col) -> np.ndarray:
+        """Stack one column of a window of batches into ``(k, batch,
+        ...)``: into a ring buffer of this converter (pinned with
+        ``pin_memory``), or a fresh array without ``pin_memory``, whose
+        stack is the copy out of any recycled buffer."""
+        if not self.pin_memory:
+            return np.stack(col)
+        first = col[0]
+        buf = self._staging(("window", col_idx, len(col), first.shape,
+                             first.dtype), (len(col),) + first.shape,
+                            first.dtype)
+        return np.stack(col, out=buf)
+
     def _stage(self, col_idx, a):
         if not self.pin_memory or not isinstance(a, np.ndarray):
             return a
@@ -193,8 +213,7 @@ def assemble_window(pull_fn, n_steps: int):
     fill up to ``n_steps`` same-shape batches from ``pull_fn``; stop
     early on exhaustion or a ragged (end-of-epoch) batch, which rides
     along as the pending tail.  Returns ``(window, pending)``; the first
-    pull's StopIteration propagates.  The port's feeds use windows of
-    one step."""
+    pull's StopIteration propagates."""
     first = pull_fn()
     window, pending = [first], None
     while len(window) < n_steps:
@@ -209,15 +228,35 @@ def assemble_window(pull_fn, n_steps: int):
     return window, pending
 
 
+def put_window(window, pending, converter=None):
+    """The host side of a window's transfer: ``(arrays, k, tail)``,
+    where ``arrays`` is the lone batch's columns when ``k == 1`` and
+    each column stacked into ``(k, batch, ...)`` otherwise (through the
+    converter's ``stack_window`` when it has one: its pinned staging
+    window on the card's path), and ``tail`` the ragged batch or None.
+    Both feeds then copy these to the device their own way."""
+    k = len(window)
+    if k == 1:
+        return tuple(window[0]), 1, pending
+    stack = getattr(converter, "stack_window", None)
+    arrays = tuple(
+        stack(i, col) if stack is not None and all(
+            isinstance(a, np.ndarray) for a in col) else np.stack(col)
+        for i, col in enumerate(zip(*window)))
+    return arrays, k, pending
+
+
 class DeviceWindow:
     """One prefetched window, already on the device.
 
-    ``arrays``: the batch's tensors on ``comm.device``.  ``k`` is 1 and
-    ``tail`` None (windows of one step).  ``event``: on the card, the
-    CUDA event behind the copies (the consumer's stream waits on it);
-    None on the CPU.  The epoch bookkeeping is the base iterator's state
-    after the window's pull — what the serial path would observe at the
-    same consumption point.
+    ``arrays``: tensors on ``comm.device`` — the batch's columns when
+    ``k == 1``, ``(k, batch, ...)`` stacks of ``k`` batches otherwise.
+    ``tail``: the ragged end-of-epoch batch that could not stack into
+    the window (tensors on the device), or None.  ``event``: on the
+    card, the CUDA event behind the copies (the consumer's stream waits
+    on it); None on the CPU.  The epoch bookkeeping is the base
+    iterator's state after the window's last pull — what the serial
+    path would observe at the same consumption point.
     """
 
     __slots__ = ("arrays", "k", "tail", "epoch", "is_new_epoch",
@@ -232,6 +271,11 @@ class DeviceWindow:
         self.is_new_epoch = is_new_epoch
         self.epoch_detail = epoch_detail
         self.event = event
+
+    @property
+    def n_iterations(self) -> int:
+        """Training iterations this window advances (k and the tail)."""
+        return self.k + (1 if self.tail is not None else 0)
 
 
 class PrefetchIterator:
@@ -251,9 +295,10 @@ class PrefetchIterator:
         ``epoch_detail``; ``state_dict``/``load_state_dict`` for resume).
       comm: the communicator; its ``device`` is where batches go.
       converter: batch → tuple of host arrays; default a
-        :class:`StagingConverter` with ``depth + 3`` buffers, pinned on
-        the card.
-      steps_per_execution: 1 (fused windows are not ported).
+        :class:`StagingConverter` with ``max(depth, steps_per_execution
+        + 1) + 3`` buffers, pinned on the card.
+      steps_per_execution: batches a window stacks (the updater's
+        ``steps_per_execution × accum_steps``).
       depth: slot-ring length — batches prefetched ahead.
       drop_remainder: the updater's setting, checked against it.
       join_timeout: seconds ``state_dict``/``reset``/``close`` wait for
@@ -266,19 +311,27 @@ class PrefetchIterator:
     def __init__(self, iterator, comm, converter: Optional[Callable] = None,
                  steps_per_execution: int = 1, depth: int = 2,
                  drop_remainder: bool = True, join_timeout: float = 60.0):
-        if steps_per_execution != 1:
-            raise NotImplementedError(
-                "PrefetchIterator(steps_per_execution > 1) is not ported "
-                "to chainermn_tpu_torch yet (fused windows, ROADMAP Queue "
-                "A item 4)")
+        if steps_per_execution < 1:
+            raise ValueError("steps_per_execution must be >= 1")
         if depth < 1:
             raise ValueError("prefetch depth must be >= 1")
+        if isinstance(converter, StagingConverter) \
+                and converter._n_buffers < steps_per_execution + 1:
+            # the ring would wrap inside a window: duplicated batches
+            raise ValueError(
+                f"StagingConverter(n_buffers={converter._n_buffers}) is "
+                f"too small for steps_per_execution={steps_per_execution}"
+                f": it must hold the whole unstacked window and the tail "
+                f"(>= {steps_per_execution + 1})")
         self._base = iterator
         self._comm = comm
         self._device = torch.device(comm.device)
         on_card = self._device.type == "cuda"
+        # during a window's assembly up to steps_per_execution + 1 pulled
+        # batches are live, beside the windows still being copied
         self._converter = converter if converter is not None else \
-            StagingConverter(n_buffers=depth + 3, pin_memory=on_card)
+            StagingConverter(n_buffers=max(depth, steps_per_execution + 1)
+                             + 3, pin_memory=on_card)
         self._n_steps = steps_per_execution
         self.depth = depth
         self._drop_remainder = drop_remainder
@@ -307,7 +360,14 @@ class PrefetchIterator:
         return self._base.state_dict() if self._can_rewind else None
 
     def _pull(self):
-        return self._converter(next(self._base))
+        arrays = self._converter(next(self._base))
+        if self._n_steps > 1:
+            # the next pull of a window may recycle the base's buffer
+            owns = getattr(self._base, "owns_buffers", None)
+            if owns is not None:
+                arrays = tuple(np.array(a) if owns((a,)) else a
+                               for a in arrays)
+        return arrays
 
     def _recycled(self, a) -> bool:
         probes = [getattr(self._converter, "owns_buffers", None),
@@ -345,9 +405,11 @@ class PrefetchIterator:
 
     def _window(self):
         window, pending = assemble_window(self._pull, self._n_steps)
-        arrays, event = self._to_device(window[0])
+        arrays, k, tail = put_window(window, pending, self._converter)
+        n = len(arrays)
+        moved, event = self._to_device(arrays + (tail or ()))
         return DeviceWindow(
-            arrays, 1, None,
+            moved[:n], k, moved[n:] if tail is not None else None,
             epoch=getattr(self._base, "epoch", 0),
             is_new_epoch=getattr(self._base, "is_new_epoch", False),
             epoch_detail=float(getattr(self._base, "epoch_detail", 0.0)),

@@ -31,18 +31,25 @@ from .point_to_point import (
 from .fused import (
     DEFAULT_BUCKET_BYTES,
     FusedSpec,
+    OverlapExchange,
+    build_overlap_schedule,
     flatten_buckets,
     fused_allreduce,
     fused_collective_budget,
+    hierarchical_allreduce,
+    overlap_exchange,
+    reduce_scatter_allgather,
     unflatten_buckets,
 )
 
 __all__ = [
-    "DEFAULT_BUCKET_BYTES", "FusedSpec", "allgather", "allreduce",
-    "alltoall", "bcast", "flash_attention", "flash_attention_bwd_reference",
+    "DEFAULT_BUCKET_BYTES", "FusedSpec", "OverlapExchange", "allgather",
+    "allreduce", "alltoall", "bcast", "build_overlap_schedule",
+    "flash_attention", "flash_attention_bwd_reference",
     "flash_attention_reference", "flash_attention_supported",
     "flatten_buckets", "fused_allreduce", "fused_collective_budget",
-    "gather", "pmean", "ppermute", "pseudo_connect", "psum", "recv",
-    "reduce_scatter", "scatter", "send", "send_recv", "shift_down",
+    "gather", "hierarchical_allreduce", "overlap_exchange", "pmean",
+    "ppermute", "pseudo_connect", "psum", "recv",
+    "reduce_scatter", "reduce_scatter_allgather", "scatter", "send", "send_recv", "shift_down",
     "shift_up", "unflatten_buckets",
 ]

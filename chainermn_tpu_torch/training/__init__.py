@@ -7,30 +7,45 @@ from .evaluators import (
     create_multi_node_evaluator,
 )
 from .optimizers import (
+    MultiNodeState,
     adamw,
     create_multi_node_optimizer,
     cross_replica_mean,
+    lamb,
+    lars,
     load_optimizer_state_tree,
     optimizer_state_tree,
     sgd,
 )
+from .schedules import (
+    cosine_decay_schedule,
+    join_schedules,
+    linear_schedule,
+)
 from .trainer import LogReport, PrintReport, Trainer, make_extension
 from .triggers import IntervalTrigger, get_trigger
-from .updater import StandardUpdater
+from .updater import StandardUpdater, fuse_steps
 
 __all__ = [
     "Evaluator",
     "GenericMultiNodeEvaluator",
     "IntervalTrigger",
     "LogReport",
+    "MultiNodeState",
     "PrintReport",
     "StandardUpdater",
     "Trainer",
     "adamw",
+    "cosine_decay_schedule",
     "create_multi_node_evaluator",
     "create_multi_node_optimizer",
     "cross_replica_mean",
+    "fuse_steps",
     "get_trigger",
+    "join_schedules",
+    "lamb",
+    "lars",
+    "linear_schedule",
     "load_optimizer_state_tree",
     "make_extension",
     "optimizer_state_tree",

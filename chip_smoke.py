@@ -57,18 +57,33 @@ Phases (any failure exits non-zero before the last line is printed):
     stream), with the batches, the parameters and a mid-run resume held
     bitwise;
 11. ``MultiNodeChainList`` on one card: the model-parallel MNIST MLP as
-    a one-rank chain of self-sends against the plain sequential MLP.
+    a one-rank chain of self-sends against the plain sequential MLP;
+12. ChainerMN's large-batch recipe at full width: ResNet-50 with sync BN
+    through ``examples/imagenet/train_imagenet_large_batch_torch.py``'s
+    ``build`` — microbatch 256, ``accum_steps=4`` (an update of 1024
+    images), LARS on the warm-up and cosine schedule, a bf16 wire,
+    double buffering, ``steps_per_execution=2`` captured as one CUDA
+    graph — fed by the C++ loader behind ``PrefetchIterator`` over phase
+    10's images, with five checks held bitwise: (a) the graph against
+    the same updater run eagerly, (b) a window against an explicit
+    accumulation loop, (c) double buffering against the inner optimizer
+    applied to the previous update's stash (zeros first), (d) the
+    backward-overlapped exchange against the window-end one, its hooks
+    firing once a bucket in order, (e) the exchange's other forms
+    against the flat one.
 
 Phases 3 and 6 are the main paths of the kernels: each starts with
 every launch count at 0 and reads the counts when it ends; phases 7
-to 11 run no hand-written kernel, and hold their counts at 0.  It
+to 12 run no hand-written kernel, and hold their counts at 0.  It
 prints the card's name and power limit, a ``{"dp_resnet50": {...}}``
-line of phase 7's metrics, a ``{"kernels": [...]}`` line, and last
+line of phase 7's metrics, a ``{"large_batch": {...}}`` line of phase
+12's, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from numpy seed 0.  fp32
 references run with TF32 off.
 """
 
 import dataclasses
+import gc
 import importlib
 import importlib.util
 import json
@@ -1274,9 +1289,13 @@ def phase_host_feed(torch, np, root, smi, dp):
         opt = cmn.create_multi_node_optimizer(
             training.sgd(0.1, momentum=0.9), comm,
             allreduce_grad_dtype=torch.bfloat16)
+        # one window in flight, as the port's updater had when these
+        # feeds were first measured: the resume check reads each step's
+        # own loss, where two in flight would show the one before
         return cmn.StandardUpdater(it, opt, up_b.loss_fn,
                                    clone_tree(torch, start[0]), comm,
-                                   state=clone_tree(torch, start[1]))
+                                   state=clone_tree(torch, start[1]),
+                                   max_inflight=1)
 
     def native():
         return NativeBatchIterator([xs, ys], batch, shuffle=True, seed=1)
@@ -1441,7 +1460,7 @@ def phase_host_feed(torch, np, root, smi, dp):
             f"resume at {resumed_at}: {replay} vs {straight}")
     require(far_equal, "the loader restored 90 epochs in is off "
             "_native_perm's order")
-    return metrics
+    return metrics, (xs, ys)
 
 
 def phase_model_parallel(torch, np, root, smi):
@@ -1506,6 +1525,301 @@ def phase_model_parallel(torch, np, root, smi):
     # the ties add zeros
     require(abs(loss.item() - ref.item()) <= 1e-6 * abs(ref.item())
             and err <= 1e-6, f"chain off the sequential MLP: {err}")
+    return metrics
+
+
+def host_launches(torch, fn):
+    """``(host launch calls, device kernels)`` of one ``fn()``, read
+    from ``torch.profiler``'s CUDA trace: the CUDA API calls that
+    enqueue work (kernels, graphs, copies, memsets) and the kernels the
+    card ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = device = 0
+    for e in prof.key_averages():
+        if any(c in e.key for c in calls):
+            host += e.count
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            device += e.count
+    return host, device
+
+
+def phase_large_batch(torch, np, root, smi, arrays):
+    """12. ChainerMN's large-batch recipe (``train_imagenet_large_batch``
+    of the JAX package, BASELINE.md config 5) at full width on one NCCL
+    rank: ResNet-50, sync BN, 224 px, bf16, microbatch 256 with
+    ``accum_steps=4``, LARS on the warm-up and cosine schedule, a bf16
+    wire, double buffering and ``steps_per_execution=2`` (a window of 8
+    microbatches, one CUDA graph), fed by the C++ loader behind
+    ``PrefetchIterator`` over phase 10's 1280 images.  cuDNN is pinned;
+    checks (a)-(e) are bitwise.  Returns the printed metrics."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.iterators import PrefetchIterator
+    from chainermn_tpu_torch.native import NativeBatchIterator
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.ops import fused
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch.training import optimizer_state_tree
+
+    ex = load_example(root,
+                      "examples/imagenet/train_imagenet_large_batch_torch.py",
+                      "train_imagenet_large_batch_torch")
+    xs, ys = arrays
+    M, S, B = 4, 2, 256
+    bf16 = torch.bfloat16
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    t_phase = time.perf_counter()
+    device_comm = cmn.create_communicator()
+
+    def feed():
+        return PrefetchIterator(
+            NativeBatchIterator([xs, ys], B, shuffle=True, seed=1),
+            device_comm, steps_per_execution=S * M, depth=2)
+
+    def recipe(spe):
+        args = ex.parse_args([
+            "--optimizer", "lars", "--steps-per-execution", str(spe),
+            "--grad-dtype", "bfloat16", "--out",
+            str(root / "build" / "chip_smoke" / "large_batch")])
+        it = feed() if spe == S else PrefetchIterator(
+            NativeBatchIterator([xs, ys], B, shuffle=True, seed=1),
+            device_comm, steps_per_execution=M, depth=2)
+        return ex.build(args, quiet=True, accum_steps=M, iterator=it,
+                        n_images=2000)
+
+    run = recipe(S)
+    comm, up, loss_fn = run.comm, run.updater, run.updater.loss_fn
+    schedule = run.schedule
+    require(up.graphs and up.window_steps == S * M and comm.size == 1,
+            f"graphs {up.graphs}, window {up.window_steps}")
+    start = (clone_tree(torch, up.params), clone_tree(torch, up.state))
+    del run
+
+    # times: a window's microbatches, host clock around a synchronised
+    # update, the prefetch feed on
+    def per_microbatch(u, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u.update()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3 / u.window_steps)
+        return out
+
+    # memory: each mode measured with only its own updater alive, after
+    # the cache of freed blocks is returned; a graph's private pool is
+    # reserved, not allocated, between replays, so its peak is the
+    # reserved one
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    def measured(u, n):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        ms = per_microbatch(u, n)
+        return ms, torch.cuda.max_memory_allocated(), \
+            torch.cuda.max_memory_reserved()
+
+    # (a) three windows: a warm-up on a side stream, a capture and its
+    # replay, a replay; against six updates of the eager updater, run
+    # after this one is released
+    for _ in range(3):
+        up.update()
+    torch.cuda.synchronize()
+    fused_win = next(iter(up._windows.values()))
+    replays = getattr(fused_win, "replays", 0)
+    captured = getattr(fused_win, "graph", None) is not None
+    graph_iter = up.iteration
+    graph_trees = clone_tree(torch, dict(
+        params=up.params, bn_state=up.state,
+        opt_state=optimizer_state_tree(up.opt_state)))
+    graph_ms, graph_peak, graph_reserved = measured(up, 2)
+    launches_graph = host_launches(torch, up.update)
+    up.finalize()
+    del up, fused_win
+    released = release()
+
+    eager = recipe(1).updater
+    require(not eager.graphs, "spe=1 updater captures")
+    for _ in range(3 * S):
+        eager.update()
+    torch.cuda.synchronize()
+    a_checks = {k: tree_diff(torch, np, graph_trees[k], y)[0] for k, y in (
+        ("params", eager.params), ("bn_state", eager.state),
+        ("opt_state", optimizer_state_tree(eager.opt_state)))}
+    a_worst = tree_diff(torch, np, graph_trees["params"], eager.params)[1]
+    require(graph_iter == eager.iteration == 3 * S * M,
+            f"iterations {graph_iter} {eager.iteration}")
+    require(captured and replays == 2,
+            f"no captured window, or {replays} replays, not 2")
+    del graph_trees
+    eager_ms, eager_peak, eager_reserved = measured(eager, 2 * S)
+    launches_eager = host_launches(torch, eager.update)
+    eager.finalize()
+    del eager
+    release()
+
+    # (b) one update of 4 microbatches against an explicit loop: fp32
+    # sums in order, divided, cast, one exchange, one LARS step
+    batches = [(xs[i * B:(i + 1) * B], ys[i * B:(i + 1) * B])
+               for i in range(M)]
+
+    def updater(opt, m=M):
+        return cmn.StandardUpdater(iter(batches * 2), opt, loss_fn,
+                                   clone_tree(torch, start[0]), comm,
+                                   state=clone_tree(torch, start[1]),
+                                   accum_steps=m)
+
+    def optimizer(**kw):
+        return cmn.create_multi_node_optimizer(
+            ex.make_inner("lars", schedule), comm,
+            allreduce_grad_dtype=bf16, **kw)
+
+    up_b = updater(optimizer())
+    up_b.update()
+    params = clone_tree(torch, start[0])
+    # torch's pytree order: the optimizers' and the state trees' order
+    leaves, treedef = pytree.tree_flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    st, acc = clone_tree(torch, start[1]), None
+    for x, y in batches:
+        x = torch.as_tensor(x, device=comm.device)
+        y = torch.as_tensor(y, device=comm.device)
+        loss, st = loss_fn(params, st, x, y)
+        g = [t.float() for t in torch.autograd.grad(loss, leaves)]
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+    mean = pytree.tree_unflatten([(a / M).to(t.dtype)
+                                  for a, t in zip(acc, leaves)], treedef)
+    inner = ex.make_inner("lars", schedule)
+    inner_state = inner.init(params)
+    inner.update(comm.multi_node_mean_grad(mean, bf16), inner_state, params)
+    b_checks = dict(params=tree_diff(torch, np, up_b.params, params)[0],
+                    bn_state=tree_diff(torch, np, up_b.state, st)[0])
+
+    # (c) double buffering: update 0 is the inner optimizer on zeros (it
+    # moves LARS's weight-decayed parameters), update 1 on update 0's
+    # stash
+    up_c = updater(optimizer(double_buffering=True), m=1)
+    ref = clone_tree(torch, start[0])
+    ref_opt = ex.make_inner("lars", schedule)
+    ref_state = ref_opt.init(ref)
+    zeros = pytree.tree_unflatten([torch.zeros_like(t) for t in leaves],
+                                  treedef)
+    up_c.update()
+    ref_opt.update(zeros, ref_state, ref)
+    c_moved = not tree_diff(torch, np, ref, start[0])[0]
+    c_checks = {"update0": tree_diff(torch, np, up_c.params, ref)[0]}
+    stash = clone_tree(torch, optimizer_state_tree(up_c.opt_state)[
+        "prev_grads"])
+    up_c.update()
+    ref_opt.update(pytree.tree_unflatten(stash, treedef), ref_state, ref)
+    c_checks["update1"] = tree_diff(torch, np, up_c.params, ref)[0]
+    del up_c, ref, ref_opt, ref_state, zeros
+
+    # (d) the overlapped exchange: hooks on the last microbatch's
+    # backward, against (b)'s window-end exchange
+    opt_d = optimizer(overlap=True)
+    seen = []
+    make = opt_d.overlapped
+    opt_d.overlapped = lambda p: seen.append(make(p)) or seen[-1]
+    up_d = updater(opt_d)
+    up_d.update()
+    n_buckets = len(opt_d.mean.schedule)
+    d_checks = dict(
+        params=tree_diff(torch, np, up_d.params, up_b.params)[0],
+        bn_state=tree_diff(torch, np, up_d.state, up_b.state)[0],
+        in_order=len(seen) == 1
+        and seen[0].launched == list(range(n_buckets)),
+        every_leaf=len(seen) == 1
+        and len(seen[0]._bucket_of) == len(leaves),
+        # one rank: each leaf's mean is bf16(g) cast back, as phase 7's
+        bf16_of_mean=len(seen) == 1 and all(
+            torch.equal(o, m.to(bf16).to(m.dtype))
+            for o, m in zip(seen[0]._out, pytree.tree_leaves(mean))))
+    del up_d, opt_d, seen, up_b
+
+    # (e) the other forms against the flat exchange, on (b)'s mean
+    flat = comm.multi_node_mean_grad(clone_tree(torch, mean), bf16)
+    intra, inter = comm.hierarchy()
+    sched = fused.build_overlap_schedule(mean, wire_dtype=bf16)
+    vec = torch.cat([t.reshape(-1) for t in pytree.tree_leaves(mean)]).to(
+        bf16)
+    e_checks = dict(
+        rs_ag_bucket=torch.equal(fused.reduce_scatter_allgather(vec, comm),
+                                 comm.allreduce(vec, "mean")),
+        overlap_rs=tree_diff(torch, np, fused.overlap_exchange(
+            mean, comm, schedule=sched, wire_dtype=bf16), flat)[0],
+        overlap_ar=tree_diff(torch, np, fused.overlap_exchange(
+            mean, comm, schedule=[dict(e, via="ar") for e in sched],
+            wire_dtype=bf16), flat)[0],
+        two_stage=tree_diff(torch, np, fused.fused_allreduce(
+            clone_tree(torch, mean), intra, wire_dtype=bf16,
+            inter_comm=inter), flat)[0])
+    del flat, vec, mean, params, st, acc, leaves
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+    torch.backends.cudnn.deterministic = False
+    phase_s = time.perf_counter() - t_phase
+
+    g_ms, e_ms = statistics.median(graph_ms), statistics.median(eager_ms)
+    metrics = dict(
+        device=smi, microbatch=B, accum_steps=M, steps_per_execution=S,
+        effective_batch=B * M * comm.size, optimizer="lars",
+        wire="bfloat16", double_buffering=True,
+        eager_ms_per_microbatch=e_ms, graph_ms_per_microbatch=g_ms,
+        eager_ms_runs=eager_ms, graph_ms_runs=graph_ms,
+        images_per_s_eager=B * comm.size / (e_ms / 1e3),
+        images_per_s_graph=B * comm.size / (g_ms / 1e3),
+        host_launches_per_microbatch_eager=launches_eager[0] / M,
+        host_launches_per_microbatch_replay=launches_graph[0] / (S * M),
+        device_kernels_per_microbatch_eager=launches_eager[1] / M,
+        device_kernels_per_microbatch_replay=launches_graph[1] / (S * M),
+        # each with only its own updater alive; the graph's peak is its
+        # reserved memory (the private pool's intermediates are not
+        # counted as allocated)
+        peak_gib_graph=graph_reserved / 2**30,
+        peak_gib_eager=eager_peak / 2**30,
+        allocated_gib_graph=graph_peak / 2**30,
+        reserved_gib_eager=eager_reserved / 2**30,
+        graph_released_gib=[b / 2**30 for b in released],
+        overlap_buckets=n_buckets, lr_moved_params_at_update0=c_moved,
+        checks=dict(a_graph_vs_eager=a_checks, b_accumulation=b_checks,
+                    c_double_buffering=c_checks, d_overlap=d_checks,
+                    e_forms=e_checks),
+        a_params_max_abs_diff=a_worst, flash_launches=counts,
+        phase_s=phase_s)
+    print(f"large batch: ResNet-50 microbatch {B} x accum {M} x "
+          f"{S} updates a window, LARS, bf16 wire, double buffering: "
+          f"eager {e_ms:.2f} ms a microbatch, graph {g_ms:.2f} ms "
+          f"({metrics['images_per_s_graph']:.1f} images/s); host launches "
+          f"a microbatch eager {launches_eager[0] / M:.1f}, replay "
+          f"{launches_graph[0] / (S * M):.2f}; memory, each mode alone: "
+          f"graph {graph_reserved / 2**30:.2f} GiB reserved (its pool), "
+          f"eager {eager_peak / 2**30:.2f} GiB allocated "
+          f"({eager_reserved / 2**30:.2f} reserved); checks "
+          f"{metrics['checks']}"
+          f"; phase {phase_s:.1f} s")
+    print(json.dumps({"large_batch": metrics}))
+    require(counts == (0, 0, 0), f"flash launches {counts} on this path")
+    require(all(a_checks.values()),
+            f"(a) graph against eager: {a_checks} (params {a_worst})")
+    require(all(b_checks.values()), f"(b) accumulation: {b_checks}")
+    require(c_moved and all(c_checks.values()),
+            f"(c) double buffering: {c_checks}, moved {c_moved}")
+    require(all(d_checks.values()), f"(d) overlap: {d_checks}")
+    require(all(e_checks.values()), f"(e) forms: {e_checks}")
     return metrics
 
 
@@ -1672,8 +1986,12 @@ def main():
     phase_checkpoint(torch, np, root, smi)
 
     # 10. the host feed and 11. model parallelism, one NCCL rank --------
-    phase_host_feed(torch, np, root, smi, dp)
+    _, images = phase_host_feed(torch, np, root, smi, dp)
     phase_model_parallel(torch, np, root, smi)
+
+    # 12. the large-batch recipe, one NCCL rank --------------------------
+    phase_large_batch(torch, np, root, smi, images)
+    del images
     torch.distributed.destroy_process_group()
 
     src = "chainermn_tpu_torch/csrc/"
@@ -1699,7 +2017,166 @@ def main():
     return 0
 
 
+def two_stage_rank():
+    """One rank of ``--four-cards``' cross-rank checks (under torchrun):
+    the world split 2 x 2 (a node's communicator and the nodes'), every
+    bucket form against the flat all-reduce on multiples of 1/8, whose
+    sums are exact in any order; then a captured window across the four
+    ranks.  Rank 0 prints the verdicts."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.ops import fused
+
+    comm = cmn.create_communicator()
+    r = comm.rank
+    require(comm.size == 4, f"--two-stage-rank wants 4 ranks, {comm.size}")
+    intra, inter = comm.split(r // 2, r % 2), comm.split(r % 2, r // 2)
+    rng = np.random.RandomState(r)
+    tree = {k: torch.tensor(rng.randint(-64, 65, s) / 8, dtype=torch.float32,
+                            device=comm.device)
+            for k, s in (("a", (301, 7)), ("b", (4097,)), ("c", (3,)))}
+    bf16 = torch.bfloat16
+    flat = comm.multi_node_mean_grad(pytree.tree_map(torch.clone, tree),
+                                     bf16)
+    sched = fused.build_overlap_schedule(tree, 4096, bf16)
+    forms = dict(
+        two_stage=fused.fused_allreduce(pytree.tree_map(torch.clone, tree),
+                                        intra, wire_dtype=bf16,
+                                        inter_comm=inter),
+        overlap_rs=fused.overlap_exchange(tree, comm, schedule=sched,
+                                          wire_dtype=bf16),
+        overlap_two_stage=fused.overlap_exchange(
+            tree, intra, schedule=sched, wire_dtype=bf16, inter_comm=inter))
+    verdicts = {k: all(torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(v), pytree.tree_leaves(flat)))
+        for k, v in forms.items()}
+    verdicts = comm.allgather_obj(verdicts)
+    if r == 0:
+        print(json.dumps({"two_stage_2x2": verdicts}))
+    require(all(all(v.values()) for v in verdicts), f"forms {verdicts}")
+
+    # a captured window across the ranks: an MLP on each rank's own rows,
+    # momentum SGD, a bf16 wire, double buffering, two updates of two
+    # microbatches a window, three windows (warm-up, capture and replay,
+    # replay) against twelve eager microbatches.  Bitwise the eager run
+    # on every rank, and the ranks' parameters equal (the captured
+    # exchange crossed the ranks; each rank's data differs)
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        init_mlp_numpy, mlp_apply, mlp_params_from_jax,
+        softmax_cross_entropy)
+
+    rng = np.random.RandomState(10 + r)
+    xs = rng.randn(64, 16).astype(np.float32)
+    ys = rng.randint(0, 4, 64).astype(np.int32)
+
+    def job(spe):
+        opt = cmn.create_multi_node_optimizer(
+            training.sgd(0.1, momentum=0.9), comm, double_buffering=True,
+            allreduce_grad_dtype=bf16)
+        return training.StandardUpdater(
+            SerialIterator((xs, ys), 8, shuffle=True, seed=1), opt,
+            lambda p, x, y: softmax_cross_entropy(mlp_apply(p, x), y),
+            mlp_params_from_jax(init_mlp_numpy([16, 32, 4], 0),
+                                comm.device),
+            comm, steps_per_execution=spe, accum_steps=2)
+
+    graph, eager = job(2), job(1)
+    start = [t.detach().clone() for t in pytree.tree_leaves(graph.params)]
+    for _ in range(3):
+        graph.update()
+    for _ in range(6):
+        eager.update()
+    window = next(iter(graph._windows.values()))
+    mine = [t.detach().cpu().numpy()
+            for t in pytree.tree_leaves(graph.params)]
+    ranks = comm.allgather_obj(mine)
+    window_checks = dict(
+        graph=graph.graphs and window.graph is not None
+        and window.replays == 2,
+        bitwise_eager=all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(graph.params),
+            pytree.tree_leaves(eager.params))),
+        ranks_agree=all(np.array_equal(a, b) for other in ranks
+                        for a, b in zip(mine, other)),
+        moved=not all(torch.equal(a, b) for a, b in zip(
+            start, pytree.tree_leaves(graph.params))))
+    window_checks = comm.allgather_obj(window_checks)
+    if r == 0:
+        print(json.dumps({"window_graph_4_ranks": window_checks}))
+    require(all(all(v.values()) for v in window_checks),
+            f"captured window across ranks: {window_checks}")
+    # no reference to a captured window may outlive finalize(): NCCL
+    # does not destroy a communicator while a graph holds its
+    # collectives
+    del window
+    graph.finalize()
+    eager.finalize()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards(root):
+    """``--four-cards``: the large-batch example (``--tiny
+    --steps-per-execution 2``, 3 epochs, so a captured window replays)
+    on 4 NCCL ranks and on 4 gloo ranks on this machine's CPU, their
+    logged losses held to each other at 1e-4 relative (the same fp32
+    steps, TF32 off; cuDNN and the CPU sum their products in other
+    orders), beside the same example eager on 4 NCCL ranks
+    (``--steps-per-execution 1``, reported); then the two-stage exchange
+    as 2 x 2 over ``split`` and a captured window across the 4 ranks
+    (:func:`two_stage_rank`).  Needs four cards; prints JSON lines."""
+    import os
+
+    out = root / "build" / "four_cards"
+    example = root / "examples/imagenet/train_imagenet_large_batch_torch.py"
+    # fp32 on the card as on the CPU: no TF32 in cuDNN's convolutions
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    logs, seconds = {}, {}
+    # each run ends with destroy_process_group: a captured window left
+    # alive there would keep NCCL waiting, so a hang fails at 120 s (a
+    # run takes under a minute)
+    for name, spe, extra in (("nccl", "2", []),
+                             ("nccl_eager", "1", []),
+                             ("gloo", "2", ["--platform", "cpu"])):
+        t0 = time.perf_counter()
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                        str(example), "--tiny", "--steps-per-execution", spe,
+                        "--epoch", "3", "--out", str(out / name)] + extra,
+                       check=True, timeout=120, env=env)
+        seconds[name] = time.perf_counter() - t0
+        logs[name] = json.loads((out / name / "log").read_text())
+    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                    __file__, "--two-stage-rank"], check=True, timeout=120)
+    keys = ("main/loss", "validation/loss")
+
+    def rel(x, y):
+        return [abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for a, b in zip(logs[x], logs[y]) for k in keys]
+
+    diffs = rel("nccl", "gloo")
+    print(json.dumps({"four_cards": dict(
+        {name: [{k: e[k] for k in keys + ("iteration",)} for e in log]
+         for name, log in logs.items()},
+        max_rel_diff=max(diffs), rel_diffs=diffs,
+        graph_vs_eager_nccl=rel("nccl", "nccl_eager"),
+        eager_nccl_vs_gloo=rel("nccl_eager", "gloo"), seconds=seconds)}))
+    require(len(logs["nccl"]) == len(logs["gloo"]) == 3
+            and max(diffs) < 1e-4, f"losses differ: {diffs}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--four-cards"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(four_cards(Path(__file__).resolve().parent))
+    if sys.argv[1:2] == ["--two-stage-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(two_stage_rank())
     if sys.argv[1:2] == ["--kill-drill"]:
         # phase 9's child: it never returns, the fault plan kills it
         sys.path.insert(0, str(Path(__file__).resolve().parent))

@@ -480,7 +480,7 @@ def test_cuda_async_save_survives_inplace_update(cuda, tmp_path):
 
     step()
     before = {k: t.clone() for k, t in params.items()}
-    mom = [up.opt_state.state[t]["momentum_buffer"].clone()
+    mom = [up.opt_state.state[t]["trace"].clone()
            for t in params.values()]
     cp = create_multi_node_checkpointer(comm, str(tmp_path),
                                         async_write=True)
@@ -496,7 +496,7 @@ def test_cuda_async_save_survives_inplace_update(cuda, tmp_path):
     for k in params:
         assert torch.equal(fresh[k], before[k]), k
         assert not torch.equal(params[k], before[k]), k
-    got = [up2.opt_state.state[t]["momentum_buffer"] for t in fresh.values()]
+    got = [up2.opt_state.state[t]["trace"] for t in fresh.values()]
     assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(got, mom))
 
 
@@ -576,3 +576,202 @@ def test_recycled_staging_buffer_waits_for_its_copy(cuda):
         np.testing.assert_array_equal(got.cpu().numpy(), next(ref)[0])
     pf.close()
     assert Spy.reuses >= 5
+
+
+# --------------------------------------------------------------------- #
+# the large-batch path: windows as CUDA graphs, double buffering's
+# stream, the overlapped exchange
+# --------------------------------------------------------------------- #
+
+def _tiny_resnet_job(comm, opt, steps_per_execution=1, accum_steps=2,
+                     loss_hook=None, n=64):
+    """A width-4 ResNet-50 with sync BN over ``comm`` on 16 px images,
+    fp32, cuDNN pinned; ``n`` images in batches of 8."""
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        ResNetConfig, init_resnet_numpy, resnet_apply,
+        resnet_params_from_jax, softmax_cross_entropy)
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg = ResNetConfig(depth=50, num_classes=10, width=4, dtype="float32")
+    params, state = resnet_params_from_jax(*init_resnet_numpy(cfg, 0), cfg,
+                                           device="cuda")
+    rng = np.random.RandomState(4)
+    xs = rng.randn(n, 16, 16, 3).astype(np.float32)
+    ys = rng.randint(0, 10, n).astype(np.int32)
+
+    def loss_fn(p, s, x, y):
+        logits, new_s = resnet_apply(cfg, p, s, x, train=True, comm=comm)
+        loss = softmax_cross_entropy(logits, y)
+        if loss_hook is not None:
+            loss_hook(loss)
+        return loss, new_s
+
+    return training.StandardUpdater(
+        SerialIterator((xs, ys), 8, shuffle=True, seed=1), opt, loss_fn,
+        params, comm, state=state, steps_per_execution=steps_per_execution,
+        accum_steps=accum_steps)
+
+
+def _lars_opt(comm, **kw):
+    sched = training.join_schedules(
+        [training.linear_schedule(0.1, 0.4, 2),
+         training.cosine_decay_schedule(0.4, 20)], [2])
+    return training.create_multi_node_optimizer(
+        training.lars(sched, weight_decay=1e-4), comm,
+        allreduce_grad_dtype=torch.bfloat16, **kw)
+
+
+def _same(a, b):
+    import torch.utils._pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+
+
+def test_cuda_window_graph_replays_bitwise_eager(nccl_comm):
+    """Three windows of two updates of two microbatches (warm-up,
+    capture and replay, replay) against six eager updates: parameters,
+    BN state and optimizer state bitwise, with double buffering's stream
+    and a scheduled LARS inside the graph."""
+    graph = _tiny_resnet_job(nccl_comm, _lars_opt(nccl_comm,
+                                                  double_buffering=True),
+                             steps_per_execution=2)
+    eager = _tiny_resnet_job(nccl_comm, _lars_opt(nccl_comm,
+                                                  double_buffering=True))
+    assert graph.graphs and not eager.graphs
+    for _ in range(3):
+        graph.update()
+    for _ in range(6):
+        eager.update()
+    window = next(iter(graph._windows.values()))
+    assert window.graph is not None and window.replays == 2
+    assert graph.iteration == eager.iteration == 12
+    assert _same(graph.params, eager.params)
+    assert _same(graph.state, eager.state)
+    assert _same(training.optimizer_state_tree(graph.opt_state),
+                 training.optimizer_state_tree(eager.opt_state))
+
+
+def test_cuda_stateless_window_graph_replays_bitwise_eager(nccl_comm):
+    """A model without state (an MLP, ``state=None``): its captured
+    window (warm-up, capture and replay, replay) is bitwise its eager
+    run."""
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        init_mlp_numpy, mlp_apply, mlp_params_from_jax,
+        softmax_cross_entropy)
+
+    rng = np.random.RandomState(6)
+    xs = rng.randn(64, 16).astype(np.float32)
+    ys = rng.randint(0, 4, 64).astype(np.int32)
+
+    def job(spe):
+        return training.StandardUpdater(
+            SerialIterator((xs, ys), 8, shuffle=True, seed=1),
+            _lars_opt(nccl_comm, double_buffering=True),
+            lambda p, x, y: softmax_cross_entropy(mlp_apply(p, x), y),
+            mlp_params_from_jax(init_mlp_numpy([16, 32, 4], 0), "cuda"),
+            nccl_comm, steps_per_execution=spe, accum_steps=2)
+
+    graph, eager = job(2), job(1)
+    for _ in range(3):
+        graph.update()
+    for _ in range(6):
+        eager.update()
+    window = next(iter(graph._windows.values()))
+    assert window.graph is not None and window.replays == 2
+    assert graph.state is None and _same(graph.params, eager.params)
+    assert _same(training.optimizer_state_tree(graph.opt_state),
+                 training.optimizer_state_tree(eager.opt_state))
+
+
+def test_cuda_double_buffering_stream_is_the_plain_order(nccl_comm):
+    """Double buffering with the exchange on the communication stream
+    equals the same optimizer with every operation on one stream."""
+    on_side = _lars_opt(nccl_comm, double_buffering=True)
+    plain = _lars_opt(nccl_comm, double_buffering=True)
+    plain._side_stream = lambda device: None
+    a = _tiny_resnet_job(nccl_comm, on_side, accum_steps=1)
+    b = _tiny_resnet_job(nccl_comm, plain, accum_steps=1)
+    for _ in range(4):
+        a.update()
+        b.update()
+    assert on_side._stream is not None and plain._stream is None
+    assert _same(a.params, b.params)
+    assert _same(training.optimizer_state_tree(a.opt_state),
+                 training.optimizer_state_tree(b.opt_state))
+
+
+def test_cuda_overlap_hooks_fire_once_a_bucket(nccl_comm):
+    """The overlapped exchange, bucket by bucket from the hooks of the
+    last microbatch's backward on the communication stream, in schedule
+    order, equals the window-end exchange bitwise."""
+    opt = _lars_opt(nccl_comm, overlap=True, bucket_bytes=4096)
+    seen = []
+    make = opt.overlapped
+    opt.overlapped = lambda p: seen.append(make(p)) or seen[-1]
+    a = _tiny_resnet_job(nccl_comm, opt)
+    b = _tiny_resnet_job(nccl_comm, _lars_opt(nccl_comm))
+    for _ in range(2):
+        a.update()
+        b.update()
+    n = len(opt.mean.schedule)
+    assert n > 4 and len(seen) == 2
+    assert all(ex.launched == list(range(n)) for ex in seen)
+    assert _same(a.params, b.params) and _same(a.state, b.state)
+
+
+def test_cuda_finalize_frees_captured_windows(nccl_comm):
+    """``finalize()`` (the trainer's exit) frees each captured window's
+    graph, whose NCCL collectives would keep ``destroy_process_group``
+    waiting; training after it warms up and captures again, and stays
+    bitwise the eager run."""
+    import weakref
+
+    graph = _tiny_resnet_job(nccl_comm, _lars_opt(nccl_comm,
+                                                  double_buffering=True),
+                             steps_per_execution=2)
+    eager = _tiny_resnet_job(nccl_comm, _lars_opt(nccl_comm,
+                                                  double_buffering=True))
+    for _ in range(2):
+        graph.update()
+    window = weakref.ref(next(iter(graph._windows.values())))
+    assert window().graph is not None
+    graph.finalize()
+    assert graph._windows == {} and window() is None
+    for _ in range(2):
+        graph.update()
+    assert next(iter(graph._windows.values())).graph is not None
+    for _ in range(8):
+        eager.update()
+    assert graph.iteration == eager.iteration == 16
+    assert _same(graph.params, eager.params)
+    assert _same(training.optimizer_state_tree(graph.opt_state),
+                 training.optimizer_state_tree(eager.opt_state))
+
+
+def test_cuda_failed_capture_raises(nccl_comm):
+    """A step that reads a value on the host cannot be captured: the
+    capture raises, and nothing runs the window eagerly in its place.
+    Last in the file: a failed capture may leave the context unusable
+    for later captures."""
+    capturing = []
+
+    def hook(loss):
+        if torch.cuda.is_current_stream_capturing():
+            capturing.append(True)
+        float(loss)              # a host read: illegal in a capture
+
+    up = _tiny_resnet_job(nccl_comm, _lars_opt(nccl_comm),
+                          steps_per_execution=2, loss_hook=hook)
+    up.update()                  # the warm-up window runs eagerly
+    with pytest.raises(RuntimeError):
+        up.update()
+    assert capturing
+    window = next(iter(up._windows.values()))
+    assert window.graph is None and window.replays == 0
+    assert up.iteration == 4

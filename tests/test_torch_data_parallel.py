@@ -560,25 +560,52 @@ def test_mlp_updater_steps_match_jax(world):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        training.create_multi_node_optimizer(training.sgd(0.1), object(),
-                                             double_buffering=True)
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         training.create_multi_node_optimizer(training.sgd(0.1), object(),
                                              zero1=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        training.create_multi_node_optimizer(training.sgd(0.1), object(),
-                                             plan="auto")
-    for call, item in ((lambda: fused.hierarchical_allreduce([], None), 2),
-                       (lambda: fused.overlap_exchange([], None), 2),
-                       (lambda: fused.plan_allreduce([], None, {}), 10)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
-    for kw, item in ((dict(steps_per_execution=2), 4),
-                     (dict(accum_steps=2), 4), (dict(max_inflight=2), 4),
-                     (dict(exchange_probe_every=5), 10)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            training.StandardUpdater(iter([]), None, None, {}, None, **kw)
+    for kw in (dict(plan="auto"), dict(overlap="auto")):
+        with pytest.raises(NotImplementedError, match="Queue A item 10"):
+            training.create_multi_node_optimizer(training.sgd(0.1),
+                                                 object(), **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        fused.plan_allreduce([], None, {})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        training.StandardUpdater(iter([]), None, None, {}, None,
+                                 exchange_probe_every=5)
+
+
+def test_large_batch_options_run():
+    """What the list above raised for A2 and A4 now runs (held against
+    the JAX package in test_torch_large_batch.py): double buffering, the
+    two-stage and overlapped exchanges, and the updater's windows,
+    accumulation and inflight windows."""
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+    from chainermn_tpu_torch.iterators import SerialIterator
+
+    comm = LoopbackCommunicator(device="cpu")
+    opt = training.create_multi_node_optimizer(
+        training.sgd(1.0), comm, double_buffering=True)
+    w = {"w": torch.zeros(2)}
+    st = opt.init(w)
+    opt.update({"w": torch.ones(2)}, st, w)
+    assert torch.equal(w["w"], torch.zeros(2))       # zeros applied
+    opt.update({"w": torch.ones(2)}, st, w)
+    assert torch.equal(w["w"], -torch.ones(2))       # one step stale
+    x = torch.arange(5.0)
+    assert torch.equal(fused.hierarchical_allreduce(x, comm, comm), x)
+    assert torch.equal(fused.overlap_exchange({"x": x}, comm)["x"], x)
+    rng = np.random.RandomState(0)
+    data = (rng.randn(48, 6).astype(np.float32),
+            (np.arange(48) % 3).astype(np.int32))
+    up = training.StandardUpdater(
+        SerialIterator(data, 4), training.create_multi_node_optimizer(
+            training.sgd(0.1), comm),
+        lambda p, x, y: softmax_cross_entropy(p["w"][None] * x[:, :3], y),
+        {"w": torch.ones(3)}, comm, steps_per_execution=2, accum_steps=2,
+        max_inflight=2)
+    up.update()
+    assert up.iteration == 4 and up.window_steps == 4
+    assert "main/accum_time" in up.observation
 
 
 def test_sgd_momentum_is_optax_trace():

@@ -36,7 +36,9 @@ def _imported_modules(path):
 
 EXAMPLES = [ROOT / "examples" / "mnist" / "train_mnist_torch.py",
             ROOT / "examples" / "mnist" / "train_mnist_model_parallel_torch.py",
-            ROOT / "examples" / "imagenet" / "train_imagenet_torch.py"]
+            ROOT / "examples" / "imagenet" / "train_imagenet_torch.py",
+            ROOT / "examples" / "imagenet"
+            / "train_imagenet_large_batch_torch.py"]
 # the test helpers the port's drills import or run in children
 TEST_HELPERS = [ROOT / "tests" / "test_torch_world.py",
                 ROOT / "tests" / "_torch_fault_worker.py"]
@@ -97,6 +99,42 @@ def test_dp_path_catches_no_failure(path):
                     and h.type.id == "StopIteration", \
                     f"{path.relative_to(ROOT)}:{h.lineno} catches " \
                     f"{ast.unparse(h.type) if h.type else 'everything'}"
+
+
+def test_window_capture_has_no_eager_fallback():
+    # fuse_steps on the card: the window runs eagerly once, as the
+    # warm-up before any capture; a capture that fails raises out of
+    # __call__, which has no other path to the steps
+    tree = ast.parse((PORT / "training" / "updater.py").read_text())
+    cls = next(n for n in ast.walk(tree) if isinstance(n, ast.ClassDef)
+               and n.name == "_GraphedSteps")
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(cls))
+    call = next(n for n in cls.body if isinstance(n, ast.FunctionDef)
+                and n.name == "__call__")
+    runs = [n for n in ast.walk(call) if isinstance(n, ast.Call)
+            and ast.unparse(n.func) == "self._run"]
+    assert len(runs) == 1
+    warm = next(n for n in call.body if isinstance(n, ast.If))
+    assert ast.unparse(warm.test) == "not self.warm" and runs[0] in list(
+        ast.walk(warm))
+    capture = next(n for n in cls.body if isinstance(n, ast.FunctionDef)
+                   and n.name == "_capture")
+    assert any(isinstance(n, ast.With) and "torch.cuda.graph" in
+               ast.unparse(n.items[0].context_expr)
+               for n in ast.walk(capture))
+    # the plain loop runs only where the CPU is named: fuse_steps'
+    # device defaults to the card, and the updater passes its own device
+    fuse = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == "fuse_steps")
+    assert [ast.unparse(d) for d in fuse.args.kw_defaults][1] == "None"
+    branch = next(n for n in fuse.body if isinstance(n, ast.If))
+    assert ast.unparse(branch.test) == \
+        "resolve_device(device).type == 'cpu'"
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and ast.unparse(n.func) == "fuse_steps"]
+    assert calls and all(
+        {k.arg: ast.unparse(k.value) for k in c.keywords}.get("device")
+        == "self.device" for c in calls)
 
 
 # The fault-tolerance layer: every handler it holds, by file, and why it
@@ -190,6 +228,7 @@ def test_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
                  lambda: make_generate_fn(cfg),
                  lambda: make_value_and_grad_fn(cfg),
                  lambda: make_train_step(cfg, training.sgd(0.1)),
+                 lambda: training.fuse_steps(lambda c, x: (c + x, x), 2),
                  lambda: params_from_jax(tree, cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -203,6 +242,10 @@ def test_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
     _, _, loss = make_train_step(cfg, opt, device="cpu")(
         params, opt.init(params), toks, toks)
     assert loss.device.type == "cpu"
+    carry, seen = training.fuse_steps(lambda c, x: (c + x, x), 2,
+                                      device="cpu")(torch.zeros(()),
+                                                    torch.ones(()))
+    assert float(carry) == 2.0 and seen.shape == (2,)
 
 
 def test_dp_entry_points_need_cuda_unless_cpu_is_named(no_cuda):

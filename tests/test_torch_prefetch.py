@@ -240,11 +240,30 @@ def test_save_and_restore_far_into_a_run_pull_nothing_again(comm):
 
 
 def test_steps_per_execution_and_depth_errors(comm):
-    it = SerialIterator(_examples(), 4)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        PrefetchIterator(it, comm, steps_per_execution=2)
+    # windows of 3 batches stack into (3, batch, ...); 30 examples in
+    # batches of 4 end an epoch with 4, 4 and a ragged 2, which rides as
+    # the tail; the batches are the serial feed's
+    it = SerialIterator(_examples(), 4, repeat=False)
+    pf = PrefetchIterator(it, comm, steps_per_execution=3)
+    want = list(_serial_stream(SerialIterator(_examples(), 4, repeat=False),
+                               default_converter, 8))
+    got = []
+    for rec in pf:
+        assert rec.n_iterations == rec.k + (rec.tail is not None)
+        got += [rec.arrays] if rec.k == 1 else [
+            tuple(a[j] for a in rec.arrays) for j in range(rec.k)]
+        if rec.tail is not None:
+            assert rec.k == 1 and rec.tail[0].shape == (2, 4)
+            got.append(rec.tail)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a.numpy(), b)
     with pytest.raises(ValueError, match="depth"):
         PrefetchIterator(it, comm, depth=0)
+    with pytest.raises(ValueError, match="too small"):
+        PrefetchIterator(it, comm, steps_per_execution=4,
+                         converter=StagingConverter(n_buffers=3))
 
 
 # --------------------------------------------------------------------- #
@@ -308,10 +327,20 @@ def test_updater_adopts_and_checks_a_prefetcher(comm):
         training.StandardUpdater(SerialIterator(_mnist_like(), 16),
                                  training.sgd(0.1), None, [], comm,
                                  prefetch=-1)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        training.StandardUpdater(SerialIterator(_mnist_like(), 16),
-                                 training.sgd(0.1), None, [], comm,
-                                 prefetch=2, max_inflight=2)
+    # windows in flight: none on the CPU, where a window is done when its
+    # update returns, so the observed loss is the window's own
+    up = training.StandardUpdater(
+        SerialIterator(_mnist_like(), 16),
+        training.create_multi_node_optimizer(training.sgd(0.1), comm),
+        lambda p, x, y: softmax_cross_entropy(mlp_apply(p, x), y),
+        mlp_params_from_jax(init_mlp_numpy([20, 10], 0), device="cpu"),
+        comm, prefetch=2, max_inflight=3)
+    assert up.max_inflight == 3
+    for _ in range(4):
+        up.update()
+        assert not up._inflight
+        assert up.observation["main/loss"] is up._last_retired
+    up.finalize()
 
 
 def test_checkpoint_with_prefetch_resumes_bitwise(comm, tmp_path):

@@ -213,7 +213,8 @@ def test_adamw_steps_match_jax():
 
 
 def test_adamw_decays_every_leaf_at_optax_default():
-    # zero gradients: AdamW's step is the decay alone, p·(1 − lr·1e-4)
+    # zero gradients: AdamW's step is the decay alone, p − lr·(1e-4·p),
+    # optax.adamw's own arithmetic on every leaf
     _, cfg = configs()
     params = params_from_jax(jax_tree(configs()[0]), cfg, device="cpu")
     before = params_to_numpy(params, cfg)
@@ -223,9 +224,11 @@ def test_adamw_decays_every_leaf_at_optax_default():
                  if isinstance(v, dict) else torch.zeros_like(v))
              for k, v in params.items()}
     opt.update(grads, state, params)
+    tx = optax.adamw(0.5)
+    ref = jax.tree.map(jax.numpy.asarray, before)
+    upd, _ = tx.update(jax.tree.map(jax.numpy.zeros_like, ref), tx.init(ref), ref)
     assert_trees_close(params_to_numpy(params, cfg),
-                       jax.tree.map(lambda a: a * (1 - 0.5 * 1e-4), before),
-                       rtol=1e-7, atol=0)
+                       optax.apply_updates(ref, upd), rtol=1e-7, atol=0)
 
 
 def test_optimizer_refuses_other_params():
@@ -255,5 +258,12 @@ def test_unported_training_options_raise(kw):
 
 
 def test_unported_optimizer_options_raise():
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        training.adamw(3e-4, mu_dtype="bfloat16")
+    # adamw(mu_dtype=...) is ported (held against optax in
+    # test_torch_large_batch.py): the first moment is kept in bf16
+    opt = training.adamw(3e-4, mu_dtype="bfloat16")
+    params = {"w": torch.ones(3)}
+    state = opt.init(params)
+    opt.update({"w": torch.ones(3)}, state, params)
+    st = state.state[params["w"]]
+    assert st["mu"].dtype == torch.bfloat16 and st["nu"].dtype == torch.float32
+    assert int(st["count"]) == 1 and bool((params["w"] < 1).all())

@@ -18,6 +18,7 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -335,6 +336,205 @@ def battery_data_parallel(comm, p):
             up.update()
             losses.append(float(up.observation["main/loss"]))
         out[name] = dict(losses=losses, params=np_tree(up.params))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the large-batch recipe: the exchange's forms, the optimizer stack,
+# accumulation and windows
+# --------------------------------------------------------------------- #
+
+
+def _wire_tensor(a, dtype):
+    t = torch.tensor(a)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def local_batches(X, Y, G, r, n):
+    """Rank ``r``'s rows of every global batch of ``G`` rows of
+    ``(X, Y)`` in order (a ragged last batch split evenly too): what a
+    rank iterates with batch ``G // n`` to see the JAX updater's global
+    batches."""
+    xs, ys = [], []
+    for start in range(0, len(X), G):
+        b = min(G, len(X) - start)
+        lo = start + r * (b // n)
+        xs.append(X[lo:lo + b // n])
+        ys.append(Y[lo:lo + b // n])
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def _port_job(comm, p, job):
+    """A port updater over the JAX updater's global batches (this rank's
+    rows), ``job["updates"]`` updates: losses, iterations, parameters
+    and model state."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        ResNetConfig, mlp_apply, mlp_params_from_jax, resnet_apply,
+        resnet_params_from_jax, resnet_to_numpy, softmax_cross_entropy)
+
+    n = job["n"]
+    if job["model"] == "mlp":
+        X, Y = p["mlp_x"][:n], p["mlp_y"][:n]
+        params, state = mlp_params_from_jax(p["mlp_params"], "cpu"), None
+
+        def loss_fn(prm, x, y):
+            return softmax_cross_entropy(mlp_apply(prm, x), y)
+    else:
+        X, Y = p["images"][:n], p["labels"][:n]
+        cfg = ResNetConfig(**p["resnet_cfg"])
+        params, state = resnet_params_from_jax(
+            p["resnet_params"], p["resnet_state"], cfg, device="cpu")
+
+        def loss_fn(prm, st, x, y):
+            logits, new = resnet_apply(cfg, prm, st, x, train=True,
+                                       comm=comm)
+            return softmax_cross_entropy(logits, y), new
+    xs, ys = local_batches(X, Y, job["G"], comm.rank, comm.size)
+    it = SerialIterator((xs, ys), job["G"] // comm.size,
+                        repeat=job["repeat"], shuffle=False)
+    inner = {"sgd": lambda lr: training.sgd(lr),
+             "momentum": lambda lr: training.sgd(lr, momentum=0.9),
+             "adam": lambda lr: training.adamw(lr, weight_decay=0.0)}[
+        job["opt"]](job["lr"])
+    up = training.StandardUpdater(
+        it, training.create_multi_node_optimizer(inner, comm), loss_fn,
+        params, comm, state=state, accum_steps=job["M"],
+        steps_per_execution=job["spe"])
+    losses, iterations = [], []
+    for _ in range(job["updates"]):
+        up.update()
+        losses.append(float(up.observation["main/loss"]))
+        iterations.append(up.iteration)
+    tree = np_tree if job["model"] == "mlp" else resnet_to_numpy
+    return dict(losses=losses, iterations=iterations,
+                params=tree(up.params),
+                state=None if state is None else resnet_to_numpy(up.state))
+
+
+def battery_large_batch(comm, p):
+    """The exchange's forms (reduce-scatter/all-gather, two-stage over a
+    2 x 2 split, the overlap schedule's modes and routes, the two-stage
+    ``multi_node_mean_grad``), the multi-node optimizer's accumulation
+    and double buffering, and the updater's accumulation and windows."""
+    import importlib.util
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.ops import fused
+
+    r = comm.rank
+    out = {}
+
+    # -- one flat bucket: reduce-scatter/all-gather and two-stage ------- #
+    node, slot = r // 2, r % 2
+    intra = comm.split(node, slot)
+    inter = comm.split(slot, node)
+    for name, (a, dtype) in p["buckets"].items():
+        x = _wire_tensor(a[r], dtype)
+        out[f"rs_{name}"] = np_tree(fused.reduce_scatter_allgather(x, comm))
+        out[f"rs_sum_{name}"] = np_tree(
+            fused.reduce_scatter_allgather(x, comm, op="sum"))
+        out[f"hier_{name}"] = np_tree(
+            fused.hierarchical_allreduce(x, intra, inter))
+
+    # -- a gradient tree: the overlap schedules, two-stage ------------- #
+    def tree():
+        return {k: _wire_tensor(a[r], p["tree_dtypes"][k])
+                for k, a in p["tree"].items()}
+
+    for i, (sched, wire) in enumerate(p["schedules"]):
+        wire = None if wire is None else torch.bfloat16
+        out[f"overlap_{i}"] = np_tree(fused.overlap_exchange(
+            tree(), comm, schedule=sched, bucket_bytes=p["bucket"],
+            wire_dtype=wire))
+        out[f"overlap_hier_{i}"] = np_tree(fused.overlap_exchange(
+            tree(), intra, schedule=sched, bucket_bytes=p["bucket"],
+            wire_dtype=wire, inter_comm=inter))
+    out["schedule"] = fused.build_overlap_schedule(
+        tree(), p["bucket"], torch.bfloat16)
+    # the world seen as two nodes of two ranks: multi_node_mean_grad
+    # goes two-stage over hierarchy()
+    comm._intra_rank, comm._inter_rank = slot, node
+    comm._inter_size, comm._node_sizes = 2, [2, 2]
+    stages = comm.hierarchy()
+    before = [c.n_collectives for c in (comm,) + stages]
+    out["mean_two_stage"] = np_tree(comm.multi_node_mean_grad(
+        tree(), torch.bfloat16, bucket_bytes=p["bucket"]))
+    out["two_stage_collectives"] = [
+        c.n_collectives - b for c, b in zip((comm,) + stages, before)]
+    out["hierarchy_sizes"] = [c.size for c in stages]
+    # ranks 0-2 seen as two nodes of 2 and 1 ranks: hierarchy(), and the
+    # two-stage optimizer over it, raise on every member
+    sub = comm.split(int(r == 3), r)
+    if r < 3:
+        sub._inter_rank, sub._intra_rank = int(r == 2), r % 2
+        sub._inter_size, sub._node_sizes = 2, [2, 1]
+        opt = training.create_multi_node_optimizer(
+            training.sgd(0.1), sub, inter_axis_name="inter")
+        w = {"w": torch.zeros(2)}
+        st = opt.init(w)
+        out["uneven"] = []
+        for call in (sub.hierarchy,
+                     lambda: opt.update({"w": torch.ones(2)}, st, w)):
+            try:
+                call()
+                out["uneven"].append(None)
+            except ValueError as e:
+                out["uneven"].append(str(e))
+
+    # -- the multi-node optimizer: accumulation, double buffering ------ #
+    g1, g2 = p["g1"][r], p["g2"][r]
+    for kind, make in (("sgd", lambda: training.sgd(0.5)),
+                       ("adam", lambda: training.adamw(
+                           1e-2, weight_decay=0.0))):
+        prm = {"w": torch.ones(6)}
+        opt = training.create_multi_node_optimizer(make(), comm,
+                                                   accum_steps=2)
+        st = opt.init(prm)
+        opt.update({"w": torch.tensor(g1)}, st, prm)
+        mid = prm["w"].clone()
+        tree_mid = np_tree(training.optimizer_state_tree(st))
+        opt.update({"w": torch.tensor(g2)}, st, prm)
+        big = {"w": torch.ones(6)}
+        ref = training.create_multi_node_optimizer(make(), comm)
+        ref_st = ref.init(big)
+        ref.update({"w": torch.tensor((g1 + g2) / 2)}, ref_st, big)
+        out[f"opt_accum_{kind}"] = dict(mid=mid.numpy(), acc=prm["w"].numpy(),
+                                    big=big["w"].numpy(), tree=tree_mid)
+
+    opt = training.create_multi_node_optimizer(
+        training.sgd(1.0), comm, double_buffering=True)
+    w = {"w": torch.zeros(2)}
+    st = opt.init(w)
+    stale = []
+    for g in ([1.0, 2.0], [10.0, 20.0]):
+        opt.update({"w": torch.tensor(g)}, st, w)
+        stale.append(w["w"].clone().numpy())
+    out["double_buffer"] = stale
+
+    spec = importlib.util.spec_from_file_location(
+        "lb_example", p["example"])
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    sched = ex.make_lr_schedule(base_lr=0.1, global_batch=1024,
+                                warmup_epochs=1, total_epochs=3,
+                                steps_per_epoch=4)
+    out["sched"] = [float(sched(c)) for c in (0, 1, 4, 8)]
+    opt = training.create_multi_node_optimizer(
+        training.sgd(sched), comm, double_buffering=True,
+        allreduce_grad_dtype=torch.bfloat16)
+    w = {"w": torch.zeros(2)}
+    st = opt.init(w)
+    recipe = []
+    for _ in range(2):
+        opt.update({"w": torch.tensor(p["recipe_g"][r])}, st, w)
+        recipe.append(w["w"].clone().numpy())
+    out["recipe"] = recipe
+
+    # -- the updater: accumulation, windows, flushes, weighted loss ---- #
+    for job in p["jobs"]:
+        out[job["name"]] = _port_job(comm, p, job)
     return out
 
 
