@@ -8,8 +8,8 @@ A port process is one rank driving one GPU, so the port scatters over
 ``comm.size`` and takes ``comm.rank``'s shard — ChainerMN's own split.
 Every rank derives the same partition from ``seed`` with numpy's
 ``RandomState``, so the shards equal the JAX package's ``_partition`` of
-the same length bit for bit.  ``datasets/bpe.py`` is not ported yet
-(ROADMAP Queue A item 7).
+the same length bit for bit.  :mod:`.bpe` is the byte-level BPE
+tokenizer of the LM example's real-text path.
 """
 
 from __future__ import annotations
@@ -18,13 +18,17 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .bpe import BPETokenizer, train_bpe
+
 __all__ = [
+    "BPETokenizer",
     "EmptyDataset",
     "SubDataset",
     "create_empty_dataset",
     "scatter_dataset",
     "scatter_index",
     "shuffle_data_blocks",
+    "train_bpe",
 ]
 
 

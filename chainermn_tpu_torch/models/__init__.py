@@ -6,6 +6,7 @@ from .convert import (
     init_mlp_numpy,
     init_numpy_params,
     init_resnet_numpy,
+    init_transformer,
     mlp_params_from_jax,
     params_from_jax,
     params_to_numpy,
@@ -43,6 +44,7 @@ __all__ = [
     "softmax_cross_entropy",
     "apply_rope",
     "init_numpy_params",
+    "init_transformer",
     "lm_loss",
     "make_forward_fn",
     "make_generate_fn",

@@ -14,6 +14,9 @@ tensors with the same names, blocks stacked ``(L, ...)``;
 It needs numpy only, so :func:`init_numpy_params` can make seeded weights
 in the same layout (and at the same scales as ``init_transformer``) on a
 machine without JAX; its numbers are numpy's, not ``jax.random``'s.
+:func:`init_transformer` is the port's ``init_transformer``: the same
+leaves, shapes, dtypes and scales drawn from a ``torch.Generator``, as
+tensors in the port's layout (blocks ``(L, ...)``).
 
 The same for the data-parallel models: :func:`resnet_params_from_jax`
 takes ``init_resnet``'s ``(params, state)`` (conv weights HWIO, BN
@@ -39,8 +42,9 @@ from .resnet import ResNetConfig
 from .transformer import TransformerConfig
 
 __all__ = ["chain_params_from_jax", "init_mlp_numpy", "init_numpy_params",
-           "init_resnet_numpy", "mlp_params_from_jax", "params_from_jax", "params_to_numpy",
-           "resnet_params_from_jax", "resnet_to_numpy"]
+           "init_resnet_numpy", "init_transformer", "mlp_params_from_jax",
+           "params_from_jax", "params_to_numpy", "resnet_params_from_jax",
+           "resnet_to_numpy"]
 
 
 def _block_shapes(cfg: TransformerConfig) -> dict:
@@ -158,6 +162,46 @@ def init_numpy_params(cfg: TransformerConfig, seed: int = 0) -> dict:
               "blocks": blocks}
     if cfg.pos_embedding == "learned":
         params["pos"] = normal((cfg.max_seq, cfg.d_model), 0.02)
+    return params
+
+
+def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
+                     pipe_size: int = 1, device=None) -> dict:
+    """The JAX ``init_transformer`` for the port: the same tree of fp32
+    leaves at the same scales (dense weights ``N(0,1)·fan_in^-0.5``,
+    ``embed`` and ``pos`` ``N(0,1)·0.02``, norm scales one), drawn on the
+    CPU from ``generator`` (so a seed gives the same numbers on every
+    device; they are torch's, not ``jax.random``'s) and returned on
+    ``device`` (CUDA unless ``"cpu"`` is named) in the port's layout:
+    blocks stacked ``(L, ...)``.  :func:`params_to_numpy` gives the JAX
+    layout.  Blocks grouped for a pipe axis (``pipe_size > 1``) come with
+    the parallel slice."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError(f"init_transformer takes a torch.Generator, got "
+                        f"{type(generator).__name__}")
+    if pipe_size != 1:
+        raise NotImplementedError(
+            f"pipe_size={pipe_size} is not ported to chainermn_tpu_torch "
+            "yet; blocks grouped for a pipe axis come with the parallel "
+            "slice (ROADMAP Queue A item 8)")
+    _check_config(cfg)
+    dev = resolve_device(device)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator,
+                            dtype=torch.float32) * std).to(dev)
+
+    L = cfg.n_layers
+    blocks = {name: torch.ones((L, *shape), device=dev) if fan_in is None
+              else normal((L, *shape), fan_in ** -0.5)
+              for name, (shape, fan_in) in _block_shapes(cfg).items()}
+    # the leaf order of params_from_jax, which an optimizer's saved
+    # state follows
+    params = {"embed": normal(_top_shapes(cfg)["embed"], 0.02),
+              "ln_f": torch.ones((cfg.d_model,), device=dev)}
+    if cfg.pos_embedding == "learned":
+        params["pos"] = normal((cfg.max_seq, cfg.d_model), 0.02)
+    params["blocks"] = blocks
     return params
 
 

@@ -19,12 +19,21 @@ and the dq and dk/dv kernels in the backward) wherever
 :func:`flash_attention_supported` passes (K/V broadcast to query width
 first) and ``local_attention`` otherwise; ``attention="local"`` is the
 plain path.  Training is :func:`lm_loss` (optionally with the chunked
-head of ``loss_chunk``), ``remat=True`` (each block under
-``torch.utils.checkpoint``, the JAX ``"full"`` policy) and
-:func:`make_train_step`.  MoE, FSDP, vocab parallelism, ring/Ulysses
-attention and pipeline micro-batching come with the parallel slice and
-raise here; so do ``remat_policy="dots"`` and the 1F1B/interleaved
-schedules in training.
+head of ``loss_chunk``), remat (each block under
+``torch.utils.checkpoint``: ``remat_policy="full"`` keeps only the
+block's input, ``"dots"`` also the JAX policy's saves, see
+:func:`_dots_context`) and :func:`make_train_step`.
+
+The mesh has one axis here, ``data``: ChainerMN's data parallelism.
+Given a communicator (``comm=``), :func:`make_value_and_grad_fn`,
+:func:`make_train_step` and :func:`make_forward_fn` work per rank, one
+process a device: rank ``r`` takes rows ``r·B/N … (r+1)·B/N`` of the
+global batch (the JAX ``_BATCH_SPEC``), and the gradients are meaned in
+fp32 by ``comm.multi_node_mean_grad`` (the psum that AD of the JAX
+step's ``pmean``'d loss inserts).  Model, sequence, pipe and expert
+axes, MoE, FSDP, vocab parallelism, ring/Ulysses attention, pipeline
+micro-batching and the 1F1B/interleaved schedules come with the
+parallel slice and raise here.
 """
 
 from __future__ import annotations
@@ -33,7 +42,11 @@ from dataclasses import dataclass
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.ops.flash_attention import (
@@ -61,7 +74,8 @@ __all__ = [
 ]
 
 _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
-_TRAINING_REST = "the rest of the flagship transformer (ROADMAP Queue A item 7)"
+# the JAX MeshConfig's axes; the port has the data axis only
+_MESH_AXES = ("pipe", "data", "expert", "seq", "model")
 
 
 @dataclass(frozen=True)
@@ -197,12 +211,9 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
             raise ValueError(
                 "pipeline_schedule must be gpipe|1f1b|interleaved, got "
                 f"{cfg.pipeline_schedule!r}")
-        unported += [
-            ('remat_policy="dots"', cfg.remat and cfg.remat_policy == "dots",
-             _TRAINING_REST),
+        unported.append(
             (f"pipeline_schedule={cfg.pipeline_schedule!r}",
-             cfg.pipeline_schedule != "gpipe", _TRAINING_REST),
-        ]
+             cfg.pipeline_schedule != "gpipe", _PARALLEL_SLICE))
     for name, hit, where in unported:
         if hit:
             raise NotImplementedError(
@@ -210,6 +221,52 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
                 f"comes with {where}")
     if not decoding and cfg.attention not in ("local", "flash"):
         raise ValueError(cfg.attention)
+
+
+def _check_mesh(mesh, cfg: TransformerConfig):
+    """The JAX ``_check_mesh``'s config/mesh divisibility checks, with
+    its messages, on ``mesh``, a mapping of axis sizes (``{"data": 4}``;
+    missing axes are 1).  The port has the data axis only: any other axis
+    larger than 1 then raises ``NotImplementedError``."""
+    unknown = set(mesh) - set(_MESH_AXES)
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)} not in {_MESH_AXES}")
+    mp = mesh.get("model", 1)
+    sp = mesh.get("seq", 1)
+    if cfg.n_heads % mp:
+        raise ValueError(
+            f"n_heads={cfg.n_heads} must be divisible by the model mesh "
+            f"axis ({mp})")
+    if cfg.kv_heads % mp:
+        raise ValueError(
+            f"n_kv_heads={cfg.kv_heads} must be divisible by the model "
+            f"mesh axis ({mp}); raise n_kv_heads or shrink the model "
+            "axis (shared kv heads shard over the same axis as query "
+            "heads)")
+    if cfg.attention == "ulysses" and sp > 1 \
+            and (cfg.n_heads // mp) % sp:
+        raise ValueError(
+            f"attention='ulysses' splits query heads over the seq axis: "
+            f"n_heads/model ({cfg.n_heads}/{mp}) must be divisible by "
+            f"the seq mesh axis ({sp}).  Shared kv heads need NOT "
+            "divide — they replicate up to lcm for the exchange — and "
+            "ring attention keeps them at true width if the surplus "
+            "factor matters")
+    if cfg.vocab_parallel and cfg.vocab_size % mp:
+        raise ValueError(
+            f"vocab_parallel shards the vocab dim over the model axis: "
+            f"vocab_size={cfg.vocab_size} must be divisible by {mp}")
+    dp = mesh.get("data", 1)
+    if cfg.fsdp and cfg.d_model % dp:
+        raise ValueError(
+            f"fsdp shards every matrix's d_model dim over the data "
+            f"axis: d_model={cfg.d_model} must be divisible by the "
+            f"data mesh axis ({dp})")
+    wide = {a: n for a, n in mesh.items() if a != "data" and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide} are not ported to chainermn_tpu_torch yet; "
+            f"they come with {_PARALLEL_SLICE}")
 
 
 def _rms_norm(x, scale):
@@ -320,6 +377,36 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+@torch.library.custom_op("chainermn_tpu_torch::attn_out", mutates_args=())
+def _attn_out(o: torch.Tensor) -> torch.Tensor:
+    """The JAX ``checkpoint_name(o, "attn_out")`` for the plain attention
+    path: a copy of ``o`` as an operator of its own, which the "dots"
+    policy saves.  (The flash path needs no mark: its forward is the
+    ``flash_fwd`` operator, whose outputs the policy saves.)"""
+    return o.clone()
+
+
+_attn_out.register_autograd(lambda ctx, g: g)
+
+# what the JAX "dots" policy saves of a block: every product of an
+# activation with a weight (dots_with_no_batch_dims_saveable: in a block
+# these are the 2-D ``mm``s of the dense layers, while the attention
+# core's products carry batch dims) and the attention core's output
+# (save_only_these_names("attn_out")).  Norms, casts, RoPE, the K/V
+# broadcast and the elementwise ops are recomputed.
+_DOTS_SAVED = [torch.ops.aten.mm.default,
+               torch.ops.chainermn_tpu_torch.flash_fwd.default,
+               torch.ops.chainermn_tpu_torch.attn_out.default]
+
+
+def _dots_context():
+    """``torch.utils.checkpoint``'s contexts for ``remat_policy="dots"``:
+    the forward caches the outputs of :data:`_DOTS_SAVED`, and the
+    recompute in the backward reuses them (no product and no flash
+    forward runs again)."""
+    return create_selective_checkpoint_contexts(_DOTS_SAVED)
+
+
 def _attention(cfg: TransformerConfig, h, blk):
     """Pre-LN attention: QKV projection, the attention core, output
     projection and residual."""
@@ -357,6 +444,9 @@ def _attention(cfg: TransformerConfig, h, blk):
         # "local", or a shape the kernel does not take (grouped K/V read
         # in place, no broadcast)
         o = local_attention(q, k, v, causal=True, window=win)
+        if cfg.remat and cfg.remat_policy == "dots" \
+                and torch.is_grad_enabled():
+            o = _attn_out(o)
     o = row_parallel_dense(
         o.reshape(B, T, -1), blk["wo"].reshape(-1, D).to(cd))
     return h + o
@@ -382,8 +472,11 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens):
     """Embedding → block stack → final norm: the normed
     ``(B, T, d_model)`` hidden states in the compute dtype.  With
     ``cfg.remat`` and gradients enabled each block runs under
-    ``torch.utils.checkpoint``: only its input is kept, and its forward
-    (the flash kernel included) runs again in the backward."""
+    ``torch.utils.checkpoint``.  ``remat_policy="full"`` keeps only its
+    input, and its forward (the flash kernel included) runs again in the
+    backward; ``"dots"`` also keeps the dense products and the attention
+    core's output, so the backward recomputes only the norms and the
+    elementwise ops."""
     cd = cfg.compute_dtype
     B, T = tokens.shape
     if T > cfg.max_seq:
@@ -395,12 +488,14 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens):
     else:
         h = (h + params["pos"][:T]).to(cd)
     remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = _dots_context if cfg.remat_policy == "dots" \
+        else noop_context_fn
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         if remat:
             # the blocks draw no random numbers: no RNG state to replay
             h = checkpoint(_block, cfg, h, blk, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, context_fn=context_fn)
         else:
             h = _block(cfg, h, blk)
     return _rms_norm(h, params["ln_f"])
@@ -433,36 +528,76 @@ def lm_loss(cfg: TransformerConfig, params, inputs, targets):
     return _shard_nll_sum(cfg, h, params["embed"], targets) / targets.numel()
 
 
-def make_forward_fn(cfg: TransformerConfig, device=None):
+def _resolve(device, comm):
+    """The device of an entry point: ``comm.device`` when a communicator
+    is given (``device``, if named too, must agree), else
+    :func:`resolve_device`'s rule."""
+    if comm is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device).type \
+            != comm.device.type:
+        raise ValueError(f"device {device} but the communicator runs on "
+                         f"{comm.device}")
+    return comm.device
+
+
+def _rows(comm, x, dev):
+    """This rank's rows of the global batch ``x`` on ``dev``: rows
+    ``r·B/N … (r+1)·B/N`` (all of them without a communicator)."""
+    x = torch.as_tensor(x)
+    if comm is None:
+        return x.to(dev)
+    B, n = x.shape[0], comm.size
+    if B % n:
+        raise ValueError(f"global batch {B} does not divide over the data "
+                         f"axis ({n} ranks)")
+    b = B // n
+    return x[comm.rank * b:(comm.rank + 1) * b].to(dev)
+
+
+def make_forward_fn(cfg: TransformerConfig, device=None, comm=None):
     """``fn(params, tokens) -> logits``: the scoring entry point.
 
     Runs on ``device`` (CUDA unless ``device="cpu"`` is given) under
     ``torch.inference_mode()``.  ``params`` come from
     :func:`.convert.params_from_jax` on the same device; ``tokens`` is
-    ``(B, T)`` integers (array or tensor)."""
-    dev = resolve_device(device)
+    ``(B, T)`` integers (array or tensor).  With ``comm`` (the data
+    axis) ``tokens`` is the global batch and each rank returns the
+    logits of its own rows, its shard of the JAX function's output."""
+    dev = _resolve(device, comm)
+    if comm is not None:
+        _check_mesh({"data": comm.size}, cfg)
     _check_ported(cfg, decoding=False)
 
     def forward(params, tokens):
-        tokens = torch.as_tensor(tokens, device=dev)
+        tokens = _rows(comm, tokens, dev)
         with torch.inference_mode():
             return transformer_forward(cfg, params, tokens)
 
     return forward
 
 
-def make_value_and_grad_fn(cfg: TransformerConfig, device=None):
+def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None):
     """``fn(params, inputs, targets) -> (loss, grads)``: :func:`lm_loss`
     and its gradient with respect to every parameter leaf, ``grads`` in
     the structure of ``params`` — the gradient half of the JAX
     ``make_train_step``.  ``params`` are read, not modified.  Runs on
-    ``device`` (CUDA unless ``device="cpu"`` is given)."""
-    dev = resolve_device(device)
+    ``device`` (CUDA unless ``device="cpu"`` is given).
+
+    With ``comm`` (the data axis; ``device`` is then the communicator's)
+    ``inputs``/``targets`` are the global batch: each rank takes its
+    rows, and ``loss`` and ``grads`` are the means over the ranks, the
+    gradients meaned in fp32 by ``comm.multi_node_mean_grad``.  On one
+    rank that mean is a copy, so the result is bitwise the step without
+    ``comm``."""
+    dev = _resolve(device, comm)
+    if comm is not None:
+        _check_mesh({"data": comm.size}, cfg)
     _check_ported(cfg, training=True)
 
     def value_and_grad(params, inputs, targets):
-        inputs = torch.as_tensor(inputs, device=dev)
-        targets = torch.as_tensor(targets, device=dev)
+        inputs = _rows(comm, inputs, dev)
+        targets = _rows(comm, targets, dev)
         top = [k for k in params if k != "blocks"]
         live = {k: params[k].detach().requires_grad_() for k in top}
         # each layer's slice of a stacked (L, ...) block leaf is a leaf of
@@ -480,20 +615,31 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None):
         rest = iter(grads[len(top):])
         out["blocks"] = {k: torch.stack([next(rest) for _ in xs])
                          for k, xs in layers.items()}
-        return loss.detach(), {k: out[k] for k in params}
+        grads = {k: out[k] for k in params}
+        loss = loss.detach()
+        if comm is not None:
+            # fp32 on the wire, as the JAX step's psum: no bf16 wire here
+            grads = comm.multi_node_mean_grad(grads, torch.float32)
+            loss = comm.allreduce(loss, "mean")
+        return loss, grads
 
     return value_and_grad
 
 
-def make_train_step(cfg: TransformerConfig, optimizer, device=None):
+def make_train_step(cfg: TransformerConfig, optimizer, device=None,
+                    comm=None):
     """``step(params, opt_state, inputs, targets) -> (params, opt_state,
-    loss)``: the JAX ``make_train_step`` at a trivial mesh (the GPipe
-    branch at pipe size 1).  ``optimizer`` is one of
+    loss)``: the JAX ``make_train_step`` at a mesh with a data axis only
+    (the GPipe branch at pipe size 1).  ``optimizer`` is one of
     :mod:`chainermn_tpu_torch.training`'s (``adamw``, ``sgd``) and
     ``opt_state`` its ``init(params)``.  ``loss`` is the loss before the
     update.  Where JAX returns new arrays, the port updates ``params``
-    and ``opt_state`` in place and returns them."""
-    value_and_grad = make_value_and_grad_fn(cfg, device)
+    and ``opt_state`` in place and returns them.  With ``comm`` each
+    rank steps on its rows of the global batch and applies the same rule
+    to the same fp32 mean of the gradients (see
+    :func:`make_value_and_grad_fn`), so the ranks' parameters stay
+    equal; ``loss`` is the mean over the ranks."""
+    value_and_grad = make_value_and_grad_fn(cfg, device, comm)
 
     def step(params, opt_state, inputs, targets):
         loss, grads = value_and_grad(params, inputs, targets)

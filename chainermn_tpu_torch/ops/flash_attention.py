@@ -21,6 +21,10 @@ function.
 - The backward saves ``q, k, v, o, lse`` and computes the row term
   ``delta = rowsum(do·o in fp32) − dlse`` with torch ops, as the JAX
   package computes it outside its kernels; ``lse`` is differentiable.
+- The forward is the operator :func:`flash_fwd`
+  (``torch.ops.chainermn_tpu_torch.flash_fwd``), so a dispatch mode
+  sees it as one op: the transformer's ``remat_policy="dots"`` saves
+  its outputs instead of launching it again in the recompute.
 - ``flash_attention.launches``, ``.dq_launches`` and ``.dkv_launches``
   count kernel launches.
 """
@@ -35,7 +39,8 @@ from torch.autograd.function import once_differentiable
 from chainermn_tpu_torch._build import load_library
 
 __all__ = ["flash_attention", "flash_attention_bwd_reference",
-           "flash_attention_reference", "flash_attention_supported"]
+           "flash_attention_reference", "flash_attention_supported",
+           "flash_fwd"]
 
 _NEG = -1e30
 FWD_BLOCK_K = 128               # the forward kernel's K tile
@@ -231,7 +236,7 @@ def _launch(q, k, v, causal, window, q_offset, k_offset):
     if err:
         raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
     flash_attention.launches += 1
-    return o, lse.transpose(1, 2)
+    return o, lse
 
 
 def _bwd_operands(q, o, lse, do, dlse):
@@ -284,6 +289,25 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, window, q_offset,
     return dk, dv
 
 
+@torch.library.custom_op("chainermn_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, q_offset: int,
+              k_offset: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator, ``(o, lse)`` with ``lse`` ``(B, H,
+    Tq)``: the kernel on CUDA tensors, its plain version on CPU ones
+    (``window`` 0 means none).  Being an operator of its own, it is one
+    op to a dispatch mode, so a selective-checkpoint policy can save its
+    outputs and the recompute then reuses them instead of launching the
+    kernel again (the transformer's ``remat_policy="dots"``)."""
+    win = window or None
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, win, q_offset, k_offset)
+    o, lse = flash_attention_reference(
+        q, k, v, causal=causal, window=win, q_offset=q_offset,
+        k_offset=k_offset)
+    return o, lse.transpose(1, 2).contiguous()
+
+
 class _Flash(torch.autograd.Function):
     """``(o, lse)`` with the JAX package's VJP: the forward kernel, then
     the dq and dk/dv kernels off the saved ``lse`` (CUDA), or the plain
@@ -291,12 +315,9 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, k_offset):
-        if q.device.type == "cuda":
-            o, lse = _launch(q, k, v, causal, window, q_offset, k_offset)
-        else:
-            o, lse = flash_attention_reference(
-                q, k, v, causal=causal, window=window, q_offset=q_offset,
-                k_offset=k_offset)
+        o, lse = flash_fwd(q, k, v, causal, window or 0, q_offset,
+                           k_offset)
+        lse = lse.transpose(1, 2)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, q_offset, k_offset)
         return o, lse

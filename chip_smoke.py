@@ -70,16 +70,35 @@ Phases (any failure exits non-zero before the last line is printed):
     applied to the previous update's stash (zeros first), (d) the
     backward-overlapped exchange against the window-end one, its hooks
     firing once a bucket in order, (e) the exchange's other forms
-    against the flat one.
+    against the flat one;
+13. the flagship trained data-parallel through
+    ``examples/transformer/train_lm_torch.py``'s ``build`` and ``train``
+    on the one-rank NCCL world (8 x 2048 tokens, ``adamw(3e-4)``, bf16,
+    remat): (a) its first step bitwise ``make_train_step`` without a
+    communicator, (b) ten steps whose loss falls, (c) remat "dots"
+    against "full" (gradients bitwise, forward launches 48 → 24 a step),
+    (d) ms a step, tokens/s and peak memory of "full", "dots" and no
+    remat, (e) ``--text-file SURVEY.md --tokenizer-vocab 512`` at a
+    small width, saved, then ``generate_torch.py`` from the checkpoint,
+    its decode logits against the full forward;
+14. ROADMAP Queue C's drift on one card: the large-batch example
+    (``--tiny --steps-per-execution 2 --epoch 3``, TF32 off) on one NCCL
+    rank against one gloo rank on this machine's CPU: each epoch's loss
+    differences printed, the parameters after the first window held to
+    1e-5 relative L2.
 
-Phases 3 and 6 are the main paths of the kernels: each starts with
+Phases 3, 6 and 13 are the main paths of the kernels: each starts with
 every launch count at 0 and reads the counts when it ends; phases 7
 to 12 run no hand-written kernel, and hold their counts at 0.  It
 prints the card's name and power limit, a ``{"dp_resnet50": {...}}``
 line of phase 7's metrics, a ``{"large_batch": {...}}`` line of phase
-12's, a ``{"kernels": [...]}`` line, and last
+12's, ``{"lm_data_parallel": {...}}`` of phase 13's, ``{"drift_one_rank":
+{...}}`` of phase 14's, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Weights are random, from numpy seed 0.  fp32
 references run with TF32 off.
+
+``python3 chip_smoke.py --four-cards`` (four cards) runs the checks that
+exist only across cards (:func:`four_cards`).
 """
 
 import dataclasses
@@ -1823,6 +1842,424 @@ def phase_large_batch(torch, np, root, smi, arrays):
     return metrics
 
 
+# the flagship through train_lm_torch.py's flags: 8 x 2048 tokens a rank,
+# bf16 compute, flash attention, remat, adamw(3e-4)
+FLAGSHIP_ARGV = ["--vocab", "32000", "--d-model", "1024", "--n-heads", "16",
+                 "--n-kv-heads", "4", "--n-layers", "24", "--seq", "2048",
+                 "--attention", "flash", "--dtype", "bfloat16", "--remat",
+                 "--lr", "3e-4"]
+
+
+def trees_equal(torch, a, b):
+    from chainermn_tpu_torch.training.optimizers import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def time_steps(torch, step, params, state, x, y, n=5):
+    """A warm-up step, then ``n`` timed ones (host clock around a
+    synchronised step, as phase 6): their ms, the peak memory of the
+    timed steps in GiB, the memory resident between steps (parameters,
+    optimizer state, whatever else is alive) and the losses."""
+    _, state, loss = step(params, state, x, y)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], [loss.item()]
+    for _ in range(n):
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    return times, torch.cuda.max_memory_allocated() / 2**30, resident, \
+        losses
+
+
+def phase_lm_data_parallel(torch, np, root, smi):
+    """13. The flagship trained data-parallel through
+    ``examples/transformer/train_lm_torch.py``'s ``build`` and ``train``
+    on the one-rank NCCL world: (a) the example's first step bitwise
+    ``make_train_step`` without a communicator on the same batch, (b) ten
+    steps whose loss falls, (c) remat "dots" against "full" (gradients
+    bitwise, forward launches halved), (d) ms a step, tokens/s and peak
+    memory of "full", "dots" and no remat, (e) ``--text-file`` with a BPE
+    vocabulary at a small width, saved and read back by
+    ``generate_torch.py``, its decode logits against the full forward.
+    Returns the launch counts of the ten steps and the printed metrics."""
+    import shutil
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        make_forward_fn, make_train_step, make_value_and_grad_fn)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    ex = load_example(root, "examples/transformer/train_lm_torch.py",
+                      "train_lm_torch")
+    B, steps = 8, 10
+    args = ex.parse_args(FLAGSHIP_ARGV + ["--batchsize", str(B),
+                                          "--steps", str(steps)])
+    run = ex.build(args, quiet=True)
+    cfg, dev, T = run.cfg, run.comm.device, run.cfg.max_seq
+    require(run.comm.size == 1 and dev.type == "cuda",
+            f"phase 13 wants one NCCL rank, got {run.comm}")
+    x0, y0 = next(ex.make_batches(cfg.vocab_size, B, T, 1, seed=0))
+
+    # (a) the plain step from the same weights on the same first batch
+    plain_params = clone_tree(torch, run.params)
+    opt = training.adamw(3e-4)
+    plain_state = opt.init(plain_params)
+    _, _, plain_loss = make_train_step(cfg, opt, device=dev)(
+        plain_params, plain_state, x0, y0)
+    del plain_state
+    first = {}
+    dp_step = run.step
+
+    def step_and_keep(params, state, x, y):
+        out = dp_step(params, state, x, y)
+        if not first:
+            first.update(loss=out[2].clone(), params=clone_tree(torch, out[0]))
+        return out
+
+    run.step = step_and_keep
+    torch.cuda.synchronize()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    t0 = time.perf_counter()
+    losses = ex.train(run)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(flash_fwd=fa.launches, flash_bwd_dq=fa.dq_launches,
+                  flash_bwd_dkv=fa.dkv_launches)          # the path ended
+    L = cfg.n_layers
+    require(counts == dict(flash_fwd=2 * L * steps, flash_bwd_dq=L * steps,
+                           flash_bwd_dkv=L * steps),
+            f"phase 13 launches {counts}, want {(2 * L, L, L)} a step")
+    bitwise = bool(torch.equal(first["loss"], plain_loss)) \
+        and trees_equal(torch, first["params"], plain_params)
+    print(f"lm data-parallel (a): the example's first step against "
+          f"make_train_step without comm: loss {first['loss'].item():.6f} "
+          f"vs {plain_loss.item():.6f}, bitwise {bitwise}")
+    require(bitwise, "the one-rank data-parallel step is not the plain one")
+    del first, plain_params
+    # (b)
+    print(f"lm data-parallel (b): {steps} steps through train_lm_torch "
+          f"({train_s:.1f} s): losses {[round(v, 5) for v in losses]}")
+    require(len(losses) == steps and all(np.isfinite(losses))
+            and losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    # (c) remat "dots" against "full" on the same weights and batch
+    grads, per_policy = {}, {}
+    for policy in ("full", "dots"):
+        fn = make_value_and_grad_fn(dataclasses.replace(
+            cfg, remat_policy=policy), device=dev)
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        grads[policy] = fn(run.params, x0, y0)
+        torch.cuda.synchronize()
+        per_policy[policy] = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    same = bool(torch.equal(grads["dots"][0], grads["full"][0])) \
+        and trees_equal(torch, grads["dots"][1], grads["full"][1])
+    worst = tree_rel_err(grads["dots"][1], grads["full"][1])
+    print(f"lm data-parallel (c): remat dots against full: loss and "
+          f"gradients bitwise {same} (rel L2 {worst:.3e}); launches a step "
+          f"(flash_fwd, dq, dk/dv) full {per_policy['full']}, dots "
+          f"{per_policy['dots']}")
+    require(same, f"dots gradients differ from full: rel L2 {worst}")
+    require(per_policy["full"] == (2 * L, L, L)
+            and per_policy["dots"] == (L, L, L),
+            f"launches a step {per_policy}")
+    del grads
+
+    # (d) each remat mode's step, time and memory, with one optimizer
+    # state alive (the mode's own)
+    modes = {}
+    run.opt_state = None
+    for name, kw in (("full", dict(remat=True, remat_policy="full")),
+                     ("dots", dict(remat=True, remat_policy="dots")),
+                     ("none", dict(remat=False))):
+        mcfg = dataclasses.replace(cfg, **kw)
+        opt = training.adamw(3e-4)
+        state = opt.init(run.params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        times, peak, resident, mlosses = time_steps(
+            torch, make_train_step(mcfg, opt, comm=run.comm), run.params,
+            state, x0, y0)
+        del state
+        ms = statistics.median(times)
+        modes[name] = dict(ms=ms, times_ms=times, tokens_per_s=B * T / ms
+                           * 1e3, peak_gib=peak, resident_gib=resident)
+        require(all(np.isfinite(mlosses)), f"{name}: losses {mlosses}")
+        print(f"lm data-parallel (d): remat {name}: step {ms:.2f} ms "
+              f"(median of 5; {[round(t, 2) for t in times]}) = "
+              f"{B * T / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB "
+              f"({resident:.2f} GiB resident between steps)")
+    del run
+
+    # (e) a text file with a BPE vocabulary, saved, then generation
+    ck = root / "build" / "chip_smoke" / "lm_text"
+    shutil.rmtree(ck, ignore_errors=True)
+    small = ["--d-model", "256", "--n-heads", "4", "--n-layers", "4",
+             "--dtype", "bfloat16"]
+    text = ex.main(["--text-file", str(root / "SURVEY.md"),
+                    "--tokenizer-vocab", "512", "--seq", "256",
+                    "--batchsize", "8", "--steps", "30", "--lr", "3e-3",
+                    "--attention", "flash", "--checkpoint", str(ck)] + small)
+    require(text.perplexity is not None
+            and all(np.isfinite(text.perplexity))
+            and text.losses[-1] < text.losses[0],
+            f"text run: losses {text.losses}, perplexity {text.perplexity}")
+    gen_ex = load_example(root, "examples/transformer/generate_torch.py",
+                          "generate_torch")
+    res = gen_ex.main(["--checkpoint", str(ck), "--tokenizer",
+                       str(ck / "bpe.json"), "--vocab",
+                       str(text.cfg.vocab_size), "--prompt-text",
+                       "ChainerMN", "--max-len", "128", "--batchsize", "4"]
+                      + small, keep_logits=True)
+    full = make_forward_fn(res.cfg, device=dev)(res.params,
+                                                res.tokens[:, :-1].long())
+    fwd = full[:, res.prompt.shape[1] - 1:]
+    gerr = rel_err(res.logits, fwd)
+    gagree = (res.logits.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    print(f"lm data-parallel (e): text run {len(text.losses)} steps, "
+          f"losses {text.losses[0]:.4f} -> {text.losses[-1]:.4f}, held-out "
+          f"token/byte perplexity {text.perplexity[0]:.2f}/"
+          f"{text.perplexity[1]:.2f}; generate_torch from its checkpoint: "
+          f"decode vs full-forward logits rel L2 {gerr:.3e}, argmax "
+          f"agreement {gagree:.4f}")
+    require(gerr < 5e-2, f"decode logits off the full forward: {gerr}")
+    metrics = dict(step_ms=modes, train_10_steps_s=train_s,
+                   first_step_bitwise=bitwise, dots_bitwise_full=same,
+                   launches_per_step=per_policy, losses=losses,
+                   text_perplexity=text.perplexity,
+                   seconds=time.perf_counter() - t_phase, card=smi)
+    print(json.dumps({"lm_data_parallel": metrics}))
+    return counts, metrics
+
+
+def param_leaves(np, up):
+    """The updater's parameters as numpy arrays, in tree order."""
+    import torch.utils._pytree as pytree
+
+    return [t.detach().float().cpu().numpy()
+            for t in pytree.tree_leaves(up.params)]
+
+
+def drift_child(device, out, spe, wire="bfloat16"):
+    """One rank (under torchrun, or a one-rank world of its own) of the
+    large-batch example ``--tiny`` on ``device`` for 3 epochs, TF32 off,
+    its gradient wire ``wire`` (the example's bf16, or float32), built as
+    the script builds it.  Rank 0 writes ``out/first.npz`` (the
+    parameters after the first two updates, one window of two: double
+    buffering's zeros, then the first mean gradient) and
+    ``out/drift.json`` (the log, and whether the ranks' parameters were
+    bitwise equal after each epoch)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    ex = load_example(root,
+                      "examples/imagenet/train_imagenet_large_batch_torch.py",
+                      "train_imagenet_large_batch_torch")
+    out = Path(out)
+    argv = ["--tiny", "--steps-per-execution", str(spe), "--epoch", "3",
+            "--grad-dtype", "" if wire == "float32" else wire,
+            "--out", str(out)]
+    run = ex.build(ex.parse_args(argv + (["--platform", "cpu"]
+                                         if device == "cpu" else [])),
+                   quiet=True)
+    comm, record = run.comm, {"ranks_equal": []}
+
+    def first_window(trainer):
+        # after two updates, a window of two or two eager ones
+        if "first" not in record and run.updater.iteration >= 2:
+            record["first"] = run.updater.iteration
+            if comm.rank == 0:
+                np.savez(out / "first.npz", *param_leaves(np, run.updater))
+
+    def ranks_agree(trainer):
+        digest = hashlib.sha256(b"".join(
+            a.tobytes() for a in param_leaves(np, run.updater))).hexdigest()
+        record["ranks_equal"].append(len(set(comm.allgather_obj(digest)))
+                                     == 1)
+
+    run.trainer.extend(first_window, trigger=(1, "iteration"),
+                       name="first_window")
+    run.trainer.extend(ranks_agree, trigger=(1, "epoch"), name="ranks_agree")
+    run.trainer.run()
+    if comm.rank == 0:
+        record["log"] = run.log.log
+        record["world"] = comm.size
+        (out / "drift.json").write_text(json.dumps(record))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def drift_compare(np, out, a, b):
+    """``a``'s run against ``b``'s: the relative difference of each
+    epoch's ``main/loss`` and ``validation/loss``, and the relative L2 of
+    the parameters after the first window."""
+    keys = ("main/loss", "validation/loss")
+    ra = json.loads((out / a / "drift.json").read_text())
+    rb = json.loads((out / b / "drift.json").read_text())
+    diffs = [{k: abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in keys}
+             for x, y in zip(ra["log"], rb["log"])]
+    fa, fb = np.load(out / a / "first.npz"), np.load(out / b / "first.npz")
+    num = sum(float(((fa[k] - fb[k]).astype(np.float64) ** 2).sum())
+              for k in fa.files)
+    den = sum(float((fb[k].astype(np.float64) ** 2).sum()) for k in fb.files)
+    return dict(epoch_rel_diffs=diffs, first_window_rel_l2=(num / den) ** 0.5,
+                epochs=(len(ra["log"]), len(rb["log"])),
+                ranks_equal=(ra["ranks_equal"], rb["ranks_equal"]))
+
+
+WITNESS_SEEDS = (0, 1, 2)
+# the most a mean of four shares is off the exact mean by rounding, in
+# ulps of its wire's type at the largest share (wire_witness_compare)
+WITNESS_BOUND = {"bfloat16": 1.75, "float32": 1.25}
+
+
+def witness_shares(np, shapes, rank, seed):
+    """Rank ``rank``'s share of the exchange witness's tree ``seed``: a
+    normal draw for each leaf of ``shapes``, each leaf at a scale of its
+    own between 1e-3 and 1 (the same on every rank), in fp32."""
+    scales = np.random.RandomState(seed).uniform(-3, 0, len(shapes))
+    rng = np.random.RandomState(1000 * seed + 1 + rank)
+    return [(rng.randn(*s) * 10.0 ** c).astype(np.float32)
+            for s, c in zip(shapes, scales)]
+
+
+def wire_witness_child(device, out):
+    """One rank (under torchrun) of the exchange witness: the large-batch
+    example's ``--tiny`` parameter tree (its leaf shapes, so its
+    buckets) filled with :func:`witness_shares`, which differ by rank,
+    and meaned by ``comm.multi_node_mean_grad`` as the example's
+    optimizer calls it, over a bf16 wire and over an fp32 one.  Rank 0
+    writes ``out/witness.npz`` (each mean) and ``out/witness.json`` (the
+    shapes, and whether the ranks' means were bitwise equal)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    root = Path(__file__).resolve().parent
+    ex = load_example(root,
+                      "examples/imagenet/train_imagenet_large_batch_torch.py",
+                      "train_imagenet_large_batch_torch")
+    run = ex.build(ex.parse_args(
+        ["--tiny", "--out", str(out)]
+        + (["--platform", "cpu"] if device == "cpu" else [])), quiet=True)
+    comm = run.comm
+    shapes = [list(t.shape) for t in pytree.tree_leaves(run.updater.params)]
+    means, ranks_equal = {}, []
+    for seed in WITNESS_SEEDS:
+        mine = witness_shares(np, shapes, comm.rank, seed)
+        for wire in ("bfloat16", "float32"):
+            mean = comm.multi_node_mean_grad(
+                [torch.as_tensor(a, device=comm.device) for a in mine],
+                getattr(torch, wire))
+            got = [t.cpu().numpy() for t in mean]
+            digest = hashlib.sha256(
+                b"".join(a.tobytes() for a in got)).hexdigest()
+            ranks_equal.append(len(set(comm.allgather_obj(digest))) == 1)
+            means.update({f"{seed}_{wire}_{i}": a for i, a in enumerate(got)})
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        np.savez(Path(out) / "witness.npz", **means)
+        (Path(out) / "witness.json").write_text(json.dumps(dict(
+            shapes=shapes, ranks_equal=ranks_equal, world=comm.size)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def wire_witness_compare(np, out, names=("nccl", "gloo")):
+    """The witness's means against the exact mean of the shares (in
+    float64), each element in units of one ulp of the wire's type at the
+    element's largest share G = max_r |g_r| (2^(e-7) for bf16, 2^(e-23)
+    for fp32, where 2^e <= G < 2^(e+1)).  A sum of four shares in any
+    order is off the exact sum by at most 7 such ulps: the four casts to
+    the wire (a half ulp each) and three additions whose partial sums
+    stay at most 2^(e+2), 2^(e+3) and 2^(e+3), where a rounding is off by
+    at most 1, 2 and 2 ulps; the mean, a divide by four, by at most 1.75
+    (:data:`WITNESS_BOUND`; 1.25 on the fp32 wire, which casts nothing).
+    The ulp is taken at G, not at the mean, because shares of opposite
+    signs cancel.  A fault (a share missing,
+    a bucket misplaced, a wrong divisor) is off by a share's size, about
+    G/4: 32 bf16 ulps.  Returns, for each wire, each name's largest
+    error in those ulps, and the two names' largest difference, their
+    share of differing elements and their relative L2."""
+    z = {n: np.load(out / n / "witness.npz") for n in names}
+    meta = {n: json.loads((out / n / "witness.json").read_text())
+            for n in names}
+    shapes, world = meta[names[0]]["shapes"], meta[names[0]]["world"]
+    got = {}
+    for wire, bits in (("bfloat16", 8), ("float32", 24)):
+        worst = dict.fromkeys(names, 0.0)
+        apart = differ = count = num = den = 0.0
+        for seed in WITNESS_SEEDS:
+            shares = [witness_shares(np, shapes, r, seed)
+                      for r in range(world)]
+            for i in range(len(shapes)):
+                stack = np.stack([sh[i] for sh in shares]).astype(np.float64)
+                exact = stack.mean(0)
+                big = np.maximum(np.abs(stack).max(0),
+                                 np.finfo(np.float32).tiny)
+                ulp = 2.0 ** (np.floor(np.log2(big)) - (bits - 1))
+                mean = {n: z[n][f"{seed}_{wire}_{i}"].astype(np.float64)
+                        for n in names}
+                for n in names:
+                    worst[n] = max(worst[n],
+                                   float((np.abs(mean[n] - exact)
+                                          / ulp).max()))
+                a, b = (mean[n] for n in names)
+                apart = max(apart, float((np.abs(a - b) / ulp).max()))
+                differ += float((a != b).sum())
+                count += a.size
+                num += float(((a - b) ** 2).sum())
+                den += float((b ** 2).sum())
+        got[wire] = dict(max_err_ulps=worst, max_apart_ulps=apart,
+                         differing_share=differ / count,
+                         rel_l2=(num / den) ** 0.5)
+    got["ranks_equal"] = {n: meta[n]["ranks_equal"] for n in names}
+    got["world"] = world
+    return got
+
+
+def phase_drift(np, root, smi):
+    """14. Queue C's drift on one card: the large-batch example
+    (``--tiny --steps-per-execution 2 --epoch 3``, TF32 off) on one NCCL
+    rank and on one gloo rank on this machine's CPU.  Prints
+    each epoch's relative loss differences and the relative L2 of the
+    parameters after the first window, which must be under 1e-5."""
+    import os
+
+    out = root / "build" / "chip_smoke" / "drift"
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    seconds = {}
+    # one after the other: the CPU run's threads would slow the card's
+    # host side
+    for name, device in (("nccl", "cuda"), ("gloo", "cpu")):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, __file__, "--drift-child", device,
+                        str(out / name), "2"], check=True, timeout=300,
+                       env=env)
+        seconds[name] = time.perf_counter() - t0
+    got = drift_compare(np, out, "nccl", "gloo")
+    print(json.dumps({"drift_one_rank": dict(got, seconds=seconds,
+                                             card=smi)}))
+    require(got["epochs"] == (3, 3), f"epochs logged {got['epochs']}")
+    require(got["first_window_rel_l2"] < 1e-5,
+            f"first window off the CPU's: {got['first_window_rel_l2']}")
+    return got
+
+
 def tree_rel_err(a, b):
     """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
     from chainermn_tpu_torch.training.optimizers import tree_leaves
@@ -1860,10 +2297,7 @@ def main():
     )
     from chainermn_tpu_torch.ops import flash_attention
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
+    smi = card_name()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
@@ -1992,7 +2426,13 @@ def main():
     # 12. the large-batch recipe, one NCCL rank --------------------------
     phase_large_batch(torch, np, root, smi, images)
     del images
+
+    # 13. the flagship data-parallel through train_lm_torch.py ----------
+    lm_counts, _ = phase_lm_data_parallel(torch, np, root, smi)
     torch.distributed.destroy_process_group()
+
+    # 14. Queue C: the large-batch example on one card against the CPU --
+    phase_drift(np, root, smi)
 
     src = "chainermn_tpu_torch/csrc/"
     tpu = "chainermn_tpu/ops/pallas_attention.py:"
@@ -2000,15 +2440,22 @@ def main():
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
              replaces=tpu + "65", launches=counts["flash_fwd"],
              launches_by_path=dict(scoring=launches,
-                                   training=counts["flash_fwd"]),
+                                   training=counts["flash_fwd"],
+                                   lm_data_parallel=lm_counts["flash_fwd"]),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
+             launches_by_path=dict(
+                 training=counts["flash_bwd_dq"],
+                 lm_data_parallel=lm_counts["flash_bwd_dq"]),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
-             launches=counts["flash_bwd_dkv"], matched=True,
-             **bwd_rows["dkv"]),
+             launches=counts["flash_bwd_dkv"],
+             launches_by_path=dict(
+                 training=counts["flash_bwd_dkv"],
+                 lm_data_parallel=lm_counts["flash_bwd_dkv"]),
+             matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2120,60 +2567,200 @@ def two_stage_rank():
     return 0
 
 
-def four_cards(root):
-    """``--four-cards``: the large-batch example (``--tiny
-    --steps-per-execution 2``, 3 epochs, so a captured window replays)
-    on 4 NCCL ranks and on 4 gloo ranks on this machine's CPU, their
-    logged losses held to each other at 1e-4 relative (the same fp32
-    steps, TF32 off; cuDNN and the CPU sum their products in other
-    orders), beside the same example eager on 4 NCCL ranks
-    (``--steps-per-execution 1``, reported); then the two-stage exchange
-    as 2 x 2 over ``split`` and a captured window across the 4 ranks
-    (:func:`two_stage_rank`).  Needs four cards; prints JSON lines."""
+def lm_rank(out):
+    """One rank (under torchrun) of the flagship through
+    ``train_lm_torch.py`` at 8 x 2048 tokens a rank for 5 steps: each
+    step timed (host clock around a synchronised step, the exchange
+    included, as phase 6), the
+    ranks' parameters compared bitwise after every step (all-reduced
+    max and min of their int32 views), and, on several ranks, the first
+    loss against rank 0's loss of the whole global batch on one card.
+    Rank 0 writes ``out/lm.json``."""
     import os
 
-    out = root / "build" / "four_cards"
-    example = root / "examples/imagenet/train_imagenet_large_batch_torch.py"
-    # fp32 on the card as on the CPU: no TF32 in cuDNN's convolutions
-    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
-    logs, seconds = {}, {}
-    # each run ends with destroy_process_group: a captured window left
-    # alive there would keep NCCL waiting, so a hang fails at 120 s (a
-    # run takes under a minute)
-    for name, spe, extra in (("nccl", "2", []),
-                             ("nccl_eager", "1", []),
-                             ("gloo", "2", ["--platform", "cpu"])):
+    import torch
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch.models import lm_loss
+
+    root = Path(__file__).resolve().parent
+    ex = load_example(root, "examples/transformer/train_lm_torch.py",
+                      "train_lm_torch")
+    n = int(os.environ["WORLD_SIZE"])
+    steps = 5
+    run = ex.build(ex.parse_args(FLAGSHIP_ARGV + [
+        "--batchsize", str(8 * n), "--steps", str(steps)]), quiet=True)
+    comm, cfg, dev = run.comm, run.cfg, run.comm.device
+    batches = [(torch.as_tensor(x), torch.as_tensor(y))
+               for x, y in run.batches]
+    ref = None
+    if n > 1 and comm.rank == 0:
+        # the same rows through one card, before any update
+        with torch.no_grad():
+            ref = lm_loss(cfg, run.params, batches[0][0].to(dev),
+                          batches[0][1].to(dev)).item()
+    comm.barrier()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times, losses, equal = [], [], []
+    for x, y in batches:
+        comm.barrier()
         t0 = time.perf_counter()
-        subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
-                        str(example), "--tiny", "--steps-per-execution", spe,
-                        "--epoch", "3", "--out", str(out / name)] + extra,
-                       check=True, timeout=120, env=env)
-        seconds[name] = time.perf_counter() - t0
-        logs[name] = json.loads((out / name / "log").read_text())
-    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
-                    __file__, "--two-stage-rank"], check=True, timeout=120)
-    keys = ("main/loss", "validation/loss")
-
-    def rel(x, y):
-        return [abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
-                for a, b in zip(logs[x], logs[y]) for k in keys]
-
-    diffs = rel("nccl", "gloo")
-    print(json.dumps({"four_cards": dict(
-        {name: [{k: e[k] for k in keys + ("iteration",)} for e in log]
-         for name, log in logs.items()},
-        max_rel_diff=max(diffs), rel_diffs=diffs,
-        graph_vs_eager_nccl=rel("nccl", "nccl_eager"),
-        eager_nccl_vs_gloo=rel("nccl_eager", "gloo"), seconds=seconds)}))
-    require(len(logs["nccl"]) == len(logs["gloo"]) == 3
-            and max(diffs) < 1e-4, f"losses differ: {diffs}")
+        run.params, run.opt_state, loss = run.step(run.params,
+                                                   run.opt_state, x, y)
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        same = True
+        for t in pytree.tree_leaves(run.params):
+            bits = t.detach().view(torch.int32)
+            same &= bool(torch.equal(comm.allreduce(bits, "max"),
+                                     comm.allreduce(bits, "min")))
+        equal.append(same)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "lm.json").write_text(json.dumps(dict(
+            world=n, rows_per_rank=8, tokens_per_rank=8 * cfg.max_seq,
+            times_ms=times, losses=losses, one_card_first_loss=ref,
+            ranks_equal=equal, peak_gib=peak,
+            steady_ms=statistics.median(times[1:]))))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
     return 0
+
+
+def four_cards(root, smi):
+    """``--four-cards``.  First the exchange's witness: seeded shares of
+    the large-batch example's gradient tree meaned over a bf16 and an
+    fp32 wire on 4 NCCL ranks and on 4 gloo ranks, every element within
+    the rounding bound of the exact mean (:func:`wire_witness_compare`)
+    and the ranks' means bitwise equal.  Then Queue C's check of the
+    large-batch example
+    (``--tiny``, 3 epochs, TF32 off) on 4 NCCL ranks, its window
+    captured (``--steps-per-execution 2``) and eager, and on 4 gloo ranks
+    on this machine's CPU, with the example's bf16 gradient wire and
+    with an fp32 one: the parameters after the first window within 1e-5
+    relative L2 of gloo's, and the 4 ranks' parameters bitwise equal
+    after every epoch.  With the bf16 wire each epoch's loss differences
+    are reported, not held: a bf16 sum of four shares rounds differently
+    in NCCL's order and in gloo's, and over the LARS updates of a BN
+    network that grows to 1e-4-scale; with the fp32 wire the losses are
+    held to 1e-4 relative at every epoch.  Then the two-stage exchange
+    as 2 x 2 over ``split`` and a captured window across the 4 ranks
+    (:func:`two_stage_rank`), and the flagship through
+    ``train_lm_torch.py`` on 4 ranks and on 1 (8 x 2048 tokens a rank, 5
+    steps, :func:`lm_rank`): ranks bitwise after every step, the first
+    loss against one card's, and the weak-scaling efficiency.  Needs four
+    cards; prints JSON lines."""
+    import os
+
+    import numpy as np
+
+    out = root / "build" / "four_cards"
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    me = str(Path(__file__).resolve())
+    run4 = ["torchrun", "--standalone", "--nproc_per_node", "4", me]
+    # each run ends with destroy_process_group: a captured window left
+    # alive there would keep NCCL waiting, so a hang fails at its limit
+    seconds = {}
+    # first the exchange alone: the same seeded shares meaned over a
+    # bf16 and an fp32 wire on 4 NCCL and on 4 gloo ranks, each element
+    # held to the rounding bound of a four-share mean (wire_witness_compare)
+    for name, device in (("nccl", "cuda"), ("gloo", "cpu")):
+        t0 = time.perf_counter()
+        subprocess.run(run4 + ["--wire-witness", device,
+                               str(out / "witness" / name)],
+                       check=True, timeout=180, env=env)
+        seconds[f"witness_{name}"] = time.perf_counter() - t0
+    witness = wire_witness_compare(np, out / "witness")
+    print(json.dumps({"wire_witness_4_ranks": dict(witness, card=smi)}))
+    require(all(all(v) for v in witness["ranks_equal"].values()),
+            f"witness: the ranks' means differ: {witness['ranks_equal']}")
+    for wire, bound in WITNESS_BOUND.items():
+        require(all(e <= bound for e in
+                    witness[wire]["max_err_ulps"].values()),
+                f"witness, {wire} wire: a mean is off the exact one by "
+                f"more than rounding: {witness[wire]}")
+    for name, device, spe, wire in (
+            ("nccl", "cuda", "2", "bfloat16"),
+            ("nccl_eager", "cuda", "1", "bfloat16"),
+            ("gloo", "cpu", "2", "bfloat16"),
+            ("nccl_fp32_wire", "cuda", "2", "float32"),
+            ("gloo_fp32_wire", "cpu", "2", "float32")):
+        t0 = time.perf_counter()
+        subprocess.run(run4 + ["--drift-child", device, str(out / name), spe,
+                               wire], check=True, timeout=180, env=env)
+        seconds[name] = time.perf_counter() - t0
+    got = {name: drift_compare(np, out, name, "gloo")
+           for name in ("nccl", "nccl_eager")}
+    got["graph_vs_eager"] = drift_compare(np, out, "nccl", "nccl_eager")
+    got["fp32_wire"] = drift_compare(np, out, "nccl_fp32_wire",
+                                     "gloo_fp32_wire")
+    print(json.dumps({"four_cards": dict(got, seconds=seconds, card=smi)}))
+    for name in ("nccl", "nccl_eager", "fp32_wire"):
+        g = got[name]
+        require(g["epochs"] == (3, 3), f"{name}: epochs {g['epochs']}")
+        require(g["first_window_rel_l2"] < 1e-5,
+                f"{name}: first window off gloo's by "
+                f"{g['first_window_rel_l2']}")
+        require(all(g["ranks_equal"][0]) and len(g["ranks_equal"][0]) == 3,
+                f"{name}: ranks' parameters differ: {g['ranks_equal']}")
+    # without the bf16 wire's sum order the card and the CPU agree over
+    # the 3 epochs (within 1.0e-6 measured on four H100s)
+    wire32 = [d for e in got["fp32_wire"]["epoch_rel_diffs"]
+              for d in e.values()]
+    require(max(wire32) < 1e-4, f"fp32 wire: losses differ: {wire32}")
+    subprocess.run(run4 + ["--two-stage-rank"], check=True, timeout=120)
+
+    lm = {}
+    for n in (4, 1):
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node",
+                        str(n), me, "--lm-rank", str(out / f"lm{n}")],
+                       check=True, timeout=300)
+        lm[n] = json.loads((out / f"lm{n}" / "lm.json").read_text())
+    four, one = lm[4], lm[1]
+    first_rel = abs(four["losses"][0] - four["one_card_first_loss"]) \
+        / abs(four["one_card_first_loss"])
+    eff = one["steady_ms"] / four["steady_ms"]
+    per_card = four["tokens_per_rank"] / four["steady_ms"] * 1e3
+    print(json.dumps({"lm_four_cards": dict(
+        four_ranks=four, one_rank=one, first_loss_rel_diff=first_rel,
+        tokens_per_s_per_card=dict(
+            four=per_card,
+            one=one["tokens_per_rank"] / one["steady_ms"] * 1e3),
+        weak_scaling_efficiency=eff, card=smi)}))
+    require(all(four["ranks_equal"]) and len(four["ranks_equal"]) == 5,
+            f"ranks' parameters differ: {four['ranks_equal']}")
+    require(first_rel < 1e-3, f"first loss {four['losses'][0]} against one "
+            f"card's {four['one_card_first_loss']}: {first_rel}")
+    require(all(np.isfinite(four["losses"])), f"losses {four['losses']}")
+    return 0
+
+
+def card_name():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--four-cards"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
-        sys.exit(four_cards(Path(__file__).resolve().parent))
+        print(card_name())
+        sys.exit(four_cards(Path(__file__).resolve().parent, card_name()))
+    if sys.argv[1:2] == ["--drift-child"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(drift_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--wire-witness"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(wire_witness_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--lm-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(lm_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--two-stage-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(two_stage_rank())

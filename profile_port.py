@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 profile_port.py
     python3 profile_port.py resnet
+    python3 profile_port.py remat
     python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
     python3 profile_port.py variants bwd NAME=SOURCE.cu [NAME=SOURCE.cu ...]
 
@@ -31,6 +32,12 @@ one ``updater.update()``, then the gradient exchange alone
 copies and casts — the bucket pack and unpack among them, NCCL, the
 SGD foreach kernels).
 
+``remat`` traces the flagship's training step (``make_train_step``,
+``adamw(3e-4)``, 8 x 2048 tokens) under each remat mode instead:
+``remat_policy="full"``, ``"dots"`` (a selective checkpoint whose
+dispatch mode sees every op of a block) and no remat, each after one
+warm-up step.
+
 ``variants`` times versions of the forward kernel side by side instead:
 each SOURCE has the C entry point of ``csrc/flash_fwd.cu`` (the same
 argument list), such as an earlier version from git history or a copy
@@ -48,6 +55,7 @@ the plain versions, then two rounds of SDPA's backward (dq, dk and dv in
 one call) and each version's dq and dk/dv kernels.
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -392,6 +400,21 @@ def main():
         return 0
     cfg = TransformerConfig(**FLAGSHIP)
     params = params_from_jax(init_numpy_params(cfg, SEED), cfg)
+    if sys.argv[1:2] == ["remat"]:
+        toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                                   (8, 2048 + 1))
+        x = torch.as_tensor(toks[:, :-1], device="cuda")
+        y = torch.as_tensor(toks[:, 1:], device="cuda")
+        for name, kw in (("full", dict(remat=True, remat_policy="full")),
+                         ("dots", dict(remat=True, remat_policy="dots")),
+                         ("none", dict(remat=False))):
+            opt = training.adamw(3e-4)
+            state = opt.init(params)
+            step = make_train_step(dataclasses.replace(cfg, **kw), opt)
+            trace(torch, lambda: step(params, state, x, y),
+                  f"training step 8x2048 tokens, remat {name}, AdamW")
+            del state
+        return 0
     rng = np.random.default_rng(SEED)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 2048)),
                              device="cuda")

@@ -329,6 +329,37 @@ def test_cuda_flash_train_step_matches_local(cuda):
     assert second.item() < first.item()
 
 
+def test_cuda_remat_dots_launches_the_forward_once_a_layer(cuda):
+    # "dots" keeps the flash forward's outputs (and the dense products):
+    # its recompute launches no forward kernel, and the gradients are
+    # bitwise those of "full", which recomputes them
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            n_kv_heads=2, d_head=32, d_ff=256, n_layers=3,
+                            max_seq=128, attention="flash", remat=True,
+                            dtype="bfloat16")
+    toks = np.random.RandomState(2).randint(0, 256, (2, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    params = params_from_jax(init_numpy_params(cfg, 0), cfg)
+    out = {}
+    for policy in ("full", "dots"):
+        flash_attention.launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = 0
+        out[policy] = make_value_and_grad_fn(dataclasses.replace(
+            cfg, remat_policy=policy))(params, x, y)
+        torch.cuda.synchronize()
+        out[policy] += (_launch_counts(),)
+    L = cfg.n_layers
+    assert out["full"][2] == (2 * L, L, L)
+    assert out["dots"][2] == (L, L, L)
+    torch.testing.assert_close(out["dots"][0], out["full"][0], rtol=0,
+                               atol=0)
+    for name, g in out["dots"][1]["blocks"].items():
+        torch.testing.assert_close(g, out["full"][1]["blocks"][name],
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(out["dots"][1]["embed"],
+                               out["full"][1]["embed"], rtol=0, atol=0)
+
+
 # --------------------------------------------------------------------- #
 # ChainerMN's data-parallel path: NCCL at one rank, the exchange, ResNet
 # --------------------------------------------------------------------- #
@@ -365,6 +396,32 @@ def test_cuda_nccl_world_of_one(nccl_comm):
     comm.barrier()
     with pytest.raises(ValueError, match="given to a communicator on cuda"):
         comm.allreduce(torch.ones(2))             # no gloo for CPU tensors
+
+
+def test_cuda_dp_step_on_one_rank_is_the_plain_step(nccl_comm):
+    # the data axis at one NCCL rank: the fp32 mean of the gradients and
+    # of the loss is a copy, so the step is bitwise the step without comm
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            n_kv_heads=2, d_head=32, d_ff=256, n_layers=2,
+                            max_seq=128, attention="flash", remat=True,
+                            dtype="bfloat16")
+    toks = np.random.RandomState(3).randint(0, 256, (4, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    runs = []
+    for comm in (None, nccl_comm):
+        params = params_from_jax(init_numpy_params(cfg, 0), cfg)
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, comm=comm)
+        losses = [step(params, state, x, y)[2] for _ in range(2)]
+        runs.append((losses, params))
+    (la, pa), (lb, pb) = runs
+    for a, b in zip(la, lb):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    for name, t in pa["blocks"].items():
+        torch.testing.assert_close(pb["blocks"][name], t, rtol=0, atol=0)
+    for name in ("embed", "pos", "ln_f"):
+        torch.testing.assert_close(pb[name], pa[name], rtol=0, atol=0)
 
 
 def test_cuda_exchange_is_bf16_bitwise(nccl_comm):

@@ -38,7 +38,9 @@ EXAMPLES = [ROOT / "examples" / "mnist" / "train_mnist_torch.py",
             ROOT / "examples" / "mnist" / "train_mnist_model_parallel_torch.py",
             ROOT / "examples" / "imagenet" / "train_imagenet_torch.py",
             ROOT / "examples" / "imagenet"
-            / "train_imagenet_large_batch_torch.py"]
+            / "train_imagenet_large_batch_torch.py",
+            ROOT / "examples" / "transformer" / "train_lm_torch.py",
+            ROOT / "examples" / "transformer" / "generate_torch.py"]
 # the test helpers the port's drills import or run in children
 TEST_HELPERS = [ROOT / "tests" / "test_torch_world.py",
                 ROOT / "tests" / "_torch_fault_worker.py"]

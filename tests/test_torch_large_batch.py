@@ -144,6 +144,9 @@ def payload():
               "d": rng.randint(-50, 50, (N, 4)).astype(np.int32),
               "e": np.zeros((N, 0), np.float32), "f": _eighths(rng, N, 100)},
         tree_dtypes=TREE_DTYPES, schedules=SCHEDULES, bucket=BUCKET,
+        # normal shares at three scales, each leaf (N, 1000)
+        rounding=[np.random.RandomState(12 + i).randn(N, 1000).astype(
+            np.float32) * 10.0 ** -i for i in range(3)],
         g1=rng.randn(N, 6).astype(np.float32),
         g2=rng.randn(N, 6).astype(np.float32),
         recipe_g=base * scale, example=str(EXAMPLE),
@@ -464,6 +467,22 @@ def test_two_stage_mean_grad_matches_jax(world, payload):
         assert flat == 0 and intra > 0 and inter > 0
         for k in tree:
             _assert_bitwise(world[r]["mean_two_stage"][k], want[k][r])
+
+
+def test_bf16_mean_is_within_rounding_of_the_exact_mean(world, payload):
+    # chip_smoke.py --four-cards' exchange witness, on gloo: a mean of
+    # four shares through a bf16 wire, summed in any order, is off the
+    # exact mean by at most 1.75 bf16 ulps taken at the element's
+    # largest share (four casts of half an ulp, three sums rounded within
+    # 1, 2 and 2 ulps, over four); a missing share is 32 ulps off or more
+    for i, shares in enumerate(payload["rounding"]):
+        exact = shares.astype(np.float64).mean(0)
+        big = np.abs(shares).max(0).astype(np.float64)
+        ulp = 2.0 ** (np.floor(np.log2(big)) - 7)
+        for r in range(N):
+            got = world[r]["mean_bf16_rounding"][i].astype(np.float64)
+            assert (np.abs(got - exact) / ulp).max() <= 1.75
+            _assert_bitwise(got, world[0]["mean_bf16_rounding"][i])
 
 
 def test_uneven_nodes_refuse_the_two_stage_exchange(world):

@@ -1,0 +1,229 @@
+"""The LM examples' pieces in the port against the JAX package's: the
+byte-level BPE tokenizer (the same merges, ids and ``bpe.json``),
+``init_transformer`` (the same tree, shapes, dtypes and scales), and
+``examples/transformer/train_lm_torch.py`` in a 2-rank gloo world
+against the JAX ``train_lm.py`` at ``--mesh data=2`` from the same
+weights (both examples draw the same batches from the same numpy
+streams; fp32, so their printed losses agree to 1e-4 relative); then a
+train → save → resume → ``generate_torch.py`` round trip over a text
+file with a BPE vocabulary.  The port's side of the world is
+``battery_lm_examples`` in ``test_torch_world.py``."""
+
+import functools
+import importlib.util
+import re
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from chainermn_tpu.datasets import BPETokenizer as JaxBPE
+from chainermn_tpu.datasets import train_bpe as jax_train_bpe
+from chainermn_tpu.models import TransformerConfig as JaxConfig
+from chainermn_tpu.models import init_transformer as jax_init
+from chainermn_tpu_torch.datasets import BPETokenizer, train_bpe
+from chainermn_tpu_torch.models import (
+    TransformerConfig,
+    init_transformer,
+    params_to_numpy,
+)
+
+from test_torch_world import run_world
+
+ROOT = Path(__file__).resolve().parent.parent
+SURVEY = ROOT / "SURVEY.md"
+# train_lm.py's defaults at --mesh data=2 (fp32, no remat)
+LM_CFG = dict(vocab_size=128, d_model=64, n_heads=4, d_head=16, d_ff=256,
+              n_layers=4, max_seq=32, attention="local", dtype="float32",
+              remat=False)
+STEPS = 12
+
+
+def load(rel, name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / rel)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# --------------------------------------------------------------------- #
+# the tokenizer
+# --------------------------------------------------------------------- #
+
+
+def test_bpe_matches_jax(tmp_path):
+    data = SURVEY.read_bytes()[:20_000]
+    port, ref = train_bpe(data, 512), jax_train_bpe(data, 512)
+    assert port.merges == ref.merges and port.vocab_size > 300
+    text = SURVEY.read_bytes()
+    ids = port.encode(text)
+    assert ids == ref.encode(text)
+    assert port.decode(ids) == text
+    assert port.n_bytes(ids) == ref.n_bytes(ids) == len(text)
+    # a file written by either package loads in the other
+    port.save(tmp_path / "port.json")
+    ref.save(tmp_path / "jax.json")
+    assert (tmp_path / "port.json").read_bytes() \
+        == (tmp_path / "jax.json").read_bytes()
+    assert JaxBPE.load(tmp_path / "port.json").merges == port.merges
+    assert BPETokenizer.load(tmp_path / "jax.json").encode(text) == ids
+
+
+def test_bpe_refuses_what_jax_refuses():
+    with pytest.raises(ValueError, match="must exceed 256"):
+        train_bpe(b"abc", 256)
+    with pytest.raises(ValueError, match="not yet"):
+        BPETokenizer([(256, 1)])
+    assert train_bpe(b"", 300).merges == []
+
+
+# --------------------------------------------------------------------- #
+# init_transformer
+# --------------------------------------------------------------------- #
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tree(**kw):
+    return jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(0),
+                                             JaxConfig(**LM_CFG, **kw)))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_kv_heads=2,
+                                             pos_embedding="rope")])
+def test_init_transformer_matches_jax_layout_and_scales(kw):
+    fields = dict(LM_CFG, **kw)
+    cfg = TransformerConfig(**fields)
+    want = jax_tree(**kw)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    got = params_to_numpy(params, cfg)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree.leaves(want)):
+        assert a.shape == b.shape and a.dtype == b.dtype == np.float32
+        if b.std() == 0:           # the norm scales: ones
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert abs(a.std() / b.std() - 1) < 0.05, \
+                (jax.tree_util.keystr(path), a.std(), b.std())
+            assert abs(a.mean()) < 0.1 * b.std()
+    again = init_transformer(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    other = init_transformer(torch.Generator().manual_seed(1), cfg,
+                             device="cpu")
+    torch.testing.assert_close(again["embed"], params["embed"], rtol=0,
+                               atol=0)
+    assert not torch.equal(other["embed"], params["embed"])
+
+
+def test_init_transformer_refuses():
+    cfg = TransformerConfig(**LM_CFG)
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        init_transformer(torch.Generator(), cfg, pipe_size=2, device="cpu")
+    with pytest.raises(TypeError, match="torch.Generator"):
+        init_transformer(0, cfg, device="cpu")
+
+
+# --------------------------------------------------------------------- #
+# the examples
+# --------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    ck = tmp_path_factory.mktemp("lm_ck")
+    payload = dict(
+        argv=["--device", "cpu", "--mesh", "data=2", "--steps", str(STEPS)],
+        tree=jax_tree(),
+        text_argv=["--device", "cpu", "--mesh", "data=2", "--text-file",
+                   str(SURVEY), "--tokenizer-vocab", "384", "--seq", "32",
+                   "--batchsize", "8", "--n-layers", "2"],
+        gen_argv=["--device", "cpu", "--vocab", "384", "--n-layers", "2",
+                  "--prompt-text", "ChainerMN", "--max-len", "32",
+                  "--batchsize", "2"],
+        ck=str(ck))
+    return run_world(tmp_path_factory.mktemp("lm_examples"), 2,
+                     "battery_lm_examples", payload)
+
+
+def printed_losses(text):
+    steps = [float(m) for m in re.findall(r"step +\d+  loss ([\d.]+)", text)]
+    first, last = re.search(r"loss ([\d.]+) -> ([\d.]+) over", text).groups()
+    return steps + [float(first), float(last)]
+
+
+def test_train_lm_torch_matches_jax_example(port, monkeypatch, capsys):
+    from chainermn_tpu import parallel
+
+    real = parallel.MeshConfig
+    # the JAX example's mesh on 2 of the 8 virtual devices
+    monkeypatch.setattr(parallel, "MeshConfig", lambda **axes: real(
+        devices=jax.devices()[:2], **axes))
+    ex = load("examples/transformer/train_lm.py", "train_lm")
+    monkeypatch.setattr(sys, "argv", ["train_lm.py", "--mesh", "data=2",
+                                      "--steps", str(STEPS)])
+    last = ex.main()
+    want = printed_losses(capsys.readouterr().out)
+    got = printed_losses(port[0]["printed"])
+    assert len(got) == len(want) == 4
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_allclose(port[0]["losses"][-1], last, rtol=1e-4)
+    assert len(port[0]["losses"]) == STEPS
+    assert port[1]["losses"] == port[0]["losses"]     # the ranks' means
+    assert port[1]["printed"] == ""                   # rank 0 prints
+
+
+def test_train_save_resume_generate(port):
+    text = port[0]["text"]
+    assert len(text["first"]) == 4 and len(text["resumed"]) == 2
+    assert text["start"] == 4 and text["steps"] == (4, 6)
+    assert "resumed at step 4" in text["printed"]
+    assert "trained BPE" in text["printed"] \
+        and "loaded tokenizer" in text["printed"]
+    # the saved state is the run's, bitwise
+    np.testing.assert_array_equal(text["saved_embed"], text["first_embed"])
+    tok_ppl, byte_ppl = text["perplexity"]
+    assert 1 < byte_ppl < tok_ppl < 384
+    gen = port[0]["generate"]
+    np.testing.assert_array_equal(gen["embed"], text["final_embed"])
+    assert "generated text: 'ChainerMN" in gen["printed"]
+    assert gen["tokens"].shape == (2, 32)
+    # decode logits against the full forward over the generated sequence
+    np.testing.assert_allclose(gen["logits"], gen["full"], rtol=1e-4,
+                               atol=1e-4)
+    assert (gen["logits"].argmax(-1)
+            == gen["tokens"][:, -gen["logits"].shape[1]:]).all()
+
+
+TRAIN_UNPORTED = [["--moe"], ["--fsdp"], ["--vocab-parallel"],
+                  ["--seq-layout", "zigzag"], ["--schedule", "1f1b"],
+                  ["--schedule", "interleaved"], ["--mesh", "data=2,model=2"],
+                  ["--mesh", "pipe=2"], ["--mesh", "seq=2"],
+                  ["--mesh", "expert=2"], ["--attention", "ring"],
+                  ["--attention", "ulysses"]]
+
+
+@pytest.mark.parametrize("flags", TRAIN_UNPORTED,
+                         ids=[" ".join(f) for f in TRAIN_UNPORTED])
+def test_train_lm_torch_unported_flags_raise(flags):
+    ex = load("examples/transformer/train_lm_torch.py", "train_lm_torch")
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        ex.build(ex.parse_args(["--device", "cpu"] + flags))
+
+
+GEN_UNPORTED = [(["--temperature", "0.7"], 12), (["--top-k", "5"], 12),
+                (["--top-p", "0.9"], 12), (["--beam", "4"], 9),
+                (["--speculative-k", "3"], 9), (["--lookup-k", "2"], 9),
+                (["--int8"], 9), (["--kv-int8"], 9),
+                (["--vocab-parallel"], 8), (["--mesh", "model=2"], 8)]
+
+
+@pytest.mark.parametrize("flags,item", GEN_UNPORTED,
+                         ids=[" ".join(f) for f, _ in GEN_UNPORTED])
+def test_generate_torch_unported_flags_raise(flags, item):
+    ex = load("examples/transformer/generate_torch.py", "generate_torch")
+    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
+        ex.main(["--device", "cpu"] + flags)

@@ -245,7 +245,9 @@ def test_optimizer_refuses_other_params():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(remat=True, remat_policy="dots"),
+    # remat_policy="dots" is ported (test_torch_lm_data_parallel.py);
+    # its place here holds another option that still raises
+    dict(seq_layout="zigzag"),
     dict(pipeline_schedule="1f1b"),
     dict(pipeline_schedule="interleaved"),
     dict(moe=True), dict(fsdp=True), dict(vocab_parallel=True),

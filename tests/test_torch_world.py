@@ -453,6 +453,9 @@ def battery_large_batch(comm, p):
             wire_dtype=wire, inter_comm=inter))
     out["schedule"] = fused.build_overlap_schedule(
         tree(), p["bucket"], torch.bfloat16)
+    # shares whose mean rounds: the flat bf16 multi_node_mean_grad
+    out["mean_bf16_rounding"] = np_tree(comm.multi_node_mean_grad(
+        [torch.as_tensor(a[r]) for a in p["rounding"]], torch.bfloat16))
     # the world seen as two nodes of two ranks: multi_node_mean_grad
     # goes two-stage over hierarchy()
     comm._intra_rank, comm._inter_rank = slot, node
@@ -929,6 +932,119 @@ def battery_point_to_point(comm, p):
     out["example"] = ex.train(ex.parse_args(
         ["--device", "cpu", "--epoch", "1", "--iterations", "2"]),
         comm=half, quiet=True)
+    return out
+
+
+def _load_example(rel, name):
+    import importlib.util
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(name, root / rel)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    return ex
+
+
+def battery_lm_data_parallel(comm, p):
+    """The flagship's data-parallel train step: for each case of
+    ``p["cases"]`` (a name, ``TransformerConfig`` fields, a learning
+    rate), AdamW steps of ``make_train_step(comm=comm)`` on the global
+    batches ``p["batches"]``: free from the JAX weights ``p["tree"]``,
+    and, where ``p["forced"]`` holds the JAX run's states (params, the
+    adam moments and count before each step), each step again from the
+    JAX state before it.  Every rank's losses and parameters (JAX
+    layout)."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_train_step, params_from_jax,
+        params_to_numpy)
+
+    def steps(cfg, lr, start, batches):
+        params = params_from_jax(start[0], cfg, device="cpu")
+        opt = training.adamw(lr)
+        state = opt.init(params)
+        if len(start) > 1:
+            _, mu, nu, count = start
+            with torch.no_grad():
+                for t, m, v in zip(
+                        pytree.tree_leaves(params),
+                        pytree.tree_leaves(params_from_jax(mu, cfg, "cpu")),
+                        pytree.tree_leaves(params_from_jax(nu, cfg, "cpu"))):
+                    st = state.state[t]
+                    st["mu"].copy_(m)
+                    st["nu"].copy_(v)
+                    st["count"].fill_(int(count))
+        step = make_train_step(cfg, opt, comm=comm)
+        losses = []
+        for x, y in batches:
+            params, state, loss = step(params, state, x, y)
+            losses.append(float(loss))
+        return losses, params_to_numpy(params, cfg)
+
+    out = {}
+    for name, fields, lr in p["cases"]:
+        cfg = TransformerConfig(**fields)
+        free = steps(cfg, lr, (p["tree"],), p["batches"])
+        forced = [steps(cfg, lr, st, [b])
+                  for st, b in zip(p["forced"].get(name, ()), p["batches"])]
+        out[name] = dict(free=free, forced=forced)
+    return out
+
+
+def battery_lm_examples(comm, p):
+    """``train_lm_torch.py`` in this world: ``p["argv"]`` from the JAX
+    weights ``p["tree"]``, its printed lines and losses on rank 0; then a
+    text-file run with a BPE vocabulary saved under ``p["ck"]``, resumed
+    for more steps, and greedy generation from the checkpoint on rank 0."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.utils.serialization import load_state
+
+    ex = _load_example("examples/transformer/train_lm_torch.py",
+                       "train_lm_torch")
+    out = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = ex.main(p["argv"], init=p["tree"])
+    out["printed"], out["losses"] = buf.getvalue(), run.losses
+
+    text = p["text_argv"] + ["--checkpoint", p["ck"]]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        first = ex.main(text + ["--steps", "4"])
+        saved = load_state(p["ck"] + "/lm_state.npz")
+        again = ex.main(text + ["--steps", "6"])
+    final = load_state(p["ck"] + "/lm_state.npz")
+    out["text"] = dict(printed=buf.getvalue(), first=first.losses,
+                       resumed=again.losses, start=again.start,
+                       perplexity=again.perplexity,
+                       steps=(int(saved["step"]), int(final["step"])),
+                       first_embed=first.params["embed"].numpy().copy(),
+                       saved_embed=saved["params"]["embed"],
+                       final_embed=final["params"]["embed"])
+    if comm.rank == 0:
+        gen = _load_example("examples/transformer/generate_torch.py",
+                            "generate_torch")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = gen.main(p["gen_argv"] + ["--checkpoint", p["ck"],
+                                            "--tokenizer",
+                                            p["ck"] + "/bpe.json"],
+                           keep_logits=True)
+        from chainermn_tpu_torch.models import make_forward_fn
+
+        # the full forward over the generated sequence predicts what
+        # each decode step predicted
+        full = make_forward_fn(res.cfg, device="cpu")(
+            res.params, res.tokens[:, :-1].long())
+        out["generate"] = dict(
+            printed=buf.getvalue(), tokens=res.tokens.numpy().copy(),
+            logits=res.logits.numpy().copy(),
+            full=full[:, res.prompt.shape[1] - 1:].numpy().copy(),
+            embed=res.params["embed"].numpy().copy())
     return out
 
 
