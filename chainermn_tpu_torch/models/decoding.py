@@ -1,8 +1,8 @@
 """Greedy autoregressive decoding with a KV cache for the flagship
-transformer, on one device.
+transformer, on one device or over a mesh's data and seq axes.
 
 Counterpart of ``make_generate_fn`` in ``chainermn_tpu/models/decoding.py``
-at a trivial mesh, with the same semantics step for step:
+with the same semantics step for step:
 
 - the KV cache holds ``max_len`` slots at the shared (GQA) head width in
   the compute dtype; the port writes it in place;
@@ -17,8 +17,18 @@ at a trivial mesh, with the same semantics step for step:
 - ``eos_id >= 0`` freezes a row after it emits eos (later slots get
   ``pad_id``) and stops once every row is done.
 
+Over a mesh (``mesh=``, or ``comm=`` as the mesh ``data=N``) each rank
+decodes its rows of the batch (the data axis), and every rank runs the
+same number of steps: the stop is taken when no rank of the data group
+has an unfinished row.  A seq axis of ``R`` members blocks the cache's
+length (sequence-parallel KV): member ``r`` holds positions
+``[r·Tl, (r+1)·Tl)``, ``Tl = max_len/R``; prefill writes each member's
+block, a token step writes on the owning member only, and attention is
+the distributed softmax (a max of the row maxima, then sums of the
+exp-sums and of the value partials over the seq group).
+
 Sampling (``temperature > 0``), int8 weights and int8 KV cache, and
-sequence/pipeline-sharded decoding come in later slices and raise here.
+pipeline-sharded decoding come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from chainermn_tpu_torch._device import resolve_device
+from chainermn_tpu_torch.communicators.loopback import LoopbackCommunicator
 from chainermn_tpu_torch.parallel.ring_attention import (
     _NEG,
     _pv_mix,
@@ -40,23 +50,30 @@ from chainermn_tpu_torch.parallel.tensor import (
 
 from .transformer import (
     TransformerConfig,
+    _check_mesh,
     _check_ported,
     _layer,
+    _resolve,
     _rms_norm,
+    _rows,
     apply_rope,
 )
 
 __all__ = ["make_generate_fn"]
 
 
-def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int,
+def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
                   chunk_attends_cache: bool = False, pos_offset=None):
     """One block for a chunk of new tokens ``h`` (B, Tq, D) whose first
     token sits at position ``pos``.  ``ck``/``cv`` are this layer's
-    (B, max_len, Hkv, Dh) cache, written in place at ``pos``."""
+    (B, kv_len_local, Hkv, Dh) cache, written in place: the whole
+    ``max_len``, or under sequence-parallel KV (``seq``, the seq
+    communicator, of size R > 1) this member's block of ``max_len/R``
+    positions."""
     cd = cfg.compute_dtype
     x = _rms_norm(h, blk["ln1"])
     B, Tq, D = x.shape
+    R, r = seq.size, seq.rank
     Tl = ck.shape[1]
     if "wqkv" in blk:
         H = blk["wqkv"].shape[2]
@@ -78,15 +95,40 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int,
             qpos[None, :] - pos_offset[:, None]).clamp_min(0)
         q = apply_rope(q, rpos, cfg.rope_theta)
         k_new = apply_rope(k_new, rpos, cfg.rope_theta)
-    ck[:, pos:pos + Tq] = k_new
-    cv[:, pos:pos + Tq] = v_new
+    if pos_offset is not None and R > 1:
+        raise ValueError(
+            "left-padded prompts (pos_offset) are not supported under "
+            "sequence-parallel KV (seq axis > 1): shard batch/heads/"
+            "layers instead")
+    if Tq > 1 and R > 1 and chunk_attends_cache:
+        raise ValueError(
+            "chunked mid-sequence decode (Tq > 1 with "
+            "chunk_attends_cache) is not supported under "
+            "sequence-parallel KV (seq axis > 1): the blockwise cache "
+            "write requires the prefill contract pos == 0")
+    if Tq > 1 and R > 1:
+        # blockwise prefill write (pos == 0): this member's rows of the
+        # chunk, [r·Tl, r·Tl + Tl) ∩ [0, Tq)
+        lo, hi = r * Tl, min(r * Tl + Tl, Tq)
+        if hi > lo:
+            ck[:, :hi - lo] = k_new[:, lo:hi]
+            cv[:, :hi - lo] = v_new[:, lo:hi]
+    elif R > 1:
+        # a token step: member pos // Tl owns the position
+        if pos // Tl == r:
+            ck[:, pos % Tl:pos % Tl + Tq] = k_new
+            cv[:, pos % Tl:pos % Tl + Tq] = v_new
+    else:
+        ck[:, pos:pos + Tq] = k_new
+        cv[:, pos:pos + Tq] = v_new
     if Tq > 1 and not chunk_attends_cache:
-        # prefill at pos 0: the chunk's own K/V are all it may attend
+        # prefill at pos 0: the chunk's own K/V (in hand on every
+        # member) are all it may attend
         o = local_attention(q, k_new, v_new, causal=True,
                             window=cfg.attention_window or None)
     else:
         s = _qk_scores(q, ck) * (cfg.d_head ** -0.5)           # (B,H,Tq,Tl)
-        kpos = torch.arange(Tl, device=x.device)
+        kpos = torch.arange(Tl, device=x.device) + r * Tl
         allow = kpos[None, :] <= qpos[:, None]                 # (Tq, Tl)
         if cfg.attention_window:
             allow &= (qpos[:, None] - kpos[None, :]) < cfg.attention_window
@@ -98,7 +140,17 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int,
             s = s.masked_fill(~allow[:, None], _NEG)
         else:
             s = s.masked_fill(~allow, _NEG)
-        o = _pv_mix(torch.softmax(s, dim=-1), cv).transpose(1, 2)
+        if R > 1:
+            # the distributed softmax: the global row max, then the
+            # exp-sums and the value partials summed over the seq group;
+            # a member whose block lies past pos adds exp(_NEG - m) = 0
+            m = seq.allreduce(s.amax(dim=-1, keepdim=True), "max")
+            e = torch.exp(s - m)
+            n = seq.allreduce(e.sum(dim=-1, keepdim=True), "sum")
+            o = seq.allreduce(_pv_mix(e, cv), "sum")
+            o = (o / n).transpose(1, 2)                        # (B,Tq,H,Dh)
+        else:
+            o = _pv_mix(torch.softmax(s, dim=-1), cv).transpose(1, 2)
     h = h + row_parallel_dense(
         o.reshape(B, Tq, -1), blk["wo"].reshape(-1, D).to(cd))
     x = _rms_norm(h, blk["ln2"])
@@ -107,12 +159,12 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int,
 
 
 def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
-                 with_logits: bool = True, chunk_attends_cache=False,
+                 seq, with_logits: bool = True, chunk_attends_cache=False,
                  pos_offset=None):
     """Next-token fp32 logits (B, V) for ``tok`` — (B,) in the generation
     loop, or a (B, Tq) chunk starting at ``pos`` for prefill
     (``with_logits=False`` then skips the head).  ``caches`` is the
-    ``(ck, cv)`` pair of (L, B, max_len, Hkv, Dh) buffers."""
+    ``(ck, cv)`` pair of (L, B, kv_len_local, Hkv, Dh) buffers."""
     cd = cfg.compute_dtype
     Tq = tok.shape[1] if tok.dim() == 2 else 1
     h = params["embed"][tok].to(cd)                  # (B, D) or (B, Tq, D)
@@ -130,7 +182,7 @@ def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
     ck, cv = caches
     for i in range(cfg.n_layers):
         h = _decode_block(cfg, h, _layer(params, i), ck[i], cv[i], pos,
-                          chunk_attends_cache=chunk_attends_cache,
+                          seq, chunk_attends_cache=chunk_attends_cache,
                           pos_offset=pos_offset)
     if not with_logits:
         return None
@@ -163,7 +215,8 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
                      temperature: float = 0.0, eos_id: int = -1,
                      pad_id: int = 0, quantized: bool = False,
                      with_row_state: bool = False,
-                     with_logits: bool = False, device=None):
+                     with_logits: bool = False, device=None, comm=None,
+                     mesh=None):
     """Build ``generate(params, prompt, prompt_lens=None) -> (B, max_len)``
     int32 tokens: greedy decoding, the JAX package's contract.
 
@@ -175,7 +228,14 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     included, padding excluded).  ``with_logits=True`` appends the fp32
     logits of every step, ``(B, steps, V)``; step ``i`` predicts position
     ``P + i``.  Runs on ``device`` (CUDA unless ``"cpu"`` is named) under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``.
+
+    With a ``mesh`` (a :class:`~chainermn_tpu_torch.parallel.MeshConfig`;
+    ``comm`` alone is the mesh ``data=comm.size``) ``prompt`` (and
+    ``prompt_lens``) is the global batch: each rank decodes and returns
+    its rows over the data axis, and a seq axis blocks the KV cache over
+    its members (``max_len`` must divide over it; left-padded prompts
+    are not supported there)."""
     if temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported yet; it comes with the "
@@ -184,7 +244,9 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         raise NotImplementedError(
             "int8 weights are not ported yet; they come with the "
             "quantization slice (ROADMAP Queue A item 9)")
-    dev = resolve_device(device)
+    dev, mesh = _resolve(device, comm, mesh)
+    if mesh is not None:
+        _check_mesh(mesh, cfg)
     _check_ported(cfg, decoding=True)
     if cfg.fsdp:
         raise ValueError(
@@ -195,12 +257,29 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     if max_len > cfg.max_seq:
         raise ValueError(
             f"max_len {max_len} exceeds cfg.max_seq {cfg.max_seq}")
+    seq = LoopbackCommunicator(device=dev) if mesh is None \
+        else mesh.comm("seq")
+    if max_len % seq.size:
+        raise ValueError(
+            f"sequence-parallel KV decode blocks the cache over the "
+            f"seq axis: max_len={max_len} must be divisible by the seq "
+            f"mesh axis ({seq.size})")
+    data = None if mesh is None else mesh.comm("data")
+
+    def running(done):
+        """Whether any rank of the data group has an unfinished row: the
+        same answer on every rank of the mesh, so every rank takes the
+        same number of steps (the JAX ``pmax`` over the batch axes)."""
+        left = (~done.all()).to(torch.int32).reshape(1)
+        if data is not None:
+            left = data.allreduce(left, "max")
+        return bool(left.item())
 
     def run(params, prompt, offsets):
         B, P = prompt.shape
         cd = cfg.compute_dtype
-        cache = torch.zeros((2, cfg.n_layers, B, max_len, cfg.kv_heads,
-                             cfg.d_head), dtype=cd, device=dev)
+        cache = torch.zeros((2, cfg.n_layers, B, max_len // seq.size,
+                             cfg.kv_heads, cfg.d_head), dtype=cd, device=dev)
         caches = (cache[0], cache[1])
         # with eos the loop can stop early: seed with pad so the unwritten
         # tail reads as padding
@@ -208,7 +287,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
                          else 0, dtype=torch.int32, device=dev)
         buf[:, :P] = prompt
         if P > 1:
-            _decode_step(cfg, params, caches, prompt[:, :P - 1], 0,
+            _decode_step(cfg, params, caches, prompt[:, :P - 1], 0, seq,
                          with_logits=False,
                          chunk_attends_cache=offsets is not None,
                          pos_offset=offsets)
@@ -218,10 +297,10 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         steps = []
         for t in range(P - 1, max_len - 1):
             if eos_id >= 0:
-                if bool(done.all()):
+                if not running(done):
                     break
                 gen_len += (~done).to(torch.int32)
-            logits = _decode_step(cfg, params, caches, buf[:, t], t,
+            logits = _decode_step(cfg, params, caches, buf[:, t], t, seq,
                                   pos_offset=offsets)
             if with_logits:
                 steps.append(logits)
@@ -246,9 +325,9 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
                 f"1 <= P <= max_len {max_len}")
         offsets = None
         if prompt_lens is not None:
-            offsets = prompt.shape[1] - _validate_prompt_lens(
-                prompt, prompt_lens)
+            offsets = _rows(mesh, prompt.shape[1] - _validate_prompt_lens(
+                prompt, prompt_lens))
         with torch.inference_mode():
-            return run(params, prompt, offsets)
+            return run(params, _rows(mesh, prompt), offsets)
 
     return generate

@@ -24,16 +24,24 @@ head of ``loss_chunk``), remat (each block under
 block's input, ``"dots"`` also the JAX policy's saves, see
 :func:`_dots_context`) and :func:`make_train_step`.
 
-The mesh has one axis here, ``data``: ChainerMN's data parallelism.
-Given a communicator (``comm=``), :func:`make_value_and_grad_fn`,
-:func:`make_train_step` and :func:`make_forward_fn` work per rank, one
-process a device: rank ``r`` takes rows ``r·B/N … (r+1)·B/N`` of the
-global batch (the JAX ``_BATCH_SPEC``), and the gradients are meaned in
-fp32 by ``comm.multi_node_mean_grad`` (the psum that AD of the JAX
-step's ``pmean``'d loss inserts).  Model, sequence, pipe and expert
-axes, MoE, FSDP, vocab parallelism, ring/Ulysses attention, pipeline
-micro-batching and the 1F1B/interleaved schedules come with the
-parallel slice and raise here.
+The mesh has a data and a sequence axis (a :class:`MeshConfig` over the
+world communicator; ``comm=`` alone is the mesh ``data=N``).
+:func:`make_value_and_grad_fn`, :func:`make_train_step` and
+:func:`make_forward_fn` work per rank, one process a device: rank ``r``
+takes its rows of the global batch over ``data`` and its block of
+columns over ``seq`` (the JAX ``_BATCH_SPEC``).  ``attention="ring"``
+rotates K/V over the seq communicator and runs the flash kernel once a
+pair (:func:`~chainermn_tpu_torch.parallel.ring_attention`, in the
+``contiguous`` or ``zigzag`` ``seq_layout``); ``"ulysses"`` exchanges
+heads for the sequence and runs the kernel on the whole sequence.  RoPE
+and learned positions are the block's GLOBAL positions.  The loss is
+meaned over the batch-like group ``(data, expert, seq)`` and so are the
+gradients, in fp32 by ``multi_node_mean_grad``: every parameter is
+replicated over those axes, and the ring's (or the exchange's) backward
+has already delivered the other blocks' contributions to each rank.
+Model, pipe and expert axes, MoE, FSDP, vocab parallelism, pipeline
+micro-batching and the 1F1B/interleaved schedules come with the rest of
+the parallel slice and raise here.
 """
 
 from __future__ import annotations
@@ -46,17 +54,23 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
     noop_context_fn,
+    set_checkpoint_early_stop,
 )
 
 from chainermn_tpu_torch._device import resolve_device
+from chainermn_tpu_torch.communicators.loopback import LoopbackCommunicator
 from chainermn_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_supported,
 )
+from chainermn_tpu_torch.parallel.mesh import BATCH_AXES, MeshConfig
 from chainermn_tpu_torch.parallel.ring_attention import (
+    _block_positions,
     broadcast_kv,
     local_attention,
+    ring_attention,
 )
+from chainermn_tpu_torch.parallel.ulysses import ulysses_attention
 from chainermn_tpu_torch.parallel.tensor import (
     column_parallel_dense,
     row_parallel_dense,
@@ -74,8 +88,9 @@ __all__ = [
 ]
 
 _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
-# the JAX MeshConfig's axes; the port has the data axis only
+# the JAX MeshConfig's axes; the port has the data and seq axes
 _MESH_AXES = ("pipe", "data", "expert", "seq", "model")
+_PORTED_AXES = ("data", "seq")
 
 
 @dataclass(frozen=True)
@@ -199,10 +214,6 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
     else:
         unported += [
             ("fsdp", cfg.fsdp, _PARALLEL_SLICE),
-            (f"attention={cfg.attention!r}",
-             cfg.attention in ("ring", "ulysses"), _PARALLEL_SLICE),
-            ('seq_layout="zigzag"', cfg.seq_layout == "zigzag",
-             _PARALLEL_SLICE),
             ("num_microbatches > 1", cfg.num_microbatches > 1,
              _PARALLEL_SLICE),
         ]
@@ -211,23 +222,38 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
             raise ValueError(
                 "pipeline_schedule must be gpipe|1f1b|interleaved, got "
                 f"{cfg.pipeline_schedule!r}")
-        unported.append(
+        unported += [
             (f"pipeline_schedule={cfg.pipeline_schedule!r}",
-             cfg.pipeline_schedule != "gpipe", _PARALLEL_SLICE))
+             cfg.pipeline_schedule != "gpipe", _PARALLEL_SLICE),
+            # the selective checkpoint would replay the ring's transfers
+            # and the exchanges in its recompute; full remat recomputes
+            # them in the same order on every rank
+            (f'remat_policy="dots" with attention={cfg.attention!r}',
+             cfg.remat and cfg.remat_policy == "dots"
+             and cfg.attention in ("ring", "ulysses"), _PARALLEL_SLICE),
+        ]
     for name, hit, where in unported:
         if hit:
             raise NotImplementedError(
                 f"{name} is not ported to chainermn_tpu_torch yet; it "
                 f"comes with {where}")
-    if not decoding and cfg.attention not in ("local", "flash"):
+    if not decoding and cfg.attention not in ("local", "flash", "ring",
+                                              "ulysses"):
         raise ValueError(cfg.attention)
+    if not decoding and cfg.seq_layout == "zigzag" \
+            and cfg.attention != "ring":
+        raise ValueError(
+            'seq_layout="zigzag" is a ring-attention layout; '
+            f'attention={cfg.attention!r} expects contiguous shards')
 
 
 def _check_mesh(mesh, cfg: TransformerConfig):
     """The JAX ``_check_mesh``'s config/mesh divisibility checks, with
-    its messages, on ``mesh``, a mapping of axis sizes (``{"data": 4}``;
-    missing axes are 1).  The port has the data axis only: any other axis
-    larger than 1 then raises ``NotImplementedError``."""
+    its messages, on ``mesh``: a :class:`MeshConfig` or a mapping of
+    axis sizes (``{"data": 4}``; missing axes are 1).  The port has the
+    data and seq axes: a model, pipe or expert axis larger than 1 then
+    raises ``NotImplementedError``."""
+    mesh = getattr(mesh, "shape", mesh)
     unknown = set(mesh) - set(_MESH_AXES)
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)} not in {_MESH_AXES}")
@@ -262,7 +288,8 @@ def _check_mesh(mesh, cfg: TransformerConfig):
             f"fsdp shards every matrix's d_model dim over the data "
             f"axis: d_model={cfg.d_model} must be divisible by the "
             f"data mesh axis ({dp})")
-    wide = {a: n for a, n in mesh.items() if a != "data" and n > 1}
+    wide = {a: n for a, n in mesh.items()
+            if a not in _PORTED_AXES and n > 1}
     if wide:
         raise NotImplementedError(
             f"mesh axes {wide} are not ported to chainermn_tpu_torch yet; "
@@ -407,9 +434,10 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_DOTS_SAVED)
 
 
-def _attention(cfg: TransformerConfig, h, blk):
-    """Pre-LN attention: QKV projection, the attention core, output
-    projection and residual."""
+def _attention(cfg: TransformerConfig, h, blk, seq):
+    """Pre-LN attention: QKV projection, the attention core (ring or
+    Ulysses over ``seq``, the seq communicator), output projection and
+    residual."""
     cd = cfg.compute_dtype
     win = cfg.attention_window or None
     x = _rms_norm(h, blk["ln1"])
@@ -433,10 +461,34 @@ def _attention(cfg: TransformerConfig, h, blk):
         kv = qkv[..., dq:].reshape(B, T, 2, Hkv, cfg.d_head)
         k, v = kv[:, :, 0], kv[:, :, 1]
     if cfg.pos_embedding == "rope":
-        pos = torch.arange(T, device=x.device)
+        # each token's GLOBAL position, before any rotation or exchange
+        pos = _block_positions(
+            seq.rank, T, seq.size,
+            cfg.seq_layout if cfg.attention == "ring" else "contiguous",
+            x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    if cfg.attention == "flash" and flash_attention_supported(
+    if cfg.attention == "ring":
+        # the kernel a pair wherever the block (each zigzag half) fits it
+        t_run = T // 2 if cfg.seq_layout == "zigzag" else T
+        o = ring_attention(
+            q, k, v, comm=seq, causal=True, window=win,
+            remat=cfg.remat, layout=cfg.seq_layout,
+            use_flash=flash_attention_supported(t_run, t_run, cfg.d_head))
+    elif cfg.attention == "ulysses":
+        # after the exchange each rank holds the whole sequence for its
+        # heads: the kernel runs there, at zero offsets
+        t_full = T * seq.size
+        fa = flash_attention if flash_attention_supported(
+            t_full, t_full, cfg.d_head) else None
+        o = ulysses_attention(q, k, v, comm=seq, causal=True,
+                              window=win, attn_fn=fa)
+    elif cfg.attention == "flash" and seq.size != 1:
+        raise ValueError(
+            'attention="flash" covers only the unsharded-sequence '
+            f'case (mesh seq axis is {seq.size}); use attention="ring" '
+            "to shard the sequence")
+    elif cfg.attention == "flash" and flash_attention_supported(
             T, T, cfg.d_head):
         k, v = broadcast_kv(k, v, q.shape[2] // k.shape[2])
         o = flash_attention(q, k, v, causal=True, window=win)
@@ -459,8 +511,8 @@ def _mlp(cfg: TransformerConfig, h, blk):
     return h + row_parallel_dense(y, blk["w2"].to(cd))
 
 
-def _block(cfg: TransformerConfig, h, blk):
-    return _mlp(cfg, _attention(cfg, h, blk), blk)
+def _block(cfg: TransformerConfig, h, blk, seq):
+    return _mlp(cfg, _attention(cfg, h, blk, seq), blk)
 
 
 def _layer(params, i: int) -> dict:
@@ -468,42 +520,60 @@ def _layer(params, i: int) -> dict:
     return {name: leaf[i] for name, leaf in params["blocks"].items()}
 
 
-def transformer_backbone(cfg: TransformerConfig, params, tokens):
+def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None):
     """Embedding → block stack → final norm: the normed
-    ``(B, T, d_model)`` hidden states in the compute dtype.  With
+    ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
+    is this rank's block of the sequence when ``seq`` (the seq
+    communicator; None: one rank) is sharded; positions are the block's
+    global ones (the zigzag rows under ``seq_layout="zigzag"``).  With
     ``cfg.remat`` and gradients enabled each block runs under
     ``torch.utils.checkpoint``.  ``remat_policy="full"`` keeps only its
-    input, and its forward (the flash kernel included) runs again in the
-    backward; ``"dots"`` also keeps the dense products and the attention
-    core's output, so the backward recomputes only the norms and the
-    elementwise ops."""
+    input, and its forward (the flash kernel and the ring's transfers
+    included, in the same order on every rank) runs again in the
+    backward; ``"dots"`` also keeps the dense products and the
+    attention core's output, so the backward recomputes only the norms
+    and the elementwise ops."""
+    if seq is None:
+        seq = LoopbackCommunicator(device=tokens.device)
     cd = cfg.compute_dtype
     B, T = tokens.shape
-    if T > cfg.max_seq:
-        raise ValueError(f"sequence length {T} exceeds max_seq "
+    if T * seq.size > cfg.max_seq:
+        raise ValueError(f"sequence length {T * seq.size} exceeds max_seq "
                          f"{cfg.max_seq}")
     h = params["embed"][tokens]                          # (B, T, D) fp32
     if cfg.pos_embedding == "rope":
         h = h.to(cd)              # rotations happen inside attention
+    elif cfg.seq_layout == "zigzag":
+        # position rows follow the zigzag permutation of this block
+        h = (h + params["pos"][_block_positions(
+            seq.rank, T, seq.size, "zigzag", h.device)]).to(cd)
     else:
-        h = (h + params["pos"][:T]).to(cd)
+        r = seq.rank
+        h = (h + params["pos"][r * T:(r + 1) * T]).to(cd)
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = _dots_context if cfg.remat_policy == "dots" \
         else noop_context_fn
+    # under a sharded seq axis the recompute runs the whole block on
+    # every rank: stopping it early, after the block's last saved tensor,
+    # would stop the ranks at different transfers of the ring (each rank
+    # skips other masked pairs, and saves other tensors)
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         if remat:
             # the blocks draw no random numbers: no RNG state to replay
-            h = checkpoint(_block, cfg, h, blk, use_reentrant=False,
-                           preserve_rng_state=False, context_fn=context_fn)
+            with set_checkpoint_early_stop(seq.size == 1):
+                h = checkpoint(_block, cfg, h, blk, seq,
+                               use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=context_fn)
         else:
-            h = _block(cfg, h, blk)
+            h = _block(cfg, h, blk, seq)
     return _rms_norm(h, params["ln_f"])
 
 
-def transformer_forward(cfg: TransformerConfig, params, tokens):
+def transformer_forward(cfg: TransformerConfig, params, tokens, seq=None):
     """``(B, T, vocab)`` fp32 logits through the weight-tied head."""
-    h = transformer_backbone(cfg, params, tokens)
+    h = transformer_backbone(cfg, params, tokens, seq)
     return _lm_head(cfg.compute_dtype, h, params["embed"])
 
 
@@ -518,86 +588,112 @@ def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets):
     return -logp.gather(-1, targets[..., None]).sum()
 
 
-def lm_loss(cfg: TransformerConfig, params, inputs, targets):
+def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None):
     """Mean next-token cross-entropy of ``(B, T)`` ``inputs`` against
-    ``targets``.  The JAX package adds ``0.01·aux``, the MoE balancing
-    loss, which is zero for the dense models the port has."""
+    ``targets`` (this rank's block under a sharded ``seq``).  The JAX
+    package adds ``0.01·aux``, the MoE balancing loss, which is zero for
+    the dense models the port has."""
     _check_ported(cfg, training=True)
     targets = targets.long()
-    h = transformer_backbone(cfg, params, inputs)
+    h = transformer_backbone(cfg, params, inputs, seq)
     return _shard_nll_sum(cfg, h, params["embed"], targets) / targets.numel()
 
 
-def _resolve(device, comm):
-    """The device of an entry point: ``comm.device`` when a communicator
-    is given (``device``, if named too, must agree), else
-    :func:`resolve_device`'s rule."""
-    if comm is None:
-        return resolve_device(device)
-    if device is not None and resolve_device(device).type \
-            != comm.device.type:
+def _resolve(device, comm, mesh):
+    """``(device, mesh)`` of an entry point: a :class:`MeshConfig` given
+    as ``mesh``, or ``comm`` as the mesh ``data=comm.size``, or none;
+    the device is the mesh's (``device``, if named too, must agree),
+    else :func:`resolve_device`'s rule."""
+    if comm is not None and mesh is not None:
+        raise ValueError("pass a mesh or a communicator, not both")
+    if comm is None and mesh is None:
+        return resolve_device(device), None
+    dev = (comm or mesh).device
+    if device is not None and resolve_device(device).type != dev.type:
         raise ValueError(f"device {device} but the communicator runs on "
-                         f"{comm.device}")
-    return comm.device
+                         f"{dev}")
+    return dev, mesh or MeshConfig(comm, data=comm.size)
 
 
-def _rows(comm, x, dev):
-    """This rank's rows of the global batch ``x`` on ``dev``: rows
-    ``r·B/N … (r+1)·B/N`` (all of them without a communicator)."""
+def _rows(mesh, x):
+    """This rank's rows of the global batch ``x``: ``d·B/D … (d+1)·B/D``
+    over data; all of it without a mesh."""
     x = torch.as_tensor(x)
-    if comm is None:
-        return x.to(dev)
-    B, n = x.shape[0], comm.size
+    if mesh is None:
+        return x
+    B, n = x.shape[0], mesh.axis_size("data")
     if B % n:
         raise ValueError(f"global batch {B} does not divide over the data "
                          f"axis ({n} ranks)")
-    b = B // n
-    return x[comm.rank * b:(comm.rank + 1) * b].to(dev)
+    d = mesh.axis_index("data")
+    return x[d * (B // n):(d + 1) * (B // n)]
 
 
-def make_forward_fn(cfg: TransformerConfig, device=None, comm=None):
+def _shard(mesh, x, dev):
+    """This rank's block of the global ``(B, T)`` batch ``x`` on ``dev``:
+    its rows (:func:`_rows`), columns ``s·T/S … (s+1)·T/S`` over seq
+    (the JAX ``_BATCH_SPEC``); all of it without a mesh."""
+    x = _rows(mesh, x)
+    if mesh is not None:
+        T, S = x.shape[1], mesh.axis_size("seq")
+        if T % S:
+            raise ValueError(f"sequence length {T} does not divide over "
+                             f"the seq axis ({S} ranks)")
+        s = mesh.axis_index("seq")
+        x = x[:, s * (T // S):(s + 1) * (T // S)]
+    return x.to(dev)
+
+
+def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
+                    mesh=None):
     """``fn(params, tokens) -> logits``: the scoring entry point.
 
     Runs on ``device`` (CUDA unless ``device="cpu"`` is given) under
     ``torch.inference_mode()``.  ``params`` come from
     :func:`.convert.params_from_jax` on the same device; ``tokens`` is
-    ``(B, T)`` integers (array or tensor).  With ``comm`` (the data
-    axis) ``tokens`` is the global batch and each rank returns the
-    logits of its own rows, its shard of the JAX function's output."""
-    dev = _resolve(device, comm)
-    if comm is not None:
-        _check_mesh({"data": comm.size}, cfg)
+    ``(B, T)`` integers (array or tensor).  With a ``mesh`` (or
+    ``comm``, the mesh ``data=comm.size``) ``tokens`` is the global
+    batch and each rank returns the logits of its rows and its block of
+    the sequence, its shard of the JAX function's output."""
+    dev, mesh = _resolve(device, comm, mesh)
+    if mesh is not None:
+        _check_mesh(mesh, cfg)
     _check_ported(cfg, decoding=False)
+    seq = None if mesh is None else mesh.comm("seq")
 
     def forward(params, tokens):
-        tokens = _rows(comm, tokens, dev)
+        tokens = _shard(mesh, tokens, dev)
         with torch.inference_mode():
-            return transformer_forward(cfg, params, tokens)
+            return transformer_forward(cfg, params, tokens, seq)
 
     return forward
 
 
-def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None):
+def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
+                           mesh=None):
     """``fn(params, inputs, targets) -> (loss, grads)``: :func:`lm_loss`
     and its gradient with respect to every parameter leaf, ``grads`` in
     the structure of ``params`` — the gradient half of the JAX
     ``make_train_step``.  ``params`` are read, not modified.  Runs on
     ``device`` (CUDA unless ``device="cpu"`` is given).
 
-    With ``comm`` (the data axis; ``device`` is then the communicator's)
-    ``inputs``/``targets`` are the global batch: each rank takes its
-    rows, and ``loss`` and ``grads`` are the means over the ranks, the
-    gradients meaned in fp32 by ``comm.multi_node_mean_grad``.  On one
-    rank that mean is a copy, so the result is bitwise the step without
-    ``comm``."""
-    dev = _resolve(device, comm)
-    if comm is not None:
-        _check_mesh({"data": comm.size}, cfg)
+    With a ``mesh`` (or ``comm``, the mesh ``data=comm.size``; ``device``
+    is then the communicator's) ``inputs``/``targets`` are the global
+    batch: each rank takes its rows and its block of the sequence, and
+    ``loss`` and ``grads`` are the means over the batch-like group
+    ``(data, expert, seq)``, the gradients meaned in fp32 by
+    ``multi_node_mean_grad``.  On one rank that mean is a copy, so the
+    result is bitwise the step without a mesh."""
+    dev, mesh = _resolve(device, comm, mesh)
+    if mesh is not None:
+        _check_mesh(mesh, cfg)
     _check_ported(cfg, training=True)
+    seq = None if mesh is None else mesh.comm("seq")
+    group = None if mesh is None else mesh.comm(*BATCH_AXES)
 
     def value_and_grad(params, inputs, targets):
-        inputs = _rows(comm, inputs, dev)
-        targets = _rows(comm, targets, dev)
+        inputs = _shard(mesh, inputs, dev)
+        targets = _shard(mesh, targets, dev)
         top = [k for k in params if k != "blocks"]
         live = {k: params[k].detach().requires_grad_() for k in top}
         # each layer's slice of a stacked (L, ...) block leaf is a leaf of
@@ -607,7 +703,7 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None):
                   for k, p in params["blocks"].items()}
         live["blocks"] = layers
         with torch.enable_grad():
-            loss = lm_loss(cfg, live, inputs, targets)
+            loss = lm_loss(cfg, live, inputs, targets, seq)
             grads = torch.autograd.grad(
                 loss, [live[k] for k in top]
                 + [x for xs in layers.values() for x in xs])
@@ -617,29 +713,30 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None):
                          for k, xs in layers.items()}
         grads = {k: out[k] for k in params}
         loss = loss.detach()
-        if comm is not None:
+        if group is not None:
             # fp32 on the wire, as the JAX step's psum: no bf16 wire here
-            grads = comm.multi_node_mean_grad(grads, torch.float32)
-            loss = comm.allreduce(loss, "mean")
+            grads = group.multi_node_mean_grad(grads, torch.float32)
+            loss = group.allreduce(loss, "mean")
         return loss, grads
 
     return value_and_grad
 
 
 def make_train_step(cfg: TransformerConfig, optimizer, device=None,
-                    comm=None):
+                    comm=None, mesh=None):
     """``step(params, opt_state, inputs, targets) -> (params, opt_state,
-    loss)``: the JAX ``make_train_step`` at a mesh with a data axis only
-    (the GPipe branch at pipe size 1).  ``optimizer`` is one of
+    loss)``: the JAX ``make_train_step`` at a mesh with data and seq
+    axes (the GPipe branch at pipe size 1).  ``optimizer`` is one of
     :mod:`chainermn_tpu_torch.training`'s (``adamw``, ``sgd``) and
     ``opt_state`` its ``init(params)``.  ``loss`` is the loss before the
     update.  Where JAX returns new arrays, the port updates ``params``
-    and ``opt_state`` in place and returns them.  With ``comm`` each
-    rank steps on its rows of the global batch and applies the same rule
-    to the same fp32 mean of the gradients (see
-    :func:`make_value_and_grad_fn`), so the ranks' parameters stay
-    equal; ``loss`` is the mean over the ranks."""
-    value_and_grad = make_value_and_grad_fn(cfg, device, comm)
+    and ``opt_state`` in place and returns them.  With a ``mesh`` (or
+    ``comm``, the mesh ``data=comm.size``) each rank steps on its block
+    of the global batch and applies the same rule to the same fp32 mean
+    of the gradients (see :func:`make_value_and_grad_fn`), so the
+    ranks' parameters stay equal; ``loss`` is the mean over the
+    batch-like group."""
+    value_and_grad = make_value_and_grad_fn(cfg, device, comm, mesh)
 
     def step(params, opt_state, inputs, targets):
         loss, grads = value_and_grad(params, inputs, targets)

@@ -85,20 +85,34 @@ Phases (any failure exits non-zero before the last line is printed):
     (``--tiny --steps-per-execution 2 --epoch 3``, TF32 off) on one NCCL
     rank against one gloo rank on this machine's CPU: each epoch's loss
     differences printed, the parameters after the first window held to
-    1e-5 relative L2.
+    1e-5 relative L2;
+15. the mesh's sequence axis on one card (run after phase 13, in its
+    NCCL world): (a) the ring's pair schedule over 4 virtual ranks at
+    the flagship's attention shape (B=8, T=2048, 16 query / 4 KV heads,
+    D=64, bf16), contiguous, zigzag and windowed, forward and gradients
+    against one flash call over the whole sequence and against the plain
+    ring, its launches against the schedule's count, timed against the
+    whole call; (b) Ulysses' head groups bitwise the whole-head call;
+    (c) the flagship's ring step at mesh seq=1 bitwise the flash step
+    over 2 steps; (d) data-axis decoding bitwise the plain decoding.
 
-Phases 3, 6 and 13 are the main paths of the kernels: each starts with
-every launch count at 0 and reads the counts when it ends; phases 7
-to 12 run no hand-written kernel, and hold their counts at 0.  It
-prints the card's name and power limit, a ``{"dp_resnet50": {...}}``
-line of phase 7's metrics, a ``{"large_batch": {...}}`` line of phase
-12's, ``{"lm_data_parallel": {...}}`` of phase 13's, ``{"drift_one_rank":
-{...}}`` of phase 14's, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  Weights are random, from numpy seed 0.  fp32
-references run with TF32 off.
+Phases 3, 6, 13 and 15 (a) and (c) are the main paths of the kernels:
+each starts with every launch count at 0 and reads the counts when it
+ends; phases 7 to 12 run no hand-written kernel, and hold their counts
+at 0.  It prints the card's name and power limit, a
+``{"dp_resnet50": {...}}`` line of phase 7's metrics, a
+``{"large_batch": {...}}`` line of phase 12's,
+``{"lm_data_parallel": {...}}`` of phase 13's, ``{"seq_parallel":
+{...}}`` of phase 15's, ``{"drift_one_rank": {...}}`` of phase 14's, a
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Weights are random, from numpy seed 0.  fp32 references run with TF32
+off.
 
 ``python3 chip_smoke.py --four-cards`` (four cards) runs the checks that
-exist only across cards (:func:`four_cards`).
+exist only across cards (:func:`four_cards`, then
+:func:`four_cards_seq`); ``--four-cards seq`` runs the sequence axis's
+alone: the flagship's step on 4 ranks under ring (contiguous, zigzag),
+Ulysses and data=2, seq=2 against one card's, and seq-KV decoding.
 """
 
 import dataclasses
@@ -2260,6 +2274,235 @@ def phase_drift(np, root, smi):
     return got
 
 
+# the ring's pair schedule at full width: S virtual ranks on one card,
+# the flagship's attention shape (bench_transformer.py:29,45-49)
+SEQ_SHAPE = dict(S=4, B=8, T=2048, H=16, G=4, D=64)
+# (layout, window) of phase 15 (a): both layouts, and a window that
+# reaches back over two blocks of 512
+SEQ_CASES = (("contiguous", None), ("zigzag", None), ("contiguous", 700))
+# The ring's bf16 outputs against one kernel call over the whole
+# sequence: both round o to bf16 once (2^-9 relative RMS) and p before
+# P·V; the ring rounds each pair's o to bf16 before its fp32 merge, and
+# autograd sums the pairs' bf16 gradients of one block (S-1 more bf16
+# additions).  Against the fp32 plain ring (the einsum scan on the same
+# bf16 values) the kernels' own bf16 roundings count too.
+SEQ_O_REL = 1e-2
+SEQ_GRAD_REL = 2e-2
+
+
+def _ring_run(torch, fn, q, k, v, do):
+    """``fn(q, k, v)`` and the gradients of ``sum(o · do)``."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v)
+    return [o.detach()] + list(torch.autograd.grad((o * do).sum(),
+                                                   (q, k, v)))
+
+
+def phase_seq_parallel(torch, np, root, smi):
+    """15. The mesh's sequence axis on one card.  (a) The ring's pair
+    schedule over ``S`` = 4 virtual ranks (every rank's ring body on
+    this card, the visiting blocks read locally: ``simulate_ring``) at
+    the flagship's attention shape, contiguous, zigzag and windowed:
+    forward and the three gradients against one flash call over the
+    whole sequence and against the plain ring (the einsum scan in
+    fp32), and the kernels' launches against what the schedule
+    predicts; timed against the whole-sequence call.  (b) The head
+    groups Ulysses' kernel call sees after its exchange: each group's
+    call (its query heads, its K/V heads broadcast to them) bitwise the
+    whole-head call's slice, forward and backward; the exchange itself
+    (``ulysses_attention`` over NCCL) runs only under ``--four-cards``,
+    one card holding one rank.  (c) The flagship's ``make_train_step`` with
+    ``attention="ring"`` at mesh ``seq=1`` on the one-rank NCCL world
+    bitwise the ``attention="flash"`` step over 2 steps.  (d) The
+    data-axis ``make_generate_fn`` on the same rank bitwise the plain
+    one.  Returns the launch counts of (a) and (c) and the printed
+    metrics."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_generate_fn,
+        make_train_step, params_from_jax)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import (
+        MeshConfig, broadcast_kv, simulate_ring, zigzag_indices)
+    from chainermn_tpu_torch.parallel.ring_attention import ring_launches
+
+    t_phase = time.perf_counter()
+    S, B, T, H, G, D = (SEQ_SHAPE[k] for k in "S B T H G D".split())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, do = (torch.randn(B, T, H, D, device=dev, generator=gen,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, T, G, D, device=dev, generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    metrics = dict(card=smi, shape=SEQ_SHAPE, ring={})
+    counts = {}
+
+    # (a) the ring's pair schedule against the whole-sequence call
+    def whole(q, k, v, window):
+        kb, vb = broadcast_kv(k, v, H // G)
+        return fa(q, kb, vb, causal=True, window=window)
+
+    for layout, window in SEQ_CASES:
+        name = layout + ("" if window is None else f"_window{window}")
+        perm = torch.as_tensor(zigzag_indices(S, T).reshape(-1),
+                               device=dev) if layout == "zigzag" \
+            else torch.arange(T, device=dev)
+        lq, lk, lv, ldo = (t[:, perm].contiguous() for t in (q, k, v, do))
+        kw = dict(S=S, causal=True, window=window, layout=layout)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        ring = _ring_run(torch, lambda a, b, c: simulate_ring(
+            a, b, c, use_flash=True, **kw), lq, lk, lv, ldo)
+        torch.cuda.synchronize()
+        got = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+        n = ring_launches(S, T // S, causal=True, window=window,
+                          layout=layout)
+        counts["simulated_ring_" + name] = got
+        require(got == (n, n, n), f"(a) {name}: launches {got}, the "
+                f"schedule predicts {(n, n, n)}")
+        one = [t[:, perm] for t in _ring_run(
+            torch, lambda a, b, c: whole(a, b, c, window), q, k, v, do)]
+        plain = _ring_run(torch, lambda a, b, c: simulate_ring(
+            a, b, c, use_flash=False, remat=False, **kw),
+            lq.float(), lk.float(), lv.float(), ldo.float())
+        row = dict(launches=got, predicted=n, pairs_unmasked=S * S * (
+            4 if layout == "zigzag" else 1))
+        for ref_name, ref in (("whole_kernel", one), ("plain", plain)):
+            for t_name, a, b, bar in zip(
+                    ("o", "dq", "dk", "dv"), ring, ref,
+                    (SEQ_O_REL,) + (SEQ_GRAD_REL,) * 3):
+                rel = rel_err(a.float(), b.float())
+                row[f"{t_name}_vs_{ref_name}_rel_l2"] = rel
+                row[f"{t_name}_vs_{ref_name}_max_abs"] = (
+                    a.float() - b.float()).abs().max().item()
+                require(rel < bar, f"(a) {name}: {t_name} against the "
+                        f"{ref_name}: relative L2 {rel:.3e} >= {bar}")
+        del plain, one, ring
+        # times: the whole schedule (every rank's body, one after the
+        # other) against the one call, forward and forward + backward
+        with torch.no_grad():
+            row["ring_fwd_ms"] = cuda_ms(lambda: simulate_ring(
+                lq, lk, lv, use_flash=True, **kw), reps=5, runs=3)
+            row["whole_fwd_ms"] = cuda_ms(
+                lambda: whole(q, k, v, window), reps=5, runs=3)
+        row["ring_fwd_bwd_ms"] = cuda_ms(lambda: _ring_run(
+            torch, lambda a, b, c: simulate_ring(a, b, c, use_flash=True,
+                                                 **kw), lq, lk, lv, ldo),
+            reps=3, runs=3)
+        row["whole_fwd_bwd_ms"] = cuda_ms(lambda: _ring_run(
+            torch, lambda a, b, c: whole(a, b, c, window), q, k, v, do),
+            reps=3, runs=3)
+        metrics["ring"][name] = row
+        print(f"seq-parallel (a) {name}: the ring over {S} virtual ranks "
+              f"at B={B} T={T} H={H} G={G} D={D} bf16: launches {got} "
+              f"(predicted {n} of {row['pairs_unmasked']} pairs); o, dq, "
+              f"dk, dv against the whole-sequence call rel L2 "
+              + ", ".join(f"{row[t + '_vs_whole_kernel_rel_l2']:.3e}"
+                          for t in ("o", "dq", "dk", "dv"))
+              + "; against the fp32 plain ring "
+              + ", ".join(f"{row[t + '_vs_plain_rel_l2']:.3e}"
+                          for t in ("o", "dq", "dk", "dv"))
+              + f"; forward {row['ring_fwd_ms']:.4f} ms against "
+              f"{row['whole_fwd_ms']:.4f}, forward+backward "
+              f"{row['ring_fwd_bwd_ms']:.4f} against "
+              f"{row['whole_fwd_bwd_ms']:.4f} ms")
+        del lq, lk, lv, ldo
+
+    # (b) the head groups of Ulysses' kernel call: after the exchange
+    # (not run here) rank j holds query heads [j·H/S, (j+1)·H/S) and
+    # their K/V heads, broadcast to them; the kernels' outputs (o; dq,
+    # dk, dv at query width) of each group against the whole-head call's
+    kb, vb = broadcast_kv(k, v, H // G)
+
+    def call(a, b, c):
+        return fa(a, b, c, causal=True)
+
+    whole_out = _ring_run(torch, call, q, kb, vb, do)
+    hs = H // S
+    same = True
+    for j in range(S):
+        sl = slice(j * hs, (j + 1) * hs)
+        part = _ring_run(torch, call, q[:, :, sl], kb[:, :, sl],
+                         vb[:, :, sl], do[:, :, sl])
+        same &= all(bool(torch.equal(a, b[:, :, sl]))
+                    for a, b in zip(part, whole_out))
+    metrics["ulysses_groups_bitwise"] = same
+    print(f"seq-parallel (b): the {S} head groups of Ulysses' kernel call "
+          f"({hs} query heads each, their K/V broadcast; no exchange on "
+          f"one card) against the whole-head call: the kernels' o, dq, "
+          f"dk, dv bitwise: {same}")
+    require(same, "(b) a head group's kernel output differs from the "
+                  "whole-head call's")
+    del whole_out, q, k, v, do, kb, vb
+
+    # (c) the ring at mesh seq=1 on the one-rank NCCL world against the
+    # flash step: the ring's single pair is the flash call
+    comm = cmn.create_communicator(device=dev.type)
+    mesh = MeshConfig(comm, data=1, seq=1)
+    cfg = TransformerConfig(**dict(FLAGSHIP, remat=True))
+    tree = init_numpy_params(cfg, SEED)
+    rng = np.random.RandomState(SEED)
+    toks = rng.randint(0, cfg.vocab_size, (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    steps = {}
+    for name, c, m in (("flash", cfg, None),
+                       ("ring", dataclasses.replace(cfg, attention="ring"),
+                        mesh)):
+        params = params_from_jax(tree, cfg, dev)
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(c, opt, device=dev, mesh=m)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        losses = [step(params, state, x, y)[2] for _ in range(2)]
+        torch.cuda.synchronize()
+        if name == "ring":                                # path ended
+            counts["seq1_ring_train"] = (fa.launches, fa.dq_launches,
+                                         fa.dkv_launches)
+        steps[name] = (losses, params)
+        del state
+    L = cfg.n_layers
+    require(counts["seq1_ring_train"] == (4 * L, 2 * L, 2 * L),
+            f"(c) launches over 2 steps {counts['seq1_ring_train']}, want "
+            f"{(4 * L, 2 * L, 2 * L)}")
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(
+        steps["ring"][0], steps["flash"][0])) and trees_equal(
+        torch, steps["ring"][1], steps["flash"][1])
+    metrics["seq1_ring_step_bitwise"] = bitwise
+    metrics["seq1_losses"] = [v.item() for v in steps["ring"][0]]
+    print(f"seq-parallel (c): the flagship's ring step at mesh seq=1 on one "
+          f"NCCL rank against the flash step, 2 steps: losses "
+          f"{metrics['seq1_losses']} vs "
+          f"{[v.item() for v in steps['flash'][0]]}, bitwise {bitwise}; "
+          f"launches {counts['seq1_ring_train']}")
+    require(bitwise, "(c) the seq=1 ring step is not the flash step")
+    params = steps["flash"][1]
+    del steps
+
+    # (d) the data axis of decoding on one rank against the plain one
+    P, NEW = 128, 64
+    prompts = rng.randint(0, cfg.vocab_size, (8, P))
+    plain = make_generate_fn(cfg, max_len=P + NEW, device=dev)(params,
+                                                              prompts)
+    eos = int(plain[0, P + 10])
+    kw = dict(max_len=P + NEW, eos_id=eos, with_row_state=True,
+              device=dev)
+    want = make_generate_fn(cfg, **kw)(params, prompts)
+    got = make_generate_fn(cfg, mesh=mesh, **kw)(params, prompts)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    metrics["dp_generate_bitwise"] = same
+    print(f"seq-parallel (d): data-axis make_generate_fn on one NCCL rank "
+          f"against the plain one, eos={eos}, gen_len "
+          f"{got[2].tolist()}: tokens, done, gen_len bitwise {same}")
+    require(same, "(d) data-axis decoding differs from the plain one")
+    del params
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"seq_parallel": metrics}))
+    print(f"seq-parallel: phase {metrics['seconds']:.1f} s ({smi})")
+    return counts, metrics
+
+
 def tree_rel_err(a, b):
     """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
     from chainermn_tpu_torch.training.optimizers import tree_leaves
@@ -2429,6 +2672,9 @@ def main():
 
     # 13. the flagship data-parallel through train_lm_torch.py ----------
     lm_counts, _ = phase_lm_data_parallel(torch, np, root, smi)
+
+    # 15. the mesh's sequence axis on one card --------------------------
+    seq_counts, _ = phase_seq_parallel(torch, np, root, smi)
     torch.distributed.destroy_process_group()
 
     # 14. Queue C: the large-batch example on one card against the CPU --
@@ -2441,20 +2687,24 @@ def main():
              replaces=tpu + "65", launches=counts["flash_fwd"],
              launches_by_path=dict(scoring=launches,
                                    training=counts["flash_fwd"],
-                                   lm_data_parallel=lm_counts["flash_fwd"]),
+                                   lm_data_parallel=lm_counts["flash_fwd"],
+                                   **{f"seq_{p}": c[0] for p, c in
+                                      seq_counts.items()}),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
              launches_by_path=dict(
                  training=counts["flash_bwd_dq"],
-                 lm_data_parallel=lm_counts["flash_bwd_dq"]),
+                 lm_data_parallel=lm_counts["flash_bwd_dq"],
+                 **{f"seq_{p}": c[1] for p, c in seq_counts.items()}),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
              launches=counts["flash_bwd_dkv"],
              launches_by_path=dict(
                  training=counts["flash_bwd_dkv"],
-                 lm_data_parallel=lm_counts["flash_bwd_dkv"]),
+                 lm_data_parallel=lm_counts["flash_bwd_dkv"],
+                 **{f"seq_{p}": c[2] for p, c in seq_counts.items()}),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -2740,6 +2990,248 @@ def four_cards(root, smi):
     return 0
 
 
+# --four-cards' sequence axis: the flagship's step on 4 ranks under each
+# mesh and attention, against one card's flash step on the same global
+# batch (name, mesh, attention, layout)
+SEQ_FOUR = (("ring_contiguous", "seq=4", "ring", "contiguous"),
+            ("ring_zigzag", "seq=4", "ring", "zigzag"),
+            ("ulysses", "seq=4", "ulysses", "contiguous"),
+            ("data2_seq2_ring", "data=2,seq=2", "ring", "contiguous"))
+SEQ_STEPS = 3
+# bf16 steps of one model on one batch, the attention split otherwise:
+# the first loss differs by the forward's roundings (the pairs' bf16
+# outputs merged, against one call), the later ones also by the
+# updates' (AdamW's first steps move each weight by about lr, whatever
+# its gradient's last bits)
+SEQ_LOSS_REL = (1e-3, 5e-3, 5e-3)
+
+
+def _mesh_axes(spec):
+    return {k: int(v) for k, v in (p.split("=") for p in spec.split(","))}
+
+
+def seq_predicted_launches(cfg, mesh, steps):
+    """The flash kernels' launches ``(forward, dq, dk/dv)`` that
+    ``steps`` training steps of ``cfg`` make on this rank of ``mesh``:
+    each layer runs its attention core once forward, again in the remat
+    recompute (the checkpoint reruns the whole block), and once
+    backward; the core launches this rank's share of the ring's live
+    pairs (``ring_launches(rank=)``), or one call (flash, Ulysses)."""
+    from chainermn_tpu_torch.parallel.ring_attention import ring_launches
+
+    S = mesh.axis_size("seq")
+    n = 1
+    if cfg.attention == "ring":
+        n = ring_launches(S, cfg.max_seq // S, causal=True,
+                          window=cfg.attention_window or None,
+                          layout=cfg.seq_layout,
+                          rank=mesh.axis_index("seq"))
+    n *= steps * cfg.n_layers
+    return ((2 if cfg.remat else 1) * n, n, n)
+
+
+def seq_rank(out, name, mesh_spec, attention, layout):
+    """One rank (under torchrun) of the flagship's step over a mesh with
+    a seq axis: 8 x 2048 tokens globally (the same batch on every mesh),
+    ``SEQ_STEPS`` steps, each timed (host clock around a synchronised
+    step) and the ranks' parameters compared bitwise after it (the
+    all-reduced max and min of their int32 views).  The flash kernels'
+    launch counts are set to 0 just before the steps and read just
+    after, on every rank, beside what :func:`seq_predicted_launches`
+    predicts.  Then one more step is traced on every rank
+    (``profile_port.trace``: wall, device busy time, idle share, time by
+    kind of kernel).  Rank 0 writes ``out/seq.json`` with every rank's
+    counts and trace."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    import chainermn_tpu_torch as cmn
+    import profile_port
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        params_from_jax)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig, zigzag_indices
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
+    cfg = TransformerConfig(**dict(FLAGSHIP, attention=attention,
+                                   seq_layout=layout, remat=True))
+    params = params_from_jax(init_numpy_params(cfg, SEED), cfg,
+                             comm.device)
+    opt = training.adamw(3e-4)
+    state = opt.init(params)
+    toks = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    if layout == "zigzag":
+        perm = zigzag_indices(mesh.axis_size("seq"), cfg.max_seq).reshape(-1)
+        x, y = x[:, perm], y[:, perm]
+    step = make_train_step(cfg, opt, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, equal = [], [], []
+    torch.cuda.synchronize()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0      # path starts
+    for _ in range(SEQ_STEPS):
+        comm.barrier()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        same = True
+        for t in pytree.tree_leaves(params):
+            bits = t.detach().view(torch.int32)
+            same &= bool(torch.equal(comm.allreduce(bits, "max"),
+                                     comm.allreduce(bits, "min")))
+        equal.append(same)
+    torch.cuda.synchronize()
+    mine = dict(rank=comm.rank, coords=mesh.coords,                # ended
+                launches=(fa.launches, fa.dq_launches, fa.dkv_launches),
+                predicted=seq_predicted_launches(cfg, mesh, SEQ_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    comm.barrier()
+    mine["trace"] = profile_port.trace(
+        torch, lambda: step(params, state, x, y), name, warm=False,
+        show=False)
+    ranks = comm.allgather_obj(mine)
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "seq.json").write_text(json.dumps(dict(
+            name=name, mesh=mesh.shape, attention=attention, layout=layout,
+            world=comm.size, tokens=8 * cfg.max_seq, times_ms=times,
+            losses=losses, ranks_equal=equal, peak_gib=peak, ranks=ranks)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def seq_decode_rank(out):
+    """One rank (under torchrun, 4 ranks) of decoding over mesh data=2,
+    seq=2 with the seq-KV cache: the flagship in fp32 (8 prompts of 128
+    tokens, 64 new), each data member its 4 rows, each seq member half
+    of the cache; rank 0 also decodes the whole batch alone on its card,
+    and writes ``out/decode.json``: the tokens of both and the one
+    card's top-2 logit gap at each step."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_generate_fn,
+        params_from_jax)
+    from chainermn_tpu_torch.parallel import MeshConfig
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, data=2, seq=2)
+    cfg = TransformerConfig(**dict(FLAGSHIP, dtype="float32"))
+    params = params_from_jax(init_numpy_params(cfg, SEED), cfg,
+                             comm.device)
+    P, NEW = 128, 64
+    prompts = np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (8, P))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = make_generate_fn(cfg, max_len=P + NEW, mesh=mesh)(params,
+                                                             prompts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rows = np.concatenate(mesh.comm("data").allgather_obj(
+        toks.cpu().numpy()))
+    if comm.rank == 0:
+        one, logits = make_generate_fn(cfg, max_len=P + NEW,
+                                       with_logits=True,
+                                       device=comm.device)(params, prompts)
+        top2 = logits.topk(2, dim=-1).values
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "decode.json").write_text(json.dumps(dict(
+            mesh=mesh.shape, seq_kv=rows.tolist(),
+            one_card=one.cpu().numpy().tolist(),
+            gap=(top2[..., 0] - top2[..., 1]).cpu().numpy().tolist(),
+            prompt=P, ms=ms)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_seq(root, smi):
+    """``--four-cards``' sequence axis: the flagship's step at full width
+    on the same global batch (8 x 2048 tokens) under each of
+    ``SEQ_FOUR`` on 4 ranks, and one card's flash step; each mesh's
+    losses within ``SEQ_LOSS_REL`` of one card's, its ranks' parameters
+    bitwise equal after every step, and every rank's flash launches
+    those the schedule predicts; ms a step and tokens/s a card, and
+    each rank's traced step.
+    Then decoding at data=2, seq=2 with the seq-KV cache (fp32) against
+    one card's ``generate``: every row's tokens equal up to the first
+    step whose one-card top-2 logit gap is a near-tie (below 1e-3)."""
+    import numpy as np
+
+    from chainermn_tpu_torch import _build
+
+    out = root / "build" / "four_cards" / "seq"
+    me = str(Path(__file__).resolve())
+    _build.build_all()          # once, before the children load them
+    res = {}
+    runs = (("one_card_flash", "data=1", "flash", "contiguous"),) + SEQ_FOUR
+    for name, mesh, attention, layout in runs:
+        n = 1 if name == "one_card_flash" else 4
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node",
+                        str(n), me, "--seq-rank", str(out / name), name,
+                        mesh, attention, layout], check=True, timeout=300)
+        res[name] = json.loads((out / name / "seq.json").read_text())
+    one = res["one_card_flash"]
+    report = {}
+    for name, r in res.items():
+        # every rank's launches on the path: what its schedule predicts
+        got = {q["rank"]: q["launches"] for q in r["ranks"]}
+        want = {q["rank"]: q["predicted"] for q in r["ranks"]}
+        require(got == want, f"{name}: flash launches (forward, dq, "
+                f"dk/dv) by rank {got}, the schedule predicts {want}")
+    launches_by_path = {name: {q["rank"]: q["launches"] for q in
+                               r["ranks"]} for name, r in res.items()}
+    for name, *_ in SEQ_FOUR:
+        r = res[name]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                   one["losses"])]
+        ms = statistics.median(r["times_ms"][1:])
+        report[name] = dict(
+            r, loss_rel_diff=rel, steady_ms=ms,
+            tokens_per_s_per_card=r["tokens"] / ms * 1e3 / r["world"],
+            one_card_steady_ms=statistics.median(one["times_ms"][1:]))
+        require(all(r["ranks_equal"]) and len(r["ranks_equal"])
+                == SEQ_STEPS, f"{name}: ranks differ: {r['ranks_equal']}")
+        require(all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
+        require(all(e < bar for e, bar in zip(rel, SEQ_LOSS_REL)),
+                f"{name}: losses {r['losses']} against one card's "
+                f"{one['losses']}: relative {rel}, bars {SEQ_LOSS_REL}")
+    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                    me, "--seq-decode", str(out / "decode")], check=True,
+                   timeout=300)
+    dec = json.loads((out / "decode" / "decode.json").read_text())
+    P = dec["prompt"]
+    seq_kv, one_card = np.asarray(dec["seq_kv"]), np.asarray(dec["one_card"])
+    gap = np.asarray(dec["gap"])
+    rows_equal = (seq_kv == one_card).all(axis=1)
+    held = True
+    for b in np.flatnonzero(~rows_equal):
+        first = int(np.flatnonzero(seq_kv[b] != one_card[b])[0])
+        # step first - P predicted position first; a near-tie before it
+        # (or at it) may round either way in fp32
+        held &= bool((gap[b, :first - P + 1] < 1e-3).any())
+    report["decode_data2_seq2"] = dict(
+        rows_bitwise=int(rows_equal.sum()), rows=len(rows_equal),
+        ms=dec["ms"], min_gap=float(gap.min()))
+    print(json.dumps({"seq_four_cards": dict(
+        report, launches_by_path=launches_by_path,
+        one_card_flash_trace=one["ranks"][0]["trace"], card=smi)}))
+    require(held, f"seq-KV decoding differs from one card's before any "
+            f"near-tie: rows bitwise {rows_equal.tolist()}")
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2751,7 +3243,18 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--four-cards"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         print(card_name())
-        sys.exit(four_cards(Path(__file__).resolve().parent, card_name()))
+        here = Path(__file__).resolve().parent
+        if sys.argv[2:3] == ["seq"]:
+            # the sequence axis alone
+            sys.exit(four_cards_seq(here, card_name()))
+        sys.exit(four_cards(here, card_name())
+                 or four_cards_seq(here, card_name()))
+    if sys.argv[1:2] == ["--seq-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(seq_rank(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--seq-decode"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(seq_decode_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--drift-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(drift_child(*sys.argv[2:6]))

@@ -1,22 +1,29 @@
 """Greedy text generation with the flagship transformer on the
 PyTorch/CUDA port — ``generate.py``'s greedy KV-cache path through
-``chainermn_tpu_torch``, on one rank.  It runs from ``lm_state.npz``
-written by ``train_lm_torch.py --checkpoint`` (so train → generate is a
-complete loop) or from seeded random weights for a smoke run:
+``chainermn_tpu_torch``, on one rank or over a mesh's data and seq axes.
+It runs from ``lm_state.npz`` written by ``train_lm_torch.py
+--checkpoint`` (so train → generate is a complete loop) or from seeded
+random weights for a smoke run:
 
     python examples/transformer/generate_torch.py --checkpoint ck \\
         --prompt 5,11,2 --max-len 32
     python examples/transformer/generate_torch.py --device cpu \\
         --checkpoint ck --tokenizer ck/bpe.json --vocab 512 \\
         --prompt-text "ChainerMN is"
+    # 2-way data x 2-way sequence-parallel KV cache, one process a card
+    torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
+        --mesh data=2,seq=2 --max-len 64
 
-Pass the model flags the training run used (``--vocab`` as the training
-run printed it, with a tokenizer).  Sampling (``--temperature``,
-``--top-k``, ``--top-p``) comes with the serving slice (ROADMAP Queue A
-item 12); ``--beam``, ``--speculative-k``, ``--lookup-k``, ``--int8`` and
-``--kv-int8`` with the remaining models and decoders (item 9);
-``--vocab-parallel`` and mesh axes other than data with the parallel
-slice (item 8).  Each raises.
+``--mesh data=D,seq=R`` decodes on a world of ``D·R`` ranks: each data
+member its rows of the batch, the seq members of a row each a block of
+the KV cache; rank 0 prints the whole batch.  Without a data or seq axis
+above 1 one rank decodes.  Pass the model flags the training run used
+(``--vocab`` as the training run printed it, with a tokenizer).
+Sampling (``--temperature``, ``--top-k``, ``--top-p``) comes with the
+serving slice (ROADMAP Queue A item 12); ``--beam``, ``--speculative-k``,
+``--lookup-k``, ``--int8`` and ``--kv-int8`` with the remaining models and
+decoders (item 9); ``--vocab-parallel`` and model, pipe and expert axes
+with the rest of the parallel slice (item 8).  Each raises.
 """
 
 import argparse
@@ -49,8 +56,9 @@ _UNPORTED = (
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="one rank: the data axis resolves to 1; other "
-                        "axes are not ported")
+                   help="data=D,seq=R over a world of D*R ranks (rows "
+                        "over data, the KV cache's length over seq); "
+                        "without an axis above 1 one rank decodes")
     p.add_argument("--vocab", type=int, default=128)
     p.add_argument("--d-model", type=int, default=64)
     p.add_argument("--n-heads", type=int, default=4)
@@ -103,7 +111,8 @@ def parse_args(argv=None):
 
 
 def main(argv=None, keep_logits=False):
-    """Generate; returns a namespace of ``tokens`` ``(B, max_len)``,
+    """Generate; returns a namespace of ``tokens`` ``(B, max_len)`` (the
+    whole batch, on every rank of a mesh),
     ``cfg``, ``params``, ``prompt``, ``prompt_lens`` and, with
     ``keep_logits``, ``logits``: the fp32 logits of every decode step
     (``make_generate_fn(with_logits=True)``)."""
@@ -123,15 +132,30 @@ def main(argv=None, keep_logits=False):
     from chainermn_tpu_torch.models.transformer import _check_mesh
     from chainermn_tpu_torch.utils.serialization import load_state
 
-    dev = resolve_device(args.device)
+    axes = parse_mesh(args.mesh)
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model,
         n_heads=args.n_heads, d_head=args.d_model // args.n_heads,
         n_kv_heads=args.n_kv_heads, d_ff=args.d_ff or 4 * args.d_model,
         n_layers=args.n_layers, max_seq=args.max_len, attention="local",
         pos_embedding=args.pos_embedding, dtype=args.dtype, remat=False)
-    # one rank decodes: data resolves to 1
-    _check_mesh(parse_mesh(args.mesh, world=1), cfg)
+    _check_mesh(axes, cfg)
+    mesh = None
+    if any(n > 1 for n in axes.values()):
+        # a world: one process a device, the axes must make it up
+        import chainermn_tpu_torch as cmn
+        from chainermn_tpu_torch.parallel import MeshConfig
+
+        import torch.distributed as dist
+
+        owns_world = not dist.is_initialized()
+        comm = cmn.create_communicator(device=args.device)
+        mesh = MeshConfig(comm, **parse_mesh(args.mesh, comm.size))
+        dev = comm.device
+    else:
+        dev = resolve_device(args.device)
+    lead = mesh is None or mesh.world.rank == 0
+    say = print if lead else (lambda *a: None)
 
     ckpt_file = (os.path.join(args.checkpoint, "lm_state.npz")
                  if args.checkpoint else None)
@@ -149,7 +173,7 @@ def main(argv=None, keep_logits=False):
             cfg = dataclasses.replace(
                 cfg, max_seq=saved["params"]["pos"].shape[0])
         params = params_from_jax(saved["params"], cfg, dev)
-        print(f"loaded {ckpt_file}")
+        say(f"loaded {ckpt_file}")
     else:
         params = init_transformer(torch.Generator().manual_seed(args.seed),
                                   cfg, device=dev)
@@ -204,24 +228,30 @@ def main(argv=None, keep_logits=False):
         prompt = np.tile(np.asarray(toks, np.int32), (args.batchsize, 1))
 
     def show(ids, label="generated"):
-        print(f"{label}:", list(map(int, ids)))
+        say(f"{label}:", list(map(int, ids)))
         if tok is not None:
-            print(f"{label} text:", repr(tok.decode_text(ids)))
+            say(f"{label} text:", repr(tok.decode_text(ids)))
 
     gen = make_generate_fn(cfg, max_len=args.max_len, eos_id=args.eos_id,
                            pad_id=args.pad_id, with_logits=keep_logits,
-                           device=dev)
+                           device=None if mesh else dev, mesh=mesh)
     out = gen(params, prompt, prompt_lens=prompt_lens)
     logits = None
     if keep_logits:
         out, logits = out
     out_np = out.cpu().numpy()
+    if mesh is not None:
+        # the whole batch: each data member's rows, in order
+        out_np = np.concatenate(mesh.comm("data").allgather_obj(out_np))
+        out = torch.as_tensor(out_np)
     if prompt_lens is not None:
         for b in range(out_np.shape[0]):
             start = prompt.shape[1] - int(prompt_lens[b])
             show(out_np[b, start:].tolist(), label=f"row {b}")
     else:
         show(out_np[0].tolist())
+    if mesh is not None and owns_world:
+        dist.destroy_process_group()
     return types.SimpleNamespace(tokens=out, logits=logits, cfg=cfg,
                                  params=params, prompt=prompt,
                                  prompt_lens=prompt_lens, tok=tok)

@@ -1,13 +1,15 @@
 """Flagship transformer LM training on the PyTorch/CUDA port — the data
-axis of ``train_lm.py`` through ``chainermn_tpu_torch``: ChainerMN's data
-parallelism for the language model.
+and sequence axes of ``train_lm.py`` through ``chainermn_tpu_torch``:
+ChainerMN's data parallelism for the language model, and ring or
+Ulysses attention over a sequence axis for long contexts.
 
 One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``);
-``--mesh data=N`` must name the world (``data=-1``, the default, is the
-world).  The weights come from ``torch.Generator`` seed 0 and
-``bcast_data`` gives rank 0's to every rank; each step takes the global
-batch, each rank its rows of it, and the gradients are meaned in fp32
-(``make_train_step(comm=...)``):
+``--mesh data=D,seq=S`` must name the world (``data=-1``, the default,
+absorbs what ``seq`` leaves of it).  The weights come from
+``torch.Generator`` seed 0 and ``bcast_data`` gives rank 0's to every
+rank; each step takes the global batch, each rank its rows over
+``data`` and its block of the sequence over ``seq``, and the gradients
+are meaned in fp32 over both (``make_train_step(mesh=...)``):
 
     torchrun --nproc_per_node 8 examples/transformer/train_lm_torch.py \\
         --mesh data=8 --attention flash --dtype bfloat16 --remat
@@ -16,6 +18,10 @@ batch, each rank its rows of it, and the gradients are meaned in fp32
         --vocab 32000 --d-model 1024 --n-heads 16 --n-kv-heads 4 \\
         --n-layers 24 --seq 2048 --batchsize 64 --attention flash \\
         --dtype bfloat16 --remat --lr 3e-4
+    # 2-way data x 2-way sequence, the zigzag ring
+    torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
+        --mesh data=2,seq=2 --attention ring --seq-layout zigzag \\
+        --dtype bfloat16 --remat
     # the CPU over gloo, with a BPE vocabulary over a text file
     torchrun --nproc_per_node 2 examples/transformer/train_lm_torch.py \\
         --device cpu --mesh data=2 --text-file SURVEY.md \\
@@ -24,19 +30,21 @@ batch, each rank its rows of it, and the gradients are meaned in fp32
 The data is ``train_lm.py``'s: synthetic sequences with an affine
 next-token rule, or ``--text-file`` windows (raw bytes, or BPE ids with
 ``--tokenizer-vocab``), drawn from the same ``np.random.RandomState``
-streams, so the batches are bitwise the JAX example's.  The config is the
-JAX example's (fp32, no remat) unless ``--dtype``, ``--d-ff``, ``--remat``
-and ``--remat-policy`` (``TransformerConfig``'s fields) say otherwise.
-``--remat-policy dots`` recomputes less on the card but runs its
-selective checkpoint's Python dispatch on every op, which makes the
+streams, so the batches are bitwise the JAX example's.  Under
+``--seq-layout zigzag`` inputs and targets are permuted by
+``zigzag_indices`` before the step, as ``train_lm.py`` does.  The config
+is the JAX example's (fp32, no remat) unless ``--dtype``, ``--d-ff``,
+``--remat`` and ``--remat-policy`` (``TransformerConfig``'s fields) say
+otherwise.  ``--remat-policy dots`` recomputes less on the card but runs
+its selective checkpoint's Python dispatch on every op, which makes the
 host-bound flagship step slower than the full policy, so the flagship
 command above uses ``--remat`` alone.
 ``--checkpoint DIR`` saves ``lm_state.npz`` (the port's container: params
 in the JAX layout, the optimizer's state, the step) at the end and
-resumes from it.  Model, sequence, pipe and expert axes, ``--moe``,
-``--fsdp``, ``--vocab-parallel``, ``--seq-layout zigzag``, the
-1F1B/interleaved schedules and a checkpoint grouped for a pipe axis come
-with the parallel slice (ROADMAP Queue A item 8) and raise.
+resumes from it.  Model, pipe and expert axes, ``--moe``, ``--fsdp``,
+``--vocab-parallel``, the 1F1B/interleaved schedules and a checkpoint
+grouped for a pipe axis come with the rest of the parallel slice
+(ROADMAP Queue A item 8) and raise.
 """
 
 import argparse
@@ -54,22 +62,27 @@ _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
 
 
 def parse_mesh(spec: str, world=None):
-    """``"data=2,model=1"`` as ``{"data": 2, "model": 1}``.  With
-    ``world``, ``data=-1`` (or no ``data``) becomes the world and any
-    other ``data`` must equal it: one process a device."""
+    """``"data=2,seq=2"`` as ``{"data": 2, "seq": 2}``.  With ``world``,
+    ``data=-1`` (or no ``data``) absorbs what the other axes leave of
+    the world, and the axes must then make up the world: one process a
+    device."""
     axes = {}
     for part in filter(None, spec.split(",")):
         k, _, v = part.partition("=")
         axes[k.strip()] = int(v)
     if world is not None:
+        rest = 1
+        for k, v in axes.items():
+            if k != "data":
+                rest *= v
         data = axes.get("data", -1)
         if data == -1:
-            data = world
-        if data != world:
+            data = max(world // rest, 1)
+        if data * rest != world:
             raise SystemExit(
-                f"--mesh data={data}, but the world has {world} ranks: the "
-                "port runs one process a device (launch with torchrun "
-                f"--nproc_per_node {data})")
+                f"--mesh {spec} needs {data * rest} ranks, but the world "
+                f"has {world}: the port runs one process a device "
+                f"(launch with torchrun --nproc_per_node {data * rest})")
         axes["data"] = data
     return axes
 
@@ -175,9 +188,9 @@ def make_batches(vocab, batch, seq, steps, seed=0):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="comma list of axis sizes; only the data axis is "
-                        "ported, and it must name the world (-1 = the "
-                        "world)")
+                   help="comma list of axis sizes; the data and seq axes "
+                        "are ported, and they must make up the world "
+                        "(data=-1 absorbs what seq leaves)")
     p.add_argument("--attention", default="local",
                    choices=["local", "flash", "ring", "ulysses"])
     p.add_argument("--schedule", default="gpipe",
@@ -240,25 +253,12 @@ def parse_args(argv=None):
     return args
 
 
-def build(args, init=None, quiet=False):
-    """The run, before its steps: a namespace of ``comm``, ``cfg``,
-    ``axes``, ``params``, ``opt``, ``opt_state``, ``step`` (the
-    data-parallel train step), ``start`` (the resumed step), ``batches``
-    (the global batches still to take), ``heldout``, ``tok`` and
-    ``ckpt_file``.  ``init``, a parameter tree in the JAX package's
-    layout (numpy), replaces the seeded initial weights; parity tests
-    start both packages from the same weights with it."""
-    import torch
-
-    import chainermn_tpu_torch as cmn
-    from chainermn_tpu_torch import training
-    from chainermn_tpu_torch.models import (
-        TransformerConfig, init_transformer, make_train_step,
-        params_from_jax)
+def config(args):
+    """The run's ``TransformerConfig``, checked against ``--mesh`` and
+    what the port has, before any world is started."""
+    from chainermn_tpu_torch.models import TransformerConfig
     from chainermn_tpu_torch.models.transformer import (
         _check_mesh, _check_ported)
-    from chainermn_tpu_torch.training import load_optimizer_state_tree
-    from chainermn_tpu_torch.utils.serialization import load_state
 
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model,
@@ -272,14 +272,38 @@ def build(args, init=None, quiet=False):
         pipeline_schedule=args.schedule, fsdp=args.fsdp,
         dtype=args.dtype, remat=args.remat,
         remat_policy=args.remat_policy)
-    # fail fast, before the world: the mesh, then what is not ported yet
     _check_mesh(parse_mesh(args.mesh), cfg)
     _check_ported(cfg, training=True)
+    return cfg
+
+
+def build(args, init=None, quiet=False):
+    """The run, before its steps: a namespace of ``comm``, ``cfg``,
+    ``axes``, ``mesh``, ``params``, ``opt``, ``opt_state``, ``step`` (the
+    train step over the mesh), ``start`` (the resumed step), ``batches``
+    (the global batches still to take, permuted for the zigzag layout),
+    ``heldout``, ``tok`` and ``ckpt_file``.  ``init``, a parameter tree
+    in the JAX package's layout (numpy), replaces the seeded initial
+    weights; parity tests start both packages from the same weights with
+    it."""
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        init_transformer, make_train_step, params_from_jax)
+    from chainermn_tpu_torch.parallel import MeshConfig, zigzag_indices
+    from chainermn_tpu_torch.training import load_optimizer_state_tree
+    from chainermn_tpu_torch.utils.serialization import load_state
+
+    # fail fast, before the world: the mesh, then what is not ported yet
+    cfg = config(args)
     comm = cmn.create_communicator(device=args.device)
     say = print if comm.rank == 0 and not quiet else (lambda *a: None)
     say(f"world: {comm.size} ranks on {comm.inter_size} nodes, device "
         f"{comm.device}")
     axes = parse_mesh(args.mesh, comm.size)
+    mesh = MeshConfig(comm, **axes)
 
     tok = tok_train = tok_held = None
     if args.text_file and args.tokenizer_vocab:
@@ -293,9 +317,9 @@ def build(args, init=None, quiet=False):
                 "padded up to a 128-multiple)")
             args.vocab = vocab
             cfg = dataclasses.replace(cfg, vocab_size=vocab)
-    if args.batchsize % comm.size:
+    if args.batchsize % axes["data"]:
         raise SystemExit(f"--batchsize {args.batchsize} does not divide "
-                         f"over {comm.size} ranks")
+                         f"over the data axis ({axes['data']} ranks)")
 
     opt = training.adamw(args.lr)
     ckpt_file = (os.path.join(args.checkpoint, "lm_state.npz")
@@ -327,7 +351,12 @@ def build(args, init=None, quiet=False):
         # ChainerMN's first moment: every rank takes rank 0's weights
         comm.bcast_data(params)
         opt_state = opt.init(params)
-    step = make_train_step(cfg, opt, comm=comm)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    # the zigzag layout's contract: tokens permuted by zigzag_indices
+    # (inputs and targets alike, so next-token pairs stay aligned)
+    perm = None
+    if cfg.seq_layout == "zigzag":
+        perm = zigzag_indices(axes.get("seq", 1), args.seq).reshape(-1)
 
     heldout = None
     steps = max(args.steps - start, 0)
@@ -342,9 +371,12 @@ def build(args, init=None, quiet=False):
     else:
         batches = make_batches(args.vocab, args.batchsize, args.seq, steps,
                                seed=start)
+    if perm is not None:
+        batches = ((x[:, perm], y[:, perm]) for x, y in batches)
     return types.SimpleNamespace(
-        args=args, comm=comm, cfg=cfg, axes=axes, params=params, opt=opt,
-        opt_state=opt_state, step=step, start=start, batches=batches,
+        args=args, comm=comm, cfg=cfg, axes=axes, mesh=mesh, perm=perm,
+        params=params, opt=opt, opt_state=opt_state, step=step,
+        start=start, batches=batches,
         heldout=heldout, tok=tok, ckpt_file=ckpt_file, say=say, losses=[],
         perplexity=None)
 
@@ -376,26 +408,28 @@ def train(run):
 
 def evaluate(run):
     """Held-out perplexity on the text file's tail: each rank forwards
-    its rows of each batch and the nll sums are all-reduced.  Returns
-    ``(token_ppl, byte_ppl)``, or None without a held-out split."""
+    its block of each batch (its rows, its block of the sequence) and
+    the nll sums are all-reduced.  Returns ``(token_ppl, byte_ppl)``, or
+    None without a held-out split."""
     import torch
 
     from chainermn_tpu_torch.models import make_forward_fn
+    from chainermn_tpu_torch.models.transformer import _shard
 
-    args, say, comm = run.args, run.say, run.comm
+    args, say, comm, mesh = run.args, run.say, run.comm, run.mesh
     if run.heldout is None:
         say("held-out eval skipped: file too small for a 90/10 split at "
             "this --seq")
         return None
-    fwd = make_forward_fn(run.cfg, comm=comm)
+    fwd = make_forward_fn(run.cfg, mesh=mesh)
     nll = torch.zeros((), dtype=torch.float64, device=comm.device)
     total_tokens = total_bytes = 0.0
-    n = args.batchsize // comm.size
     for x, y in _text_windows(run.heldout, args.batchsize, args.seq, 4,
                               seed=99):
+        if run.perm is not None:
+            x, y = x[:, run.perm], y[:, run.perm]
         logp = torch.log_softmax(fwd(run.params, x), dim=-1)
-        mine = torch.as_tensor(y[comm.rank * n:(comm.rank + 1) * n],
-                               device=comm.device).long()
+        mine = _shard(mesh, y, comm.device).long()
         nll += -logp.gather(-1, mine[..., None]).sum().double()
         total_tokens += y.size
         total_bytes += (run.tok.n_bytes(y.reshape(-1))

@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 profile_port.py
     python3 profile_port.py resnet
+    python3 profile_port.py ring
     python3 profile_port.py remat
     python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
     python3 profile_port.py variants bwd NAME=SOURCE.cu [NAME=SOURCE.cu ...]
@@ -31,6 +32,13 @@ one ``updater.update()``, then the gradient exchange alone
 (cuDNN convolutions, the BN and ReLU elementwise passes, reductions,
 copies and casts — the bucket pack and unpack among them, NCCL, the
 SGD foreach kernels).
+
+``ring`` traces ``chip_smoke.py`` phase 15 (a)'s ring schedule instead:
+the ring bodies of 4 virtual ranks on one card (``simulate_ring``, the
+flagship's attention shape, B=8, T=2048, 16 query and 4 kv heads, D=64,
+bf16), forward and forward + backward, contiguous and zigzag, and the
+whole-sequence kernel call, each with its wall time and the flash
+kernels' device time per launched pair.
 
 ``remat`` traces the flagship's training step (``make_train_step``,
 ``adamw(3e-4)``, 8 x 2048 tokens) under each remat mode instead:
@@ -91,10 +99,16 @@ def kind(name):
     return "other elementwise"
 
 
-def trace(torch, fn, label):
+def trace(torch, fn, label, warm=True, show=True):
+    """Trace one synchronised ``fn()`` (after a warm-up call unless
+    ``warm`` is false) and print, unless ``show`` is false, its wall
+    time, device busy time, idle share and time by kind of kernel.
+    Returns those as a dict: ``by_kind`` maps each kind to its ms and
+    its number of kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()                                   # warm-up outside the trace
+    if warm:
+        fn()                               # warm-up outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -102,25 +116,35 @@ def trace(torch, fn, label):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, by_kind, launches = defaultdict(float), defaultdict(float), 0
+    by_name, by_kind = defaultdict(float), defaultdict(lambda: [0.0, 0])
+    launches = 0
     for e in prof.events():
         # kernels only: a user annotation on the device's timeline (the
         # optimizer's step) spans kernels that are counted themselves
         if e.device_type == torch.autograd.DeviceType.CUDA \
                 and not getattr(e, "is_user_annotation", False):
             by_name[e.name] += e.device_time_total
-            by_kind[kind(e.name)] += e.device_time_total
+            by_kind[kind(e.name)][0] += e.device_time_total
+            by_kind[kind(e.name)][1] += 1
             launches += 1
     busy = sum(by_name.values())
     if busy <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time")
+    summary = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                   idle=1 - busy / wall_us, kernels=launches,
+                   by_kind={k: [us / 1e3, n] for k, (us, n) in
+                            by_kind.items()})
+    if not show:
+        return summary
     print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle {1 - busy / wall_us:.1%}, "
           f"{launches} kernel launches")
-    for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"  {k:40s} {us / 1e3:9.3f} ms {us / busy:6.1%}")
+    for k, (us, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {k:40s} {us / 1e3:9.3f} ms {us / busy:6.1%} {n:6d} "
+              f"kernels")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"    {us / 1e3:9.3f} ms {us / busy:6.1%}  {name[:90]}")
+    return summary
 
 
 def ptxas_kernels(log):
@@ -330,6 +354,58 @@ def variants_bwd(torch, specs):
               + "  ".join(f"{n} {t:.4f}" for n, t in times))
 
 
+def profile_ring(torch):
+    """Trace ``chip_smoke.py`` phase 15 (a)'s ring schedule on one card:
+    every rank's ring body of ``S`` virtual ranks (``simulate_ring``),
+    forward and forward + backward, contiguous and zigzag, beside the
+    whole-sequence kernel call; per launched pair, its wall time and
+    the flash kernels' device time."""
+    from chip_smoke import SEED, SEQ_SHAPE, _ring_run
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import (
+        broadcast_kv, simulate_ring, zigzag_indices)
+    from chainermn_tpu_torch.parallel.ring_attention import ring_launches
+
+    S, B, T, H, G, D = (SEQ_SHAPE[k] for k in "S B T H G D".split())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, do = (torch.randn(B, T, H, D, device="cuda", generator=gen,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, T, G, D, device="cuda", generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    kb, vb = broadcast_kv(k, v, H // G)
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for layout in ("contiguous", "zigzag"):
+        perm = torch.as_tensor(zigzag_indices(S, T).reshape(-1),
+                               device="cuda") if layout == "zigzag" \
+            else torch.arange(T, device="cuda")
+        lq, lk, lv, ldo = (t[:, perm].contiguous() for t in (q, k, v, do))
+        pairs = ring_launches(S, T // S, causal=True, layout=layout)
+
+        def ring(a, b, c, layout=layout):
+            return simulate_ring(a, b, c, S=S, causal=True,
+                                 use_flash=True, layout=layout)
+
+        runs = [(f"ring {layout} forward", True,
+                 lambda: ring(lq, lk, lv)),
+                (f"ring {layout} forward+backward", False,
+                 lambda: _ring_run(torch, ring, lq, lk, lv, ldo))]
+        if layout == "contiguous":
+            runs += [("whole-sequence call forward", True,
+                      lambda: fa(q, kb, vb, causal=True)),
+                     ("whole-sequence call forward+backward", False,
+                      lambda: _ring_run(torch, lambda a, b, c: fa(
+                          a, b, c, causal=True), q, kb, vb, do))]
+        for label, no_grad, fn in runs:
+            with torch.set_grad_enabled(not no_grad):
+                got = trace(torch, fn, f"{label}, S={S} B={B} T={T} H={H} "
+                            f"G={G} D={D} bf16")
+            n = 1 if label.startswith("whole") else pairs
+            dev_ms = sum(got["by_kind"].get(f, [0.0])[0] for f in flash)
+            print(f"  per pair ({n}): wall {got['wall_ms'] / n:.4f} ms, "
+                  f"device busy {got['busy_ms'] / n:.4f} ms, the flash "
+                  f"kernels {dev_ms / n:.4f} ms")
+
+
 def profile_resnet(torch):
     """Trace one data-parallel ResNet-50 step and its exchange alone."""
     import itertools
@@ -391,6 +467,9 @@ def main():
         check=True, timeout=60).stdout.strip())
     if sys.argv[1:2] == ["resnet"]:
         profile_resnet(torch)
+        return 0
+    if sys.argv[1:2] == ["ring"]:
+        profile_ring(torch)
         return 0
     if sys.argv[1:3] == ["variants", "bwd"]:
         variants_bwd(torch, [a.split("=", 1) for a in sys.argv[3:]])

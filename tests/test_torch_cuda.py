@@ -360,6 +360,67 @@ def test_cuda_remat_dots_launches_the_forward_once_a_layer(cuda):
                                out["full"][1]["embed"], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("layout,window", [("contiguous", None),
+                                           ("zigzag", None),
+                                           ("zigzag", 200)])
+def test_cuda_ring_schedule_matches_plain(cuda, layout, window):
+    # every rank's ring body of a 4-rank ring on the card, the kernels a
+    # pair, against the same schedule over the kernels' plain versions
+    # (the same inputs on the CPU); launches as the schedule predicts
+    from chainermn_tpu_torch.parallel import simulate_ring
+    from chainermn_tpu_torch.parallel.ring_attention import ring_launches
+
+    S, T, H, G, D = 4, 512, 4, 2, 64
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(2, T, h, D, generator=g).to(torch.bfloat16)
+                   for h in (H, G, G, H))
+    kw = dict(S=S, causal=True, window=window, layout=layout,
+              use_flash=True)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        qq, kk, vv = (t.to(dev).requires_grad_() for t in (q, k, v))
+        flash_attention.launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = 0
+        o = simulate_ring(qq, kk, vv, **kw)
+        grads = torch.autograd.grad((o * do.to(dev)).sum(), (qq, kk, vv))
+        outs[dev] = [t.cpu() for t in (o, *grads)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = ring_launches(S, T // S, causal=True, window=window,
+                              layout=layout)
+            assert _launch_counts() == (n, n, n)
+    _assert_o_close(outs["cuda"][0], outs["cpu"][0])
+    for got, want in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        _assert_grad_close(got, want)
+
+
+def test_cuda_ring_and_ulysses_paths_launch_the_kernels(cuda):
+    # one rank: the ring's single pair is bitwise the flash path, and
+    # Ulysses runs the kernel on the whole sequence
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            n_kv_heads=2, d_head=32, d_ff=256, n_layers=2,
+                            max_seq=128, attention="flash", remat=True,
+                            dtype="bfloat16")
+    toks = np.random.RandomState(4).randint(0, 256, (2, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    params = params_from_jax(init_numpy_params(cfg, 0), cfg)
+    out = {}
+    for attention in ("flash", "ring", "ulysses"):
+        flash_attention.launches = flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = 0
+        out[attention] = make_value_and_grad_fn(dataclasses.replace(
+            cfg, attention=attention))(params, x, y)
+        torch.cuda.synchronize()
+        L = cfg.n_layers
+        assert _launch_counts() == (2 * L, L, L), attention
+    for attention in ("ring", "ulysses"):
+        torch.testing.assert_close(out[attention][0], out["flash"][0],
+                                   rtol=0, atol=0)
+        for name, g in out[attention][1]["blocks"].items():
+            torch.testing.assert_close(
+                g, out["flash"][1]["blocks"][name], rtol=0, atol=0)
+
+
 # --------------------------------------------------------------------- #
 # ChainerMN's data-parallel path: NCCL at one rank, the exchange, ResNet
 # --------------------------------------------------------------------- #
@@ -422,6 +483,42 @@ def test_cuda_dp_step_on_one_rank_is_the_plain_step(nccl_comm):
         torch.testing.assert_close(pb["blocks"][name], t, rtol=0, atol=0)
     for name in ("embed", "pos", "ln_f"):
         torch.testing.assert_close(pb[name], pa[name], rtol=0, atol=0)
+
+
+def test_cuda_seq1_ring_step_and_dp_generate_on_one_rank(nccl_comm):
+    # the mesh at one NCCL rank: the ring step at seq=1 is bitwise the
+    # flash step, and data-axis decoding is bitwise the plain decoding
+    from chainermn_tpu_torch.models import make_generate_fn
+    from chainermn_tpu_torch.parallel import MeshConfig
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            n_kv_heads=2, d_head=32, d_ff=256, n_layers=2,
+                            max_seq=128, attention="flash", remat=True,
+                            dtype="bfloat16")
+    mesh = MeshConfig(nccl_comm, data=1, seq=1)
+    toks = np.random.RandomState(5).randint(0, 256, (4, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    runs = []
+    for c, m in ((cfg, None), (dataclasses.replace(cfg, attention="ring"),
+                               mesh)):
+        params = params_from_jax(init_numpy_params(cfg, 0), cfg)
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(c, opt, mesh=m)
+        runs.append(([step(params, state, x, y)[2] for _ in range(2)],
+                     params))
+    (la, pa), (lb, pb) = runs
+    for a, b in zip(la, lb):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    for name, t in pa["blocks"].items():
+        torch.testing.assert_close(pb["blocks"][name], t, rtol=0, atol=0)
+    prompt = toks[:, :16]
+    eos = int(make_generate_fn(cfg, max_len=48)(pa, prompt)[0, 20])
+    kw = dict(max_len=48, eos_id=eos, with_row_state=True)
+    plain = make_generate_fn(cfg, **kw)(pa, prompt)
+    dp = make_generate_fn(cfg, mesh=mesh, **kw)(pa, prompt)
+    for a, b in zip(plain, dp):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
 
 
 def test_cuda_exchange_is_bf16_bitwise(nccl_comm):

@@ -255,16 +255,22 @@ def test_check_mesh_raises_as_jax(axes, kw):
 def test_check_mesh_wide_axes_are_a8(axis):
     cfg = TransformerConfig(**BASE)
     jax_check_mesh(_mesh(**{axis: 2}), JaxConfig(**BASE))   # JAX takes it
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    if axis == "seq":
+        # ported beside data; a model axis beside it is not
         _check_mesh({axis: 2, "data": 2}, cfg)
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            _check_mesh({axis: 2, "model": 2}, cfg)
+    else:
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            _check_mesh({axis: 2, "data": 2}, cfg)
     _check_mesh({"data": 8, axis: 1}, cfg)
 
 
 @pytest.mark.parametrize("kw", [
     dict(moe=True), dict(fsdp=True), dict(vocab_parallel=True),
-    dict(seq_layout="zigzag"), dict(pipeline_schedule="1f1b"),
+    dict(num_microbatches=2), dict(pipeline_schedule="1f1b"),
     dict(pipeline_schedule="interleaved", virtual_pipe=2),
-    dict(attention="ring"),
+    dict(attention="ring", remat=True, remat_policy="dots"),
 ])
 def test_unported_training_options_are_a8(kw):
     cfg = TransformerConfig(**dict(BASE, **kw))

@@ -199,11 +199,9 @@ def test_train_save_resume_generate(port):
 
 
 TRAIN_UNPORTED = [["--moe"], ["--fsdp"], ["--vocab-parallel"],
-                  ["--seq-layout", "zigzag"], ["--schedule", "1f1b"],
+                  ["--schedule", "1f1b"],
                   ["--schedule", "interleaved"], ["--mesh", "data=2,model=2"],
-                  ["--mesh", "pipe=2"], ["--mesh", "seq=2"],
-                  ["--mesh", "expert=2"], ["--attention", "ring"],
-                  ["--attention", "ulysses"]]
+                  ["--mesh", "pipe=2"], ["--mesh", "expert=2"]]
 
 
 @pytest.mark.parametrize("flags", TRAIN_UNPORTED,
@@ -212,6 +210,33 @@ def test_train_lm_torch_unported_flags_raise(flags):
     ex = load("examples/transformer/train_lm_torch.py", "train_lm_torch")
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         ex.build(ex.parse_args(["--device", "cpu"] + flags))
+
+
+# the sequence axis (ported): the config builds before any world, the
+# zigzag layout needs the ring, and the mesh must make up the world
+TRAIN_SEQ = [(["--attention", "ring", "--seq-layout", "zigzag"], None),
+             (["--mesh", "data=2,seq=2", "--attention", "ulysses"], None),
+             (["--seq-layout", "zigzag"], "ring-attention layout"),
+             (["--mesh", "seq=2", "--attention", "ring"], "needs 2 ranks")]
+
+
+@pytest.mark.parametrize("flags,error", TRAIN_SEQ,
+                         ids=[" ".join(f) for f, _ in TRAIN_SEQ])
+def test_train_lm_torch_seq_flags(flags, error):
+    ex = load("examples/transformer/train_lm_torch.py", "train_lm_torch")
+    args = ex.parse_args(["--device", "cpu"] + flags)
+    if error == "needs 2 ranks":
+        # on one rank: the mesh is checked against the world
+        ex.config(args)
+        with pytest.raises(SystemExit, match=error):
+            ex.parse_mesh(args.mesh, world=1)
+    elif error:
+        with pytest.raises(ValueError, match=error):
+            ex.config(args)
+    else:
+        cfg = ex.config(args)
+        assert cfg.attention == args.attention
+        assert cfg.seq_layout == args.seq_layout
 
 
 GEN_UNPORTED = [(["--temperature", "0.7"], 12), (["--top-k", "5"], 12),

@@ -132,8 +132,8 @@ def test_params_from_jax_rejects_wrong_shapes():
 
 @pytest.mark.parametrize("kw", [
     dict(moe=True), dict(fsdp=True), dict(vocab_parallel=True),
-    dict(attention="ring"), dict(attention="ulysses"),
-    dict(num_microbatches=2),
+    dict(attention="ring", num_microbatches=2),
+    dict(attention="ulysses", fsdp=True), dict(num_microbatches=2),
     dict(virtual_pipe=2, pipeline_schedule="interleaved"),
 ])
 def test_unported_options_raise(kw):

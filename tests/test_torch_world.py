@@ -1048,6 +1048,152 @@ def battery_lm_examples(comm, p):
     return out
 
 
+def _seq_block(x, mesh, axis=1):
+    """This rank's block of a global array along ``axis`` over seq."""
+    S, s = mesh.axis_size("seq"), mesh.axis_index("seq")
+    t = x.shape[axis] // S
+    return np.take(x, np.arange(s * t, (s + 1) * t), axis=axis)
+
+
+def battery_sequence_parallel(comm, p):
+    """The mesh's sequence axis in a 4-rank world, every case of the
+    parity tests in ``test_torch_sequence_parallel.py``: the mesh's
+    coordinates and sub-communicators, the tiled all-to-all, ring and
+    Ulysses attention (forward and gradients), the flagship's forward
+    and one AdamW step at data=2,seq=2, data- and seq-parallel decoding,
+    and ``train_lm_torch.py`` at data=2,seq=2 with the zigzag ring.
+    Returns every case's result on this rank, with the flash calls
+    (forward, backward) each kernel-path case made on it: the plain
+    versions' calls, which stand on the CPU where the card launches the
+    kernels."""
+    import contextlib
+    import importlib
+    import io
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_forward_fn, make_generate_fn,
+        make_train_step, params_from_jax, params_to_numpy)
+    from chainermn_tpu_torch.parallel import (
+        MeshConfig, all_to_all_tiled, ring_attention, ulysses_attention)
+    from chainermn_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {"rank": comm.rank, "calls": {}}
+    # the module (the package's ``ops.flash_attention`` is the function)
+    fa_mod = importlib.import_module(
+        "chainermn_tpu_torch.ops.flash_attention")
+    calls = [0, 0]
+
+    def counted(i, fn):
+        def call(*a, **kw):
+            calls[i] += 1
+            return fn(*a, **kw)
+        return call
+
+    fa_mod.flash_attention_reference = counted(
+        0, fa_mod.flash_attention_reference)
+    fa_mod.flash_attention_bwd_reference = counted(
+        1, fa_mod.flash_attention_bwd_reference)
+
+    def count(key, fn, *args):
+        """``fn(*args)``, recording its flash calls under ``key``."""
+        calls[:] = [0, 0]
+        got = fn(*args)
+        out["calls"][key] = tuple(calls)
+        return got
+
+    # the mesh: coordinates and each sub-communicator's members
+    out["mesh"] = []
+    for spec, groups in p["meshes"]:
+        mesh = MeshConfig(comm, **spec)
+        members = {g: mesh.comm(*g).allgather_obj(comm.rank)
+                   for g in groups}
+        out["mesh"].append((mesh.shape, mesh.coords, members))
+
+    seq4 = MeshConfig(comm, seq=4)
+    # the tiled exchange on its own
+    x = torch.as_tensor(p["a2a"][comm.rank])
+    out["a2a"] = [all_to_all_tiled(x, seq4.comm("seq"), s, c).numpy()
+                  for s, c in ((2, 1), (1, 2), (3, 0))]
+
+    def attn_case(fn, q, k, v, do):
+        q, k, v = (torch.as_tensor(_seq_block(a, seq4)).requires_grad_()
+                   for a in (q, k, v))
+        o = fn(q, k, v)
+        grads = torch.autograd.grad(
+            (o * torch.as_tensor(_seq_block(do, seq4))).sum(), (q, k, v))
+        return [o.detach().numpy()] + [g.numpy() for g in grads]
+
+    seq = seq4.comm("seq")
+    out["ring"] = {}
+    for name, case in p["ring"].items():
+        for use_flash in (False, True):
+            fn = (lambda q, k, v: ring_attention(
+                q, k, v, comm=seq, causal=True, window=case["window"],
+                layout=case["layout"], use_flash=use_flash))
+            out["ring"][name, use_flash] = count(
+                ("ring", name, use_flash), attn_case, fn, *case["qkvd"])
+    out["ulysses"] = {}
+    for name, case in p["ulysses"].items():
+        for attn_fn in (None, flash_attention):
+            fn = (lambda q, k, v: ulysses_attention(
+                q, k, v, comm=seq, causal=True, attn_fn=attn_fn))
+            flag = attn_fn is not None
+            out["ulysses"][name, flag] = count(
+                ("ulysses", name, flag), attn_case, fn, *case["qkvd"])
+
+    # the flagship at data=2, seq=2: forward shards and one AdamW step
+    mesh = MeshConfig(comm, data=2, seq=2)
+    out["lm"] = {}
+    for name, fields in p["lm_cases"].items():
+        cfg = TransformerConfig(**fields)
+        x, y = p["lm_batch"][name]
+        params = params_from_jax(p["lm_tree"][name], cfg, device="cpu")
+        logits = make_forward_fn(cfg, mesh=mesh)(params, x).numpy()
+        opt = training.adamw(p["lr"])
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        params, state, loss = count(("lm", name), step, params, state, x,
+                                    y)
+        out["lm"][name] = dict(logits=logits, loss=float(loss),
+                               params=params_to_numpy(params, cfg))
+
+    # decoding: data=2 (each half of the world a mesh of its own), then
+    # data=2, seq=2 with the seq-KV cache; eos is a token the no-eos run
+    # generates in the first data shard's rows and not in the second's
+    half = MeshConfig(comm.split(comm.rank // 2, comm.rank), data=2)
+    out["gen"] = {}
+    for name, (fields, m) in dict(
+            data2=(p["gen_cases"]["data2"], half),
+            data2_seq2=(p["gen_cases"]["data2_seq2"], mesh)).items():
+        cfg = TransformerConfig(**fields)
+        params = params_from_jax(p["gen_tree"][name], cfg, device="cpu")
+        prompt, max_len = p["gen_prompt"], p["gen_max_len"]
+        plain = make_generate_fn(cfg, max_len=max_len, mesh=m)(
+            params, prompt)
+        rows = np.concatenate(m.comm("data").allgather_obj(plain.numpy()))
+        b = rows.shape[0] // 2
+        first = set(rows[:b, prompt.shape[1]:].ravel().tolist())
+        second = set(rows[b:, prompt.shape[1]:].ravel().tolist())
+        eos = min(first - second)
+        toks, done, gen_len = make_generate_fn(
+            cfg, max_len=max_len, eos_id=eos, pad_id=p["gen_pad"],
+            with_row_state=True, mesh=m)(params, prompt)
+        out["gen"][name] = dict(plain=plain.numpy(), eos=eos,
+                                tokens=toks.numpy(), done=done.numpy(),
+                                gen_len=gen_len.numpy())
+
+    # the example at data=2, seq=2, the zigzag ring, from JAX's weights
+    ex = _load_example("examples/transformer/train_lm_torch.py",
+                       "train_lm_torch")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = ex.main(p["example_argv"], init=p["example_tree"])
+    out["example"] = dict(printed=buf.getvalue(), losses=run.losses,
+                          perm=run.perm)
+    return out
+
+
 # --------------------------------------------------------------------- #
 # the harness's own tests
 # --------------------------------------------------------------------- #
