@@ -19,10 +19,12 @@ from .decoding import make_generate_fn
 from .transformer import (
     TransformerConfig,
     apply_rope,
+    gather_params,
     lm_loss,
     make_forward_fn,
     make_train_step,
     make_value_and_grad_fn,
+    shard_params,
     transformer_backbone,
     transformer_forward,
 )
@@ -43,6 +45,7 @@ __all__ = [
     "resnet_to_numpy",
     "softmax_cross_entropy",
     "apply_rope",
+    "gather_params",
     "init_numpy_params",
     "init_transformer",
     "lm_loss",
@@ -52,6 +55,7 @@ __all__ = [
     "make_value_and_grad_fn",
     "params_from_jax",
     "params_to_numpy",
+    "shard_params",
     "transformer_backbone",
     "transformer_forward",
 ]

@@ -16,7 +16,11 @@ in the same layout (and at the same scales as ``init_transformer``) on a
 machine without JAX; its numbers are numpy's, not ``jax.random``'s.
 :func:`init_transformer` is the port's ``init_transformer``: the same
 leaves, shapes, dtypes and scales drawn from a ``torch.Generator``, as
-tensors in the port's layout (blocks ``(L, ...)``).
+tensors in the port's layout (blocks ``(L, ...)``).  Given a ``mesh``
+with a model axis, each of the three works on every rank with the whole
+tree and keeps (or, :func:`params_to_numpy`, gathers) this rank's shard
+(:func:`~.transformer.shard_params`), so the weights are the one-card
+model's.
 
 The same for the data-parallel models: :func:`resnet_params_from_jax`
 takes ``init_resnet``'s ``(params, state)`` (conv weights HWIO, BN
@@ -39,7 +43,7 @@ from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.links.batch_normalization import BatchNormState
 
 from .resnet import ResNetConfig
-from .transformer import TransformerConfig
+from .transformer import TransformerConfig, gather_params, shard_params
 
 __all__ = ["chain_params_from_jax", "init_mlp_numpy", "init_numpy_params",
            "init_resnet_numpy", "init_transformer", "mlp_params_from_jax",
@@ -81,9 +85,12 @@ def _check_config(cfg: TransformerConfig):
             "ported yet; they come with the parallel slice")
 
 
-def params_from_jax(tree, cfg: TransformerConfig, device=None) -> dict:
+def params_from_jax(tree, cfg: TransformerConfig, device=None,
+                    mesh=None) -> dict:
     """The JAX package's parameter tree (numpy leaves, pipe axis of size
-    1) as fp32 tensors on ``device`` (CUDA unless ``"cpu"`` is named)."""
+    1) as fp32 tensors on ``device`` (CUDA unless ``"cpu"`` is named).
+    With a ``mesh``, every rank converts the whole tree and keeps its
+    shard over the model axis (:func:`~.transformer.shard_params`)."""
     dev = resolve_device(device)
     _check_config(cfg)
 
@@ -108,15 +115,20 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None) -> dict:
         name: leaf(f"blocks/{name}", tree["blocks"][name],
                    (1, L, *shape))[0]
         for name, (shape, _) in want_blocks.items()}
-    return out
+    return out if mesh is None else shard_params(mesh, cfg, out)
 
 
-def params_to_numpy(params, cfg: TransformerConfig) -> dict:
+def params_to_numpy(params, cfg: TransformerConfig, mesh=None) -> dict:
     """The inverse of :func:`params_from_jax`: a port tree (parameters,
     or gradients in their structure) as fp32 numpy leaves in the JAX
     package's layout, the ``(pipe=1, ...)`` axis re-added to the blocks,
-    so it compares leaf by leaf with the JAX tree."""
+    so it compares leaf by leaf with the JAX tree.  With a ``mesh`` the
+    tree is this rank's shard over the model axis, and the whole one is
+    gathered first (:func:`~.transformer.gather_params`, collective over
+    the model communicator)."""
     _check_config(cfg)
+    if mesh is not None:
+        params = gather_params(mesh, cfg, params)
     want_top, want_blocks = _top_shapes(cfg), _block_shapes(cfg)
     if set(params) != set(want_top) | {"blocks"} \
             or set(params["blocks"]) != set(want_blocks):
@@ -166,7 +178,7 @@ def init_numpy_params(cfg: TransformerConfig, seed: int = 0) -> dict:
 
 
 def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
-                     pipe_size: int = 1, device=None) -> dict:
+                     pipe_size: int = 1, device=None, mesh=None) -> dict:
     """The JAX ``init_transformer`` for the port: the same tree of fp32
     leaves at the same scales (dense weights ``N(0,1)·fan_in^-0.5``,
     ``embed`` and ``pos`` ``N(0,1)·0.02``, norm scales one), drawn on the
@@ -174,8 +186,10 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
     device; they are torch's, not ``jax.random``'s) and returned on
     ``device`` (CUDA unless ``"cpu"`` is named) in the port's layout:
     blocks stacked ``(L, ...)``.  :func:`params_to_numpy` gives the JAX
-    layout.  Blocks grouped for a pipe axis (``pipe_size > 1``) come with
-    the parallel slice."""
+    layout.  With a ``mesh`` every rank draws the whole tree from its
+    ``generator`` (the same seed on every rank) and keeps its shard over
+    the model axis.  Blocks grouped for a pipe axis (``pipe_size > 1``)
+    come with the parallel slice."""
     if not isinstance(generator, torch.Generator):
         raise TypeError(f"init_transformer takes a torch.Generator, got "
                         f"{type(generator).__name__}")
@@ -202,7 +216,7 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
     if cfg.pos_embedding == "learned":
         params["pos"] = normal((cfg.max_seq, cfg.d_model), 0.02)
     params["blocks"] = blocks
-    return params
+    return params if mesh is None else shard_params(mesh, cfg, params)
 
 
 # --------------------------------------------------------------------- #

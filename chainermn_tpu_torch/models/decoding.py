@@ -1,5 +1,5 @@
 """Greedy autoregressive decoding with a KV cache for the flagship
-transformer, on one device or over a mesh's data and seq axes.
+transformer, on one device or over a mesh's data, seq and model axes.
 
 Counterpart of ``make_generate_fn`` in ``chainermn_tpu/models/decoding.py``
 with the same semantics step for step:
@@ -25,7 +25,14 @@ length (sequence-parallel KV): member ``r`` holds positions
 ``[r·Tl, (r+1)·Tl)``, ``Tl = max_len/R``; prefill writes each member's
 block, a token step writes on the owning member only, and attention is
 the distributed softmax (a max of the row maxima, then sums of the
-exp-sums and of the value partials over the seq group).
+exp-sums and of the value partials over the seq group).  A model axis
+of ``M`` members shards the heads (tensor parallelism): each member's
+cache holds its ``Hkv/M`` K/V heads, each block runs its column→row
+products over the model communicator, and under ``vocab_parallel`` the
+embedding lookup is the masked gather with one all-reduce and the head
+the fp32 product over the member's vocab rows, all-gathered: every
+member holds the same full logits, bit for bit, and takes the same
+argmax.
 
 Sampling (``temperature > 0``), int8 weights and int8 KV cache, and
 pipeline-sharded decoding come in later slices and raise here.
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from chainermn_tpu_torch.communicators.loopback import LoopbackCommunicator
+from chainermn_tpu_torch.ops.collectives import allgather
 from chainermn_tpu_torch.parallel.ring_attention import (
     _NEG,
     _pv_mix,
@@ -56,6 +64,7 @@ from .transformer import (
     _resolve,
     _rms_norm,
     _rows,
+    _vp_embed_lookup,
     apply_rope,
 )
 
@@ -63,13 +72,15 @@ __all__ = ["make_generate_fn"]
 
 
 def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
-                  chunk_attends_cache: bool = False, pos_offset=None):
+                  model, chunk_attends_cache: bool = False,
+                  pos_offset=None):
     """One block for a chunk of new tokens ``h`` (B, Tq, D) whose first
     token sits at position ``pos``.  ``ck``/``cv`` are this layer's
-    (B, kv_len_local, Hkv, Dh) cache, written in place: the whole
+    (B, kv_len_local, Hkv_local, Dh) cache, written in place: the whole
     ``max_len``, or under sequence-parallel KV (``seq``, the seq
     communicator, of size R > 1) this member's block of ``max_len/R``
-    positions."""
+    positions; ``blk`` is this rank's shard over ``model`` (the model
+    communicator), whose heads the cache holds."""
     cd = cfg.compute_dtype
     x = _rms_norm(h, blk["ln1"])
     B, Tq, D = x.shape
@@ -77,15 +88,17 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
     Tl = ck.shape[1]
     if "wqkv" in blk:
         H = blk["wqkv"].shape[2]
-        qkv = column_parallel_dense(x, blk["wqkv"].reshape(D, -1).to(cd))
+        qkv = column_parallel_dense(x, blk["wqkv"].reshape(D, -1).to(cd),
+                                    comm=model)
         qkv = qkv.reshape(B, Tq, 3, H, cfg.d_head)
         q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
         H = blk["wq"].shape[1]
         Hkv = blk["wkv"].shape[2]
-        q = column_parallel_dense(x, blk["wq"].reshape(D, -1).to(cd)
-                                  ).reshape(B, Tq, H, cfg.d_head)
-        kv = column_parallel_dense(x, blk["wkv"].reshape(D, -1).to(cd)
+        q = column_parallel_dense(x, blk["wq"].reshape(D, -1).to(cd),
+                                  comm=model).reshape(B, Tq, H, cfg.d_head)
+        kv = column_parallel_dense(x, blk["wkv"].reshape(D, -1).to(cd),
+                                   comm=model
                                    ).reshape(B, Tq, 2, Hkv, cfg.d_head)
         k_new, v_new = kv[:, :, 0], kv[:, :, 1]
     qpos = pos + torch.arange(Tq, device=x.device)             # (Tq,)
@@ -152,22 +165,26 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
         else:
             o = _pv_mix(torch.softmax(s, dim=-1), cv).transpose(1, 2)
     h = h + row_parallel_dense(
-        o.reshape(B, Tq, -1), blk["wo"].reshape(-1, D).to(cd))
+        o.reshape(B, Tq, -1), blk["wo"].reshape(-1, D).to(cd), comm=model)
     x = _rms_norm(h, blk["ln2"])
-    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd)))
-    return h + row_parallel_dense(y, blk["w2"].to(cd))
+    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd), comm=model))
+    return h + row_parallel_dense(y, blk["w2"].to(cd), comm=model)
 
 
 def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
-                 seq, with_logits: bool = True, chunk_attends_cache=False,
-                 pos_offset=None):
+                 seq, model, with_logits: bool = True,
+                 chunk_attends_cache=False, pos_offset=None):
     """Next-token fp32 logits (B, V) for ``tok`` — (B,) in the generation
     loop, or a (B, Tq) chunk starting at ``pos`` for prefill
     (``with_logits=False`` then skips the head).  ``caches`` is the
-    ``(ck, cv)`` pair of (L, B, kv_len_local, Hkv, Dh) buffers."""
+    ``(ck, cv)`` pair of (L, B, kv_len_local, Hkv_local, Dh) buffers;
+    ``params`` this rank's shard over ``model``."""
     cd = cfg.compute_dtype
     Tq = tok.shape[1] if tok.dim() == 2 else 1
-    h = params["embed"][tok].to(cd)                  # (B, D) or (B, Tq, D)
+    if cfg.vocab_parallel:
+        h = _vp_embed_lookup(params["embed"], tok, model).to(cd)
+    else:
+        h = params["embed"][tok].to(cd)              # (B, D) or (B, Tq, D)
     if tok.dim() == 1:
         h = h[:, None, :]
     if cfg.pos_embedding == "learned":
@@ -182,13 +199,20 @@ def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
     ck, cv = caches
     for i in range(cfg.n_layers):
         h = _decode_block(cfg, h, _layer(params, i), ck[i], cv[i], pos,
-                          seq, chunk_attends_cache=chunk_attends_cache,
+                          seq, model,
+                          chunk_attends_cache=chunk_attends_cache,
                           pos_offset=pos_offset)
     if not with_logits:
         return None
-    # the decode head is a full fp32 product over the last position
+    # the decode head is a full fp32 product over the last position;
+    # under vocab_parallel over this member's rows, then the vocab
+    # shards all-gathered (the same bits on every member, so every
+    # member takes the same argmax)
     hN = _rms_norm(h[:, -1:], params["ln_f"])
-    return (hN.float() @ params["embed"].float().T)[:, 0]
+    logits = (hN.float() @ params["embed"].float().T)[:, 0]
+    if cfg.vocab_parallel and model.size > 1:
+        logits = allgather(logits, model, axis=1, tiled=True)
+    return logits
 
 
 def _validate_prompt_lens(prompt, prompt_lens):
@@ -233,9 +257,12 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     With a ``mesh`` (a :class:`~chainermn_tpu_torch.parallel.MeshConfig`;
     ``comm`` alone is the mesh ``data=comm.size``) ``prompt`` (and
     ``prompt_lens``) is the global batch: each rank decodes and returns
-    its rows over the data axis, and a seq axis blocks the KV cache over
+    its rows over the data axis, a seq axis blocks the KV cache over
     its members (``max_len`` must divide over it; left-padded prompts
-    are not supported there)."""
+    are not supported there), and a model axis shards the heads (and
+    under ``vocab_parallel`` the vocabulary): ``params`` are then this
+    rank's shard (:func:`~.transformer.shard_params`), and every member
+    of a model group returns the same tokens."""
     if temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported yet; it comes with the "
@@ -259,6 +286,8 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
             f"max_len {max_len} exceeds cfg.max_seq {cfg.max_seq}")
     seq = LoopbackCommunicator(device=dev) if mesh is None \
         else mesh.comm("seq")
+    model = LoopbackCommunicator(device=dev) if mesh is None \
+        else mesh.comm("model")
     if max_len % seq.size:
         raise ValueError(
             f"sequence-parallel KV decode blocks the cache over the "
@@ -279,7 +308,8 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         B, P = prompt.shape
         cd = cfg.compute_dtype
         cache = torch.zeros((2, cfg.n_layers, B, max_len // seq.size,
-                             cfg.kv_heads, cfg.d_head), dtype=cd, device=dev)
+                             cfg.kv_heads // model.size, cfg.d_head),
+                            dtype=cd, device=dev)
         caches = (cache[0], cache[1])
         # with eos the loop can stop early: seed with pad so the unwritten
         # tail reads as padding
@@ -288,7 +318,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         buf[:, :P] = prompt
         if P > 1:
             _decode_step(cfg, params, caches, prompt[:, :P - 1], 0, seq,
-                         with_logits=False,
+                         model, with_logits=False,
                          chunk_attends_cache=offsets is not None,
                          pos_offset=offsets)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -301,7 +331,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
                     break
                 gen_len += (~done).to(torch.int32)
             logits = _decode_step(cfg, params, caches, buf[:, t], t, seq,
-                                  pos_offset=offsets)
+                                  model, pos_offset=offsets)
             if with_logits:
                 steps.append(logits)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,8 +1,8 @@
-"""The flagship decoder-only transformer on one device: the scoring
-forward and training.
+"""The flagship decoder-only transformer: the scoring forward and
+training, on one device or over a mesh's data, seq and model axes.
 
-Counterpart of ``chainermn_tpu/models/transformer.py`` at a trivial mesh
-(every axis of size 1): the same config, the same parameter layout (with
+Counterpart of ``chainermn_tpu/models/transformer.py`` at pipe and
+expert axes of size 1: the same config, the same parameter layout (with
 the pipe axis squeezed, see :mod:`.convert`) and the same mixed
 precision:
 
@@ -24,12 +24,23 @@ head of ``loss_chunk``), remat (each block under
 block's input, ``"dots"`` also the JAX policy's saves, see
 :func:`_dots_context`) and :func:`make_train_step`.
 
-The mesh has a data and a sequence axis (a :class:`MeshConfig` over the
-world communicator; ``comm=`` alone is the mesh ``data=N``).
+The mesh has a data, a sequence and a model axis (a :class:`MeshConfig`
+over the world communicator; ``comm=`` alone is the mesh ``data=N``).
 :func:`make_value_and_grad_fn`, :func:`make_train_step` and
 :func:`make_forward_fn` work per rank, one process a device: rank ``r``
 takes its rows of the global batch over ``data`` and its block of
-columns over ``seq`` (the JAX ``_BATCH_SPEC``).  ``attention="ring"``
+columns over ``seq`` (the JAX ``_BATCH_SPEC``), and holds its shard of
+the parameters over ``model`` (:func:`shard_params`, the JAX
+``param_specs``: the heads of ``wqkv``/``wq``/``wkv`` and ``wo``,
+``w1``'s columns and ``w2``'s rows, and under ``vocab_parallel``
+``embed``'s rows).  Each block's QKV and ``w1`` products are
+column-parallel and its ``wo`` and ``w2`` products row-parallel over the
+model communicator (one all-reduce a pair forward, one backward), and
+the attention core runs on the rank's ``H/M`` query and ``Hkv/M`` K/V
+heads.  ``vocab_parallel`` looks the embedding up by a masked gather
+and one all-reduce, and takes the loss over the vocab shards with three
+query-sized reductions (Megatron's vocab-parallel cross-entropy).
+``attention="ring"``
 rotates K/V over the seq communicator and runs the flash kernel once a
 pair (:func:`~chainermn_tpu_torch.parallel.ring_attention`, in the
 ``contiguous`` or ``zigzag`` ``seq_layout``); ``"ulysses"`` exchanges
@@ -38,10 +49,11 @@ and learned positions are the block's GLOBAL positions.  The loss is
 meaned over the batch-like group ``(data, expert, seq)`` and so are the
 gradients, in fp32 by ``multi_node_mean_grad``: every parameter is
 replicated over those axes, and the ring's (or the exchange's) backward
-has already delivered the other blocks' contributions to each rank.
-Model, pipe and expert axes, MoE, FSDP, vocab parallelism, pipeline
-micro-batching and the 1F1B/interleaved schedules come with the rest of
-the parallel slice and raise here.
+has already delivered the other blocks' contributions to each rank; a
+model-sharded leaf's mean is over its own shard's group.  Pipe and
+expert axes, MoE, FSDP, pipeline micro-batching and the
+1F1B/interleaved schedules come with the rest of the parallel slice and
+raise here.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from torch.utils.checkpoint import (
 
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.communicators.loopback import LoopbackCommunicator
+from chainermn_tpu_torch.ops.collectives import allgather, allreduce
 from chainermn_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_supported,
@@ -73,6 +86,7 @@ from chainermn_tpu_torch.parallel.ring_attention import (
 from chainermn_tpu_torch.parallel.ulysses import ulysses_attention
 from chainermn_tpu_torch.parallel.tensor import (
     column_parallel_dense,
+    reduce_from_model,
     row_parallel_dense,
 )
 
@@ -83,14 +97,16 @@ __all__ = [
     "make_forward_fn",
     "make_train_step",
     "make_value_and_grad_fn",
+    "gather_params",
+    "shard_params",
     "transformer_backbone",
     "transformer_forward",
 ]
 
 _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
-# the JAX MeshConfig's axes; the port has the data and seq axes
+# the JAX MeshConfig's axes; the port has the data, seq and model axes
 _MESH_AXES = ("pipe", "data", "expert", "seq", "model")
-_PORTED_AXES = ("data", "seq")
+_PORTED_AXES = ("data", "seq", "model")
 
 
 @dataclass(frozen=True)
@@ -204,7 +220,6 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
     """Raise ``NotImplementedError`` for options a later slice ports."""
     unported = [
         ("moe", cfg.moe, _PARALLEL_SLICE),
-        ("vocab_parallel", cfg.vocab_parallel, _PARALLEL_SLICE),
         ("virtual_pipe > 1", cfg.virtual_pipe > 1, _PARALLEL_SLICE),
     ]
     if decoding:
@@ -251,7 +266,7 @@ def _check_mesh(mesh, cfg: TransformerConfig):
     """The JAX ``_check_mesh``'s config/mesh divisibility checks, with
     its messages, on ``mesh``: a :class:`MeshConfig` or a mapping of
     axis sizes (``{"data": 4}``; missing axes are 1).  The port has the
-    data and seq axes: a model, pipe or expert axis larger than 1 then
+    data, seq and model axes: a pipe or expert axis larger than 1 then
     raises ``NotImplementedError``."""
     mesh = getattr(mesh, "shape", mesh)
     unknown = set(mesh) - set(_MESH_AXES)
@@ -315,12 +330,16 @@ def _mm32(a, b):
 class _LMHead(torch.autograd.Function):
     """The JAX ``_lm_head`` custom VJP: the logit cotangent, which is
     unit-scale, goes to the compute dtype, so both gradient products take
-    compute-dtype operands; the gradients leave in the primal dtypes."""
+    compute-dtype operands; the gradients leave in the primal dtypes.
+    With a ``model`` communicator ``embed`` is this member's vocab shard
+    (the JAX ``_vp_head``): ``h`` is the same on every member and each
+    shard's slice consumes it, so ``dh`` is summed over ``model`` after
+    its cast to the primal dtype; the shard's ``dw`` is never summed."""
 
     @staticmethod
-    def forward(ctx, h, embed, cd):
+    def forward(ctx, h, embed, cd, model):
         ctx.save_for_backward(h, embed)
-        ctx.cd = cd
+        ctx.cd, ctx.model = cd, model
         a = h.reshape(-1, h.shape[-1]).to(cd)
         out = _mm32(a, embed.to(cd).T)
         return out.reshape(*h.shape[:-1], embed.shape[0])
@@ -331,15 +350,16 @@ class _LMHead(torch.autograd.Function):
         h, embed = ctx.saved_tensors
         gl = g.reshape(-1, g.shape[-1]).to(ctx.cd)
         w = embed.to(ctx.cd)
-        dh = _mm32(gl, w).to(h.dtype).reshape(h.shape)
+        dh = reduce_from_model(_mm32(gl, w).to(h.dtype), ctx.model)
         dw = _mm32(gl.T, h.reshape(-1, h.shape[-1]).to(ctx.cd))
-        return dh, dw.to(embed.dtype), None
+        return dh.reshape(h.shape), dw.to(embed.dtype), None, None
 
 
-def _lm_head(cd, h, embed):
+def _lm_head(cd, h, embed, model=None):
     """Weight-tied head: ``cd``-rounded operands, fp32 accumulation and
-    fp32 logits."""
-    return _LMHead.apply(h, embed, cd)
+    fp32 logits; under ``vocab_parallel`` ``embed`` is this member's
+    shard of ``model`` and the logits its slice."""
+    return _LMHead.apply(h, embed, cd, model)
 
 
 class _HeadNLL(torch.autograd.Function):
@@ -390,6 +410,108 @@ class _HeadNLL(torch.autograd.Function):
         return dh, dw.to(embed.dtype), None, None, None
 
 
+def _vp_shard_index(Vl: int, tokens, rank: int):
+    """Vocab ownership in one place: member ``rank`` of the model
+    communicator owns rows ``[rank·Vl, (rank+1)·Vl)``.  ``(ok, idx)``:
+    whether each token's row lives on this member, and its clipped local
+    index (meaningful only where ``ok``; callers mask)."""
+    loc = tokens - rank * Vl
+    return (loc >= 0) & (loc < Vl), loc.clamp(0, Vl - 1)
+
+
+def _vp_embed_lookup(embed_local, tokens, model):
+    """The vocab-parallel embedding gather (Megatron's
+    VocabParallelEmbedding): out-of-shard tokens contribute zero and one
+    all-reduce over ``model`` assembles the full ``(..., D)`` rows.  The
+    backward scatter-adds each member's gradient rows into its own shard
+    only."""
+    ok, idx = _vp_shard_index(embed_local.shape[0], tokens, model.rank)
+    rows = torch.where(ok[..., None], embed_local[idx], 0.0)
+    return reduce_from_model(rows, model)
+
+
+def _vp_nll_sum(cd, h, embed_local, targets, model):
+    """The vocab-parallel cross-entropy's NLL sum: each member computes
+    only its logits slice, and the softmax reduces across the shards
+    with three query-sized collectives (a max of the row maxima, which
+    only anchors the exp; a sum of the exp-sums; a sum of the owner's
+    target logit)."""
+    logits = _lm_head(cd, h, embed_local, model)
+    m = allreduce(logits.detach().amax(dim=-1), model, "max")  # (B, T)
+    se = reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1),
+                           model)
+    lse = torch.log(se) + m
+    ok, idx = _vp_shard_index(embed_local.shape[0], targets, model.rank)
+    tl = logits.gather(-1, idx[..., None])[..., 0]
+    tl = reduce_from_model(torch.where(ok, tl, 0.0), model)
+    return (lse - tl).sum()
+
+
+class _VPHeadNLL(torch.autograd.Function):
+    """The JAX ``_vp_head_nll`` custom VJP: :class:`_HeadNLL`'s token
+    chunks and :func:`_vp_nll_sum`'s vocab shards together, so the live
+    logits are ``(B, chunk, V/M)``.  Each chunk pays the three
+    query-sized reductions; the backward recomputes each chunk's slice
+    and its global softmax, sums ``dh`` over ``model`` after the cast to
+    the primal dtype, and accumulates the shard's gradient in fp32."""
+
+    @staticmethod
+    def forward(ctx, h, embed_local, targets, cd, chunk, model):
+        T = h.shape[1]
+        if T % chunk:
+            raise ValueError(f"loss_chunk={chunk} must divide the sequence "
+                             f"length {T}")
+        ctx.save_for_backward(h, embed_local, targets)
+        ctx.cd, ctx.chunk, ctx.model = cd, chunk, model
+        Vl = embed_local.shape[0]
+        ew = embed_local.to(cd)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, T, chunk):
+            logits = _mm32(h[:, c0:c0 + chunk].reshape(-1, h.shape[2])
+                           .to(cd), ew.T)
+            m = allreduce(logits.amax(dim=-1), model, "max")
+            se = reduce_from_model(
+                torch.exp(logits - m[:, None]).sum(dim=-1), model)
+            lse = torch.log(se) + m
+            ok, idx = _vp_shard_index(
+                Vl, targets[:, c0:c0 + chunk].reshape(-1), model.rank)
+            tl = logits.gather(-1, idx[:, None])[:, 0]
+            tl = reduce_from_model(torch.where(ok, tl, 0.0), model)
+            total = total + (lse - tl).sum()
+        return total
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h, embed_local, targets = ctx.saved_tensors
+        cd, chunk, model = ctx.cd, ctx.chunk, ctx.model
+        B, T, D = h.shape
+        Vl = embed_local.shape[0]
+        ew = embed_local.to(cd)
+        g32 = g.float()
+        dh = torch.empty_like(h)
+        dw = torch.zeros(embed_local.shape, dtype=torch.float32,
+                         device=embed_local.device)
+        for c0 in range(0, T, chunk):
+            hcd = h[:, c0:c0 + chunk].reshape(-1, D).to(cd)
+            logits = _mm32(hcd, ew.T)
+            # the global softmax's denominator again (the forward's two
+            # query-sized collectives)
+            m = allreduce(logits.amax(dim=-1), model, "max")
+            se = reduce_from_model(
+                torch.exp(logits - m[:, None]).sum(dim=-1), model)
+            p = torch.exp(logits - (torch.log(se) + m)[:, None])
+            ok, idx = _vp_shard_index(
+                Vl, targets[:, c0:c0 + chunk].reshape(-1), model.rank)
+            rows = torch.arange(p.shape[0], device=p.device)
+            p[rows, idx] -= ok.to(p.dtype)
+            dl = (p * g32).to(cd)
+            dh[:, c0:c0 + chunk] = reduce_from_model(
+                _mm32(dl, ew).to(h.dtype), model).reshape(B, chunk, D)
+            dw += _mm32(dl.T, hcd)
+        return dh, dw.to(embed_local.dtype), None, None, None, None
+
+
 def apply_rope(x, positions, theta: float = 10000.0):
     """Rotary embedding (rotate-half) on ``x`` (..., T, H, D) at absolute
     ``positions``: ``(T,)`` shared across the batch or ``(B, T)`` per
@@ -434,29 +556,33 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_DOTS_SAVED)
 
 
-def _attention(cfg: TransformerConfig, h, blk, seq):
-    """Pre-LN attention: QKV projection, the attention core (ring or
-    Ulysses over ``seq``, the seq communicator), output projection and
-    residual."""
+def _attention(cfg: TransformerConfig, h, blk, seq, model):
+    """Pre-LN attention: the column-parallel QKV projection (this rank's
+    heads over ``model``, the model communicator), the attention core on
+    them (ring or Ulysses over ``seq``, the seq communicator), the
+    row-parallel output projection and the residual."""
     cd = cfg.compute_dtype
     win = cfg.attention_window or None
     x = _rms_norm(h, blk["ln1"])
     B, T, D = x.shape
     if "wqkv" in blk:
-        H = blk["wqkv"].shape[2]
-        qkv = column_parallel_dense(x, blk["wqkv"].reshape(D, -1).to(cd))
+        H = blk["wqkv"].shape[2]            # local heads, H / model size
+        qkv = column_parallel_dense(x, blk["wqkv"].reshape(D, -1).to(cd),
+                                    comm=model)
         qkv = qkv.reshape(B, T, 3, H, cfg.d_head)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
         # GQA/MQA: one fused projection over the concatenated weights,
-        # as the JAX package does; K/V stay at the shared width
+        # as the JAX package does; K/V stay at the shared width.  Local
+        # grouping is global grouping: H and Hkv shard over the same
+        # axis, so local query head i reads local K/V head i // (H/Hkv)
         H = blk["wq"].shape[1]
         Hkv = blk["wkv"].shape[2]
         dq = H * cfg.d_head
         fused = torch.cat(
             [blk["wq"].reshape(D, -1), blk["wkv"].reshape(D, -1)],
             dim=1).to(cd)
-        qkv = column_parallel_dense(x, fused)
+        qkv = column_parallel_dense(x, fused, comm=model)
         q = qkv[..., :dq].reshape(B, T, H, cfg.d_head)
         kv = qkv[..., dq:].reshape(B, T, 2, Hkv, cfg.d_head)
         k, v = kv[:, :, 0], kv[:, :, 1]
@@ -500,19 +626,20 @@ def _attention(cfg: TransformerConfig, h, blk, seq):
                 and torch.is_grad_enabled():
             o = _attn_out(o)
     o = row_parallel_dense(
-        o.reshape(B, T, -1), blk["wo"].reshape(-1, D).to(cd))
+        o.reshape(B, T, -1), blk["wo"].reshape(-1, D).to(cd), comm=model)
     return h + o
 
 
-def _mlp(cfg: TransformerConfig, h, blk):
+def _mlp(cfg: TransformerConfig, h, blk, model):
+    """Pre-LN MLP: the column→row pair over ``model``, one all-reduce."""
     cd = cfg.compute_dtype
     x = _rms_norm(h, blk["ln2"])
-    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd)))
-    return h + row_parallel_dense(y, blk["w2"].to(cd))
+    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd), comm=model))
+    return h + row_parallel_dense(y, blk["w2"].to(cd), comm=model)
 
 
-def _block(cfg: TransformerConfig, h, blk, seq):
-    return _mlp(cfg, _attention(cfg, h, blk, seq), blk)
+def _block(cfg: TransformerConfig, h, blk, seq, model):
+    return _mlp(cfg, _attention(cfg, h, blk, seq, model), blk, model)
 
 
 def _layer(params, i: int) -> dict:
@@ -520,12 +647,15 @@ def _layer(params, i: int) -> dict:
     return {name: leaf[i] for name, leaf in params["blocks"].items()}
 
 
-def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None):
+def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
+                         model=None):
     """Embedding → block stack → final norm: the normed
     ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
     is this rank's block of the sequence when ``seq`` (the seq
     communicator; None: one rank) is sharded; positions are the block's
-    global ones (the zigzag rows under ``seq_layout="zigzag"``).  With
+    global ones (the zigzag rows under ``seq_layout="zigzag"``).
+    ``params`` are this rank's shard over ``model`` (the model
+    communicator; None: one rank), see :func:`shard_params`.  With
     ``cfg.remat`` and gradients enabled each block runs under
     ``torch.utils.checkpoint``.  ``remat_policy="full"`` keeps only its
     input, and its forward (the flash kernel and the ring's transfers
@@ -535,12 +665,17 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None):
     and the elementwise ops."""
     if seq is None:
         seq = LoopbackCommunicator(device=tokens.device)
+    if model is None:
+        model = LoopbackCommunicator(device=tokens.device)
     cd = cfg.compute_dtype
     B, T = tokens.shape
     if T * seq.size > cfg.max_seq:
         raise ValueError(f"sequence length {T * seq.size} exceeds max_seq "
                          f"{cfg.max_seq}")
-    h = params["embed"][tokens]                          # (B, T, D) fp32
+    if cfg.vocab_parallel:
+        h = _vp_embed_lookup(params["embed"], tokens, model)  # (B, T, D)
+    else:
+        h = params["embed"][tokens]                      # (B, T, D) fp32
     if cfg.pos_embedding == "rope":
         h = h.to(cd)              # rotations happen inside attention
     elif cfg.seq_layout == "zigzag":
@@ -553,34 +688,54 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None):
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = _dots_context if cfg.remat_policy == "dots" \
         else noop_context_fn
-    # under a sharded seq axis the recompute runs the whole block on
-    # every rank: stopping it early, after the block's last saved tensor,
-    # would stop the ranks at different transfers of the ring (each rank
-    # skips other masked pairs, and saves other tensors)
+    # when an axis inside the block is sharded the recompute runs the
+    # whole block on every rank: stopping it early, after the block's
+    # last saved tensor, would stop the ranks at different collectives
+    # (a seq rank skips other masked pairs of the ring and saves other
+    # tensors; the model axis's all-reduces must all be replayed)
+    early_stop = seq.size == 1 and model.size == 1
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         if remat:
             # the blocks draw no random numbers: no RNG state to replay
-            with set_checkpoint_early_stop(seq.size == 1):
-                h = checkpoint(_block, cfg, h, blk, seq,
+            with set_checkpoint_early_stop(early_stop):
+                h = checkpoint(_block, cfg, h, blk, seq, model,
                                use_reentrant=False,
                                preserve_rng_state=False,
                                context_fn=context_fn)
         else:
-            h = _block(cfg, h, blk, seq)
+            h = _block(cfg, h, blk, seq, model)
     return _rms_norm(h, params["ln_f"])
 
 
-def transformer_forward(cfg: TransformerConfig, params, tokens, seq=None):
-    """``(B, T, vocab)`` fp32 logits through the weight-tied head."""
-    h = transformer_backbone(cfg, params, tokens, seq)
+def transformer_forward(cfg: TransformerConfig, params, tokens, seq=None,
+                        model=None):
+    """``(B, T, vocab)`` fp32 logits through the weight-tied head.  Under
+    ``vocab_parallel`` each member of ``model`` computes its vocab
+    slice and the slices are all-gathered: the full logits, the same
+    bits on every member."""
+    if model is None:
+        model = LoopbackCommunicator(device=tokens.device)
+    h = transformer_backbone(cfg, params, tokens, seq, model)
+    if cfg.vocab_parallel:
+        logits = _lm_head(cfg.compute_dtype, h, params["embed"], model)
+        if model.size == 1:
+            return logits
+        return allgather(logits, model, axis=logits.dim() - 1, tiled=True)
     return _lm_head(cfg.compute_dtype, h, params["embed"])
 
 
-def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets):
-    """Summed next-token NLL through the configured head: the chunked
-    :class:`_HeadNLL` for ``loss_chunk > 0``, else the whole logits once
-    through :func:`_lm_head`."""
+def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets, model):
+    """Summed next-token NLL through the configured head:
+    ``vocab_parallel`` reduces over the model communicator's vocab
+    shards, ``loss_chunk > 0`` takes the chunked head, and the two
+    compose (:class:`_VPHeadNLL`); else the whole logits once through
+    :func:`_lm_head`."""
+    if cfg.vocab_parallel:
+        if cfg.loss_chunk > 0:
+            return _VPHeadNLL.apply(h, embed, targets, cfg.compute_dtype,
+                                    cfg.loss_chunk, model)
+        return _vp_nll_sum(cfg.compute_dtype, h, embed, targets, model)
     if cfg.loss_chunk > 0:
         return _HeadNLL.apply(h, embed, targets, cfg.compute_dtype,
                               cfg.loss_chunk)
@@ -588,15 +743,20 @@ def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets):
     return -logp.gather(-1, targets[..., None]).sum()
 
 
-def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None):
+def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None,
+            model=None):
     """Mean next-token cross-entropy of ``(B, T)`` ``inputs`` against
-    ``targets`` (this rank's block under a sharded ``seq``).  The JAX
-    package adds ``0.01·aux``, the MoE balancing loss, which is zero for
-    the dense models the port has."""
+    ``targets`` (this rank's block under a sharded ``seq``; ``params``
+    this rank's shard over ``model``).  The JAX package adds
+    ``0.01·aux``, the MoE balancing loss, which is zero for the dense
+    models the port has."""
     _check_ported(cfg, training=True)
+    if model is None:
+        model = LoopbackCommunicator(device=inputs.device)
     targets = targets.long()
-    h = transformer_backbone(cfg, params, inputs, seq)
-    return _shard_nll_sum(cfg, h, params["embed"], targets) / targets.numel()
+    h = transformer_backbone(cfg, params, inputs, seq, model)
+    return _shard_nll_sum(cfg, h, params["embed"], targets,
+                          model) / targets.numel()
 
 
 def _resolve(device, comm, mesh):
@@ -654,17 +814,20 @@ def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
     ``(B, T)`` integers (array or tensor).  With a ``mesh`` (or
     ``comm``, the mesh ``data=comm.size``) ``tokens`` is the global
     batch and each rank returns the logits of its rows and its block of
-    the sequence, its shard of the JAX function's output."""
+    the sequence, its shard of the JAX function's output; ``params`` are
+    then its shard (:func:`shard_params`), and the logits are the full
+    vocabulary on every member of the model axis."""
     dev, mesh = _resolve(device, comm, mesh)
     if mesh is not None:
         _check_mesh(mesh, cfg)
     _check_ported(cfg, decoding=False)
     seq = None if mesh is None else mesh.comm("seq")
+    model = None if mesh is None else mesh.comm("model")
 
     def forward(params, tokens):
         tokens = _shard(mesh, tokens, dev)
         with torch.inference_mode():
-            return transformer_forward(cfg, params, tokens, seq)
+            return transformer_forward(cfg, params, tokens, seq, model)
 
     return forward
 
@@ -683,12 +846,17 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
     ``loss`` and ``grads`` are the means over the batch-like group
     ``(data, expert, seq)``, the gradients meaned in fp32 by
     ``multi_node_mean_grad``.  On one rank that mean is a copy, so the
-    result is bitwise the step without a mesh."""
+    result is bitwise the step without a mesh.  Over a model axis
+    ``params`` are this rank's shard (:func:`shard_params`) and so are
+    ``grads``; a leaf replicated over model (the norm scales, ``pos``,
+    ``embed`` without ``vocab_parallel``) comes out the same on every
+    member: the column products' backward all-reduce makes it so."""
     dev, mesh = _resolve(device, comm, mesh)
     if mesh is not None:
         _check_mesh(mesh, cfg)
     _check_ported(cfg, training=True)
     seq = None if mesh is None else mesh.comm("seq")
+    model = None if mesh is None else mesh.comm("model")
     group = None if mesh is None else mesh.comm(*BATCH_AXES)
 
     def value_and_grad(params, inputs, targets):
@@ -703,7 +871,7 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
                   for k, p in params["blocks"].items()}
         live["blocks"] = layers
         with torch.enable_grad():
-            loss = lm_loss(cfg, live, inputs, targets, seq)
+            loss = lm_loss(cfg, live, inputs, targets, seq, model)
             grads = torch.autograd.grad(
                 loss, [live[k] for k in top]
                 + [x for xs in layers.values() for x in xs])
@@ -725,8 +893,8 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
 def make_train_step(cfg: TransformerConfig, optimizer, device=None,
                     comm=None, mesh=None):
     """``step(params, opt_state, inputs, targets) -> (params, opt_state,
-    loss)``: the JAX ``make_train_step`` at a mesh with data and seq
-    axes (the GPipe branch at pipe size 1).  ``optimizer`` is one of
+    loss)``: the JAX ``make_train_step`` at a mesh with data, seq and
+    model axes (the GPipe branch at pipe size 1).  ``optimizer`` is one of
     :mod:`chainermn_tpu_torch.training`'s (``adamw``, ``sgd``) and
     ``opt_state`` its ``init(params)``.  ``loss`` is the loss before the
     update.  Where JAX returns new arrays, the port updates ``params``
@@ -734,8 +902,8 @@ def make_train_step(cfg: TransformerConfig, optimizer, device=None,
     ``comm``, the mesh ``data=comm.size``) each rank steps on its block
     of the global batch and applies the same rule to the same fp32 mean
     of the gradients (see :func:`make_value_and_grad_fn`), so the
-    ranks' parameters stay equal; ``loss`` is the mean over the
-    batch-like group."""
+    ranks' parameters (over a model axis: the members' of one shard)
+    stay equal; ``loss`` is the mean over the batch-like group."""
     value_and_grad = make_value_and_grad_fn(cfg, device, comm, mesh)
 
     def step(params, opt_state, inputs, targets):
@@ -744,3 +912,72 @@ def make_train_step(cfg: TransformerConfig, optimizer, device=None,
         return params, opt_state, loss
 
     return step
+
+
+# --------------------------------------------------------------------- #
+# the layout over the model axis
+# --------------------------------------------------------------------- #
+
+
+def _shard_dims(cfg: TransformerConfig) -> dict:
+    """The dim each leaf shards over ``model`` in the port's layout
+    (blocks ``(L, ...)``), None for a replicated leaf: the JAX
+    ``param_specs``' model and vocab entries with the pipe axis
+    squeezed."""
+    blocks = {"ln1": None, "ln2": None, "wo": 1, "w1": 2, "w2": 1}
+    if cfg.kv_heads == cfg.n_heads:
+        blocks["wqkv"] = 3
+    else:
+        blocks.update(wq=2, wkv=3)
+    return {"embed": 0 if cfg.vocab_parallel else None, "ln_f": None,
+            "pos": None, "blocks": blocks}
+
+
+def _map_sharded(cfg, params, fn):
+    """``params`` with ``fn(leaf, dim)`` on every leaf that shards over
+    model (the others kept), in ``params``' order."""
+    dims = _shard_dims(cfg)
+
+    def one(t, dim):
+        return t if dim is None else fn(t, dim)
+
+    out = {k: one(v, dims[k]) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: one(v, dims["blocks"][k])
+                     for k, v in params["blocks"].items()}
+    return {k: out[k] for k in params}
+
+
+def shard_params(mesh, cfg: TransformerConfig, params) -> dict:
+    """This rank's shard of the whole tree ``params`` (the port's layout,
+    on every rank alike) over ``mesh``'s model axis: the JAX
+    ``shard_params``, where rank ``r`` is device ``r``.  Model coordinate
+    ``m`` of ``M`` keeps block ``m`` of the head dim of ``wqkv``/``wq``/
+    ``wkv`` and ``wo``, of ``w1``'s columns and ``w2``'s rows, and under
+    ``vocab_parallel`` of ``embed``'s rows; the other leaves are kept
+    whole.  The shards are tensors of their own.  At model size 1 the
+    tree is returned as it is."""
+    _check_mesh(mesh, cfg)
+    return _shard_tree(cfg, params, mesh.axis_size("model"),
+                       mesh.axis_index("model"))
+
+
+def _shard_tree(cfg: TransformerConfig, params, M: int, m: int) -> dict:
+    """Member ``m``'s shard of ``params`` over a model axis of ``M``
+    members (:func:`shard_params` without a mesh)."""
+    if M == 1:
+        return params
+    return _map_sharded(cfg, params,
+                        lambda t, d: t.chunk(M, dim=d)[m].clone())
+
+
+def gather_params(mesh, cfg: TransformerConfig, params) -> dict:
+    """The inverse of :func:`shard_params`: the whole tree from every
+    rank's shard (parameters, or a tree of their structure such as
+    gradients or an optimizer's moments), by an all-gather over
+    ``mesh``'s model communicator; every member gets it.  At model size
+    1 the tree is returned as it is."""
+    model = mesh.comm("model")
+    if model.size == 1:
+        return params
+    return _map_sharded(cfg, params, lambda t, d: torch.cat(
+        list(model.allgather(t.detach().contiguous()).unbind(0)), dim=d))

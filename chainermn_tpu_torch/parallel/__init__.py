@@ -1,6 +1,6 @@
 """The parallel layer: the mesh over the world communicator, ring and
-Ulysses attention over its sequence axis, and the dense layers at
-model-axis size 1."""
+Ulysses attention over its sequence axis, and the Megatron dense layers
+over its model axis."""
 
 from .mesh import MeshConfig
 from .ring_attention import (

@@ -25,7 +25,9 @@ __all__ = ["MeshConfig"]
 # canonical major→minor order, the JAX package's
 _AXIS_ORDER = ("pipe", "data", "expert", "seq", "model")
 # the axes the JAX step pmeans its loss over: every parameter is
-# replicated over them, so their gradients are meaned over them
+# replicated over them, so their gradients are meaned over them (a
+# model-sharded leaf is not averaged over model: each member's shard is
+# its own)
 BATCH_AXES = ("data", "expert", "seq")
 
 
@@ -34,10 +36,12 @@ class MeshConfig:
 
     One axis may be ``-1``: it absorbs what the others leave of the
     world (``data`` does by default).  Every axis of size 1 still exists.
-    The sub-communicators of ``seq``, ``data`` and the batch-like group
-    ``("data", "expert", "seq")`` are built here, by every rank together
-    (``split`` is collective); others on first use of :meth:`comm`,
-    which every rank must then call in the same order.
+    The sub-communicators of ``seq``, ``data``, the batch-like group
+    ``("data", "expert", "seq")`` and ``model`` are built here, by every
+    rank together and in that order (``split`` is collective: an NCCL
+    group first split inside a block, by some ranks only, hangs);
+    others on first use of :meth:`comm`, which every rank must then call
+    in the same order.
 
     Example::
 
@@ -71,7 +75,7 @@ class MeshConfig:
             r //= self.shape[a]
         self.coords: Dict[str, int] = {a: coords[a] for a in _AXIS_ORDER}
         self._comms: Dict[Tuple[str, ...], object] = {}
-        for axes in (("seq",), ("data",), BATCH_AXES):
+        for axes in (("seq",), ("data",), BATCH_AXES, ("model",)):
             self.comm(*axes)
 
     device = property(lambda self: self.world.device)

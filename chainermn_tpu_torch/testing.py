@@ -1,9 +1,11 @@
 """Fault injection for the training loop (the training part of the JAX
 package's ``testing.py``): :class:`FaultPlan`, :class:`FaultInjector`
-and :func:`corrupt_file`.  Every recovery path the extensions promise
-(kill → resume, corrupted newest set → fallback, SIGTERM → save and
-stop, a stalled rank → watchdog, NaN → abort) is driven by a fault
-scripted by iteration number, not by luck.
+and :func:`corrupt_file`, with :func:`replicas_bitwise`, the check
+that ranks holding one replica did not drift apart.  Every recovery
+path the extensions promise (kill → resume, corrupted newest set →
+fallback, SIGTERM → save and stop, a stalled rank → watchdog, NaN →
+abort) is driven by a fault scripted by iteration number, not by
+luck.
 
 Not ported, each raising: the resize faults (``resize_at_iteration``,
 ``resize_live_at_iteration``; elastic training, ROADMAP Queue A item 11)
@@ -27,7 +29,21 @@ import torch
 
 from chainermn_tpu_torch.utils.serialization import tree_flatten
 
-__all__ = ["FaultInjector", "FaultPlan", "corrupt_file"]
+__all__ = ["FaultInjector", "FaultPlan", "corrupt_file", "replicas_bitwise"]
+
+
+def replicas_bitwise(comm, tree) -> bool:
+    """Whether every tensor of ``tree`` (of 4-byte elements) is the same
+    bits on every member of ``comm``: the all-reduced max and min of its
+    int32 view agree.  Collective over ``comm``."""
+    import torch.utils._pytree as pytree
+
+    same = True
+    for t in pytree.tree_leaves(tree):
+        bits = t.detach().contiguous().view(torch.int32)
+        same &= bool(torch.equal(comm.allreduce(bits, "max"),
+                                 comm.allreduce(bits, "min")))
+    return same
 
 
 def corrupt_file(path: str, n_bytes: int = 8, offset: Optional[int] = None,

@@ -94,25 +94,42 @@ Phases (any failure exits non-zero before the last line is printed):
     ring, its launches against the schedule's count, timed against the
     whole call; (b) Ulysses' head groups bitwise the whole-head call;
     (c) the flagship's ring step at mesh seq=1 bitwise the flash step
-    over 2 steps; (d) data-axis decoding bitwise the plain decoding.
+    over 2 steps; (d) data-axis decoding bitwise the plain decoding;
+16. the mesh's model axis on one card (after phase 15, in its NCCL
+    world): (a) the flagship's layer at full width split by
+    ``shard_params`` into 4 members (4 query heads and 1 K/V head each),
+    every member's attention and MLP with a loopback model
+    communicator, the members' residual deltas summed against the whole
+    layer in fp32 (plain attention) and bf16 (the kernel, one launch a
+    member); (b) the 4 vocab shards' logits against the whole head; (c)
+    the flagship's step at mesh model=1 bitwise the plain step over 2
+    steps, and ``vocab_parallel`` at model=1 against the replicated
+    head.
 
-Phases 3, 6, 13 and 15 (a) and (c) are the main paths of the kernels:
+Phases 3, 6, 13, 15 (a) and (c) and 16 (a) and (c) are the main paths
+of the kernels:
 each starts with every launch count at 0 and reads the counts when it
 ends; phases 7 to 12 run no hand-written kernel, and hold their counts
 at 0.  It prints the card's name and power limit, a
 ``{"dp_resnet50": {...}}`` line of phase 7's metrics, a
 ``{"large_batch": {...}}`` line of phase 12's,
 ``{"lm_data_parallel": {...}}`` of phase 13's, ``{"seq_parallel":
-{...}}`` of phase 15's, ``{"drift_one_rank": {...}}`` of phase 14's, a
+{...}}`` of phase 15's, ``{"tensor_parallel_one_card": {...}}`` of
+phase 16's, ``{"drift_one_rank": {...}}`` of phase 14's, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Weights are random, from numpy seed 0.  fp32 references run with TF32
 off.
 
 ``python3 chip_smoke.py --four-cards`` (four cards) runs the checks that
 exist only across cards (:func:`four_cards`, then
-:func:`four_cards_seq`); ``--four-cards seq`` runs the sequence axis's
-alone: the flagship's step on 4 ranks under ring (contiguous, zigzag),
-Ulysses and data=2, seq=2 against one card's, and seq-KV decoding.
+:func:`four_cards_seq` and :func:`four_cards_tp`); ``--four-cards seq``
+runs the sequence axis's alone: the flagship's step on 4 ranks under
+ring (contiguous, zigzag), Ulysses and data=2, seq=2 against one
+card's, and seq-KV decoding; ``--four-cards tp`` the model axis's
+alone: the flagship's step at model=4, data=2,model=2 (the vocabulary
+sharded, the loss chunked) and model=2,seq=2 (the ring) against one
+card's, and decoding at model=4 and data=2,model=2 (the vocabulary
+sharded).
 """
 
 import dataclasses
@@ -201,7 +218,9 @@ def phase_kernel(torch, fa):
     """The forward kernel against its plain version: five mask cases at
     the flagship's shape (B=8, H=16, D=64, bf16), then the same cases at
     D = 16, 32, 64 and 128 in bf16 and fp16 (B=2), so every swizzle mode
-    and wgmma descriptor is held; returns the JSON fields of the row."""
+    and wgmma descriptor is held, then a model=4 member's heads (B=8,
+    T=2048, 4 query heads and 1 K/V head); returns the JSON fields of
+    the row."""
     from chainermn_tpu_torch.ops import flash_attention_reference
 
     cases = [
@@ -252,6 +271,27 @@ def phase_kernel(torch, fa):
                 row = time_forward(torch, fa, q, k, v, kw)
         print(f"kernel flash_fwd B={B} H={H} D={D} {str(dtype)[6:]} against "
               "the plain version: " + "; ".join(readings))
+    # a model=4 member's heads (phase 16, --four-cards tp): 4 query heads
+    # and 1 K/V head, broadcast
+    from chainermn_tpu_torch.parallel import broadcast_kv
+
+    q = torch.randn(8, 2048, 4, 64, device="cuda", generator=gen,
+                    dtype=bf16)
+    kb, vb = broadcast_kv(*(torch.randn(8, 2048, 1, 64, device="cuda",
+                                        generator=gen, dtype=bf16)
+                            for _ in range(2)), 4)
+    o, lse = fa(q, kb, vb, return_lse=True, causal=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_reference(q, kb, vb, causal=True)
+    fault, err, rel, n_off = bar_fault(torch, o, o_ref, O_BAR)
+    require(fault is None, f"a model=4 member's heads: o: {fault}")
+    err_lse = (lse - lse_ref).abs().max().item()
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    print(f"kernel flash_fwd [a model=4 member: H=4 from 1 K/V head] B=8 "
+          f"T=2048 D=64 bfloat16 causal against the plain version: max abs "
+          f"{err:.3e} rel L2 {rel:.3e} outside the band {n_off} lse "
+          f"{err_lse:.3e}")
     row["max_abs_err"] = worst
     row["max_rel_l2"] = worst_rel
     return row
@@ -440,9 +480,10 @@ def backward_case(torch, fa, name, B, Tq, Tk, H, Hkv, D, dtype, kw, gen,
 def phase_backward(torch, fa):
     """Backward kernels against their plain version: the mask cases at
     the training shape (B=8, H=16, D=64, bf16), then at D = 16, 32, 64
-    and 128 in bf16 and fp16 (B=2), and the tile cases at every D in
-    both dtypes; two runs give the same bits; returns the JSON fields of
-    the dq and dk/dv rows."""
+    and 128 in bf16 and fp16 (B=2), the tile cases at every D in both
+    dtypes, and a model=4 member's heads (B=8, T=2048, 4 query heads and
+    1 K/V head); two runs give the same bits; returns the JSON fields
+    of the dq and dk/dv rows."""
     # the wrapper module (the package exports its function of that name)
     ops = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
     cases = [
@@ -495,6 +536,14 @@ def phase_backward(torch, fa):
             print(f"kernel flash_bwd tile cases B=2 H=3 D={D} "
                   f"{str(dtype)[6:]}, worst of dq, dk, dv against the "
                   "plain version: " + "; ".join(readings))
+    # a model=4 member's heads (phase 16, --four-cards tp)
+    name = "a model=4 member: H=4 from 1 K/V head"
+    readings, err, rel, *_ = backward_case(
+        torch, fa, name, 8, 2048, 2048, 4, 1, 64, bf16, dict(causal=True),
+        gen)
+    worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    print(f"kernel flash_bwd [{name}] B=8 T=2048 D=64 bfloat16 causal "
+          "against the plain version: " + "; ".join(readings))
     for row in rows.values():
         row["max_abs_err"] = worst
         row["max_rel_l2"] = worst_rel
@@ -2503,6 +2552,213 @@ def phase_seq_parallel(torch, np, root, smi):
     return counts, metrics
 
 
+# phase 16 (a): the flagship's layer split over a model axis of TP_M
+# members.  Each bar is a relative L2 error of the summed members' residual
+# deltas against the whole layer's.  fp32, plain attention: the members'
+# partial products summed in another order (~1e-7).  bf16 through the
+# kernel: each member's residual output rounds to bf16 (2^-9 relative to
+# the attention or MLP output, which outweighs the residual stream at
+# init), four of them summed, against the whole layer's one rounding.
+TP_M = 4
+TP_SHAPE = dict(B=8, T=2048)
+TP_LAYER_REL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (b) the vocab shards' fp32 logits, concatenated, against the whole
+# head's: the same dot products, cuBLAS may tile them otherwise
+TP_VOCAB_REL = 1e-6
+# (c) vocab_parallel at model=1 against the replicated head: the same
+# logits; the lse from an exp-sum and the head's backward from softmax -
+# onehot, where log_softmax's autograd rounds otherwise.  In fp32 (plain
+# attention on both sides) the two must agree to fp32's rounding; in
+# bf16 the head's cotangent is cast to bf16 before its products, where
+# such a rounding difference can flip an element by one ulp, and the
+# flips run through the 24 layers' backward
+TP_VP1_LOSS_REL = 1e-5
+TP_VP1_GRAD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def phase_tensor_parallel(torch, np, root, smi):
+    """16. The model axis on one card (run after phase 15, in its NCCL
+    world).  (a) The flagship's layer at full width (B=8, T=2048) split
+    by ``shard_params``'s split into ``TP_M`` members: each member's
+    ``_attention`` and ``_mlp`` with a loopback model communicator (its
+    row products then return the member's partial, the all-reduce's
+    summand), the members' residual deltas summed against the whole
+    layer's, in fp32 with plain attention and in bf16 through the
+    kernel on each member's 4 query heads and 1 K/V head (its launches
+    counted, one a member); each member's layer timed against the
+    whole layer's.  (b) The ``TP_M`` vocab shards' fp32 logits slices
+    (``_lm_head`` on each shard), concatenated, against the whole
+    head.  (c) The flagship's step at ``MeshConfig(comm, data=1,
+    model=1)`` through the model axis's code bitwise the plain step
+    over 2 steps, and with ``vocab_parallel`` its loss and gradients
+    against the replicated head's, in fp32 and in bf16.  Returns the
+    launch counts of (a) and (c) and the printed metrics."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        make_value_and_grad_fn, params_from_jax)
+    from chainermn_tpu_torch.models.transformer import (
+        _attention, _layer, _lm_head, _mlp, _rms_norm, _shard_tree)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    loop = LoopbackCommunicator(device=dev)
+    B, T = TP_SHAPE["B"], TP_SHAPE["T"]
+    metrics = dict(card=smi, M=TP_M, shape=TP_SHAPE, layer={})
+    counts = {}
+
+    # (a) the layer's members against the whole layer
+    one = TransformerConfig(**dict(FLAGSHIP, n_layers=1))
+    params = params_from_jax(init_numpy_params(one, SEED), one, dev)
+    rng = np.random.RandomState(SEED)
+    toks = torch.as_tensor(rng.randint(0, one.vocab_size, (B, T)),
+                           device=dev)
+    members = [_shard_tree(one, params, TP_M, m) for m in range(TP_M)]
+    for dtype, attention in (("float32", "local"), ("bfloat16", "flash")):
+        cfg = dataclasses.replace(one, dtype=dtype, attention=attention)
+        cd = cfg.compute_dtype
+        h = (params["embed"][toks] + params["pos"][:T]).to(cd)
+
+        def layer(p, h=h, cfg=cfg):
+            blk = _layer(p, 0)
+            a = _attention(cfg, h, blk, loop, loop)
+            return a, _mlp(cfg, a, blk, loop)
+
+        with torch.no_grad():
+            a, m = layer(params)
+            want = (a.float() - h.float(), m.float() - a.float())
+            torch.cuda.synchronize()
+            fa.launches = fa.dq_launches = fa.dkv_launches = 0  # starts
+            parts = []
+            for p in members:
+                blk = _layer(p, 0)
+                pa = _attention(cfg, h, blk, loop, loop)
+                # each member's MLP reads the all-reduced attention output
+                pm = _mlp(cfg, a, blk, loop)
+                parts.append((pa.float() - h.float(), pm.float() - a.float()))
+            torch.cuda.synchronize()
+            got_counts = (fa.launches, fa.dq_launches,            # ended
+                          fa.dkv_launches)
+            got = [sum(p[i] for p in parts) for i in range(2)]
+            row = dict(
+                attention_rel_l2=rel_err(got[0], want[0]),
+                mlp_rel_l2=rel_err(got[1], want[1]),
+                attention_max_abs=(got[0] - want[0]).abs().max().item(),
+                mlp_max_abs=(got[1] - want[1]).abs().max().item(),
+                launches=got_counts,
+                member_ms=cuda_ms(lambda: layer(members[0]), reps=3, runs=3),
+                whole_ms=cuda_ms(lambda: layer(params), reps=3, runs=3))
+        del parts, got, want, a, m
+        metrics["layer"][dtype] = row
+        bar = TP_LAYER_REL[dtype]
+        print(f"tensor-parallel (a) {dtype}, {attention} attention: the "
+              f"flagship's layer at B={B} T={T} as {TP_M} members' partials "
+              f"against the whole layer: residual deltas rel L2 attention "
+              f"{row['attention_rel_l2']:.3e}, MLP {row['mlp_rel_l2']:.3e} "
+              f"(bar {bar}); launches {got_counts}; a member's layer "
+              f"{row['member_ms']:.4f} ms, the whole layer "
+              f"{row['whole_ms']:.4f} ms")
+        for part in ("attention", "mlp"):
+            require(row[f"{part}_rel_l2"] < bar,
+                    f"(a) {dtype}: the members' {part} deltas off the whole "
+                    f"layer's: {row[f'{part}_rel_l2']} >= {bar}")
+        want_launches = (TP_M, 0, 0) if attention == "flash" else (0, 0, 0)
+        require(got_counts == want_launches,
+                f"(a) {dtype}: launches {got_counts}, want {want_launches}")
+        if attention == "flash":
+            counts["tp_layer_members"] = got_counts
+
+    # (b) the vocab shards' logits against the whole head
+    with torch.no_grad():
+        hN = _rms_norm(torch.randn(
+            h.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(SEED)), params["ln_f"])
+        whole = _lm_head(torch.float32, hN, params["embed"])
+        vp = dataclasses.replace(one, vocab_parallel=True)
+        sliced = torch.cat([_lm_head(torch.float32, hN, _shard_tree(
+            vp, params, TP_M, m)["embed"], loop) for m in range(TP_M)],
+            dim=-1)
+        vrel = rel_err(sliced, whole)
+        metrics["vocab_shards_rel_l2"] = vrel
+        metrics["vocab_shards_max_abs"] = (sliced - whole).abs().max().item()
+    print(f"tensor-parallel (b): {TP_M} vocab shards' fp32 logits (B={B} "
+          f"T={T} V={one.vocab_size}) concatenated against the whole head: "
+          f"rel L2 {vrel:.3e}, max abs {metrics['vocab_shards_max_abs']:.3e}"
+          f" (bar {TP_VOCAB_REL})")
+    require(vrel < TP_VOCAB_REL, f"(b) vocab shards off the whole head: "
+            f"{vrel}")
+    del whole, sliced, hN, h, members, params
+
+    # (c) the model=1 mesh through the model axis's code on the one-rank
+    # NCCL world: bitwise the plain step; vocab_parallel at model=1
+    comm = cmn.create_communicator(device=dev.type)
+    mesh = MeshConfig(comm, data=1, model=1)
+    cfg = TransformerConfig(**dict(FLAGSHIP, remat=True))
+    tree = init_numpy_params(cfg, SEED)
+    toks = rng.randint(0, cfg.vocab_size, (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    steps = {}
+    for name, m in (("plain", None), ("model1", mesh)):
+        params = params_from_jax(tree, cfg, dev, mesh=m)
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, device=dev, mesh=m)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        losses = [step(params, state, x, y)[2] for _ in range(2)]
+        torch.cuda.synchronize()
+        if name == "model1":                              # path ended
+            counts["tp_model1_train"] = (fa.launches, fa.dq_launches,
+                                         fa.dkv_launches)
+        steps[name] = (losses, params)
+        del state
+    L = cfg.n_layers
+    require(counts["tp_model1_train"] == (4 * L, 2 * L, 2 * L),
+            f"(c) launches over 2 steps {counts['tp_model1_train']}, want "
+            f"{(4 * L, 2 * L, 2 * L)}")
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(
+        steps["model1"][0], steps["plain"][0])) and trees_equal(
+        torch, steps["model1"][1], steps["plain"][1])
+    metrics["model1_step_bitwise"] = bitwise
+    metrics["model1_losses"] = [v.item() for v in steps["model1"][0]]
+    print(f"tensor-parallel (c): the flagship's step at mesh model=1 on one "
+          f"NCCL rank against the plain step, 2 steps: losses "
+          f"{metrics['model1_losses']} vs "
+          f"{[v.item() for v in steps['plain'][0]]}, bitwise {bitwise}; "
+          f"launches {counts['tp_model1_train']}")
+    require(bitwise, "(c) the model=1 step is not the plain step")
+    del steps
+    metrics["vocab_parallel_model1"] = {}
+    for dtype, attention in (("float32", "local"), ("bfloat16", "flash")):
+        c = dataclasses.replace(cfg, dtype=dtype, attention=attention)
+        params = params_from_jax(tree, c, dev)
+        want = make_value_and_grad_fn(c, device=dev)(params, x, y)
+        got = make_value_and_grad_fn(dataclasses.replace(
+            c, vocab_parallel=True), mesh=mesh)(params, x, y)
+        lrel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+        grel = tree_rel_err(got[1], want[1])
+        metrics["vocab_parallel_model1"][dtype] = dict(loss_rel=lrel,
+                                                       grads_rel_l2=grel)
+        bar = TP_VP1_GRAD_REL[dtype]
+        print(f"tensor-parallel (c): vocab_parallel at model=1 against the "
+              f"replicated head, {dtype}: loss {got[0].item():.6f} vs "
+              f"{want[0].item():.6f} (rel {lrel:.3e}, bar "
+              f"{TP_VP1_LOSS_REL}), gradients rel L2 {grel:.3e} (bar "
+              f"{bar})")
+        require(lrel < TP_VP1_LOSS_REL and grel < bar,
+                f"(c) vocab_parallel at model=1, {dtype}: loss rel {lrel}, "
+                f"gradients rel L2 {grel}")
+        del params, got, want
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"tensor_parallel_one_card": metrics}))
+    print(f"tensor-parallel: phase {metrics['seconds']:.1f} s ({smi})")
+    return counts, metrics
+
+
 def tree_rel_err(a, b):
     """Relative L2 error of tree ``a`` against ``b`` over all leaves."""
     from chainermn_tpu_torch.training.optimizers import tree_leaves
@@ -2675,6 +2931,9 @@ def main():
 
     # 15. the mesh's sequence axis on one card --------------------------
     seq_counts, _ = phase_seq_parallel(torch, np, root, smi)
+
+    # 16. the mesh's model axis on one card -----------------------------
+    tp_counts, _ = phase_tensor_parallel(torch, np, root, smi)
     torch.distributed.destroy_process_group()
 
     # 14. Queue C: the large-batch example on one card against the CPU --
@@ -2689,14 +2948,17 @@ def main():
                                    training=counts["flash_fwd"],
                                    lm_data_parallel=lm_counts["flash_fwd"],
                                    **{f"seq_{p}": c[0] for p, c in
-                                      seq_counts.items()}),
+                                      seq_counts.items()},
+                                   **{p: c[0] for p, c in
+                                      tp_counts.items()}),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
              launches_by_path=dict(
                  training=counts["flash_bwd_dq"],
                  lm_data_parallel=lm_counts["flash_bwd_dq"],
-                 **{f"seq_{p}": c[1] for p, c in seq_counts.items()}),
+                 **{f"seq_{p}": c[1] for p, c in seq_counts.items()},
+                 **{p: c[1] for p, c in tp_counts.items()}),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
@@ -2704,7 +2966,8 @@ def main():
              launches_by_path=dict(
                  training=counts["flash_bwd_dkv"],
                  lm_data_parallel=lm_counts["flash_bwd_dkv"],
-                 **{f"seq_{p}": c[2] for p, c in seq_counts.items()}),
+                 **{f"seq_{p}": c[2] for p, c in seq_counts.items()},
+                 **{p: c[2] for p, c in tp_counts.items()}),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -3030,12 +3293,16 @@ def seq_predicted_launches(cfg, mesh, steps):
     return ((2 if cfg.remat else 1) * n, n, n)
 
 
-def seq_rank(out, name, mesh_spec, attention, layout):
+def seq_rank(out, name, mesh_spec, attention, layout, vocab_parallel="0",
+             loss_chunk="0"):
     """One rank (under torchrun) of the flagship's step over a mesh with
-    a seq axis: 8 x 2048 tokens globally (the same batch on every mesh),
-    ``SEQ_STEPS`` steps, each timed (host clock around a synchronised
-    step) and the ranks' parameters compared bitwise after it (the
-    all-reduced max and min of their int32 views).  The flash kernels'
+    a seq or a model axis: 8 x 2048 tokens globally (the same batch on
+    every mesh), ``SEQ_STEPS`` steps, each timed (host clock around a
+    synchronised step) and the ranks' parameters compared bitwise after
+    it (the all-reduced max and min of their int32 views): every leaf
+    across the batch-like group, and the leaves replicated over the
+    model axis (the norm scales, ``pos``, ``embed`` without
+    ``vocab_parallel``) across the model group too.  The flash kernels'
     launch counts are set to 0 just before the steps and read just
     after, on every rank, beside what :func:`seq_predicted_launches`
     predicts.  Then one more step is traced on every rank
@@ -3044,7 +3311,6 @@ def seq_rank(out, name, mesh_spec, attention, layout):
     counts and trace."""
     import numpy as np
     import torch
-    import torch.utils._pytree as pytree
 
     import chainermn_tpu_torch as cmn
     import profile_port
@@ -3054,13 +3320,20 @@ def seq_rank(out, name, mesh_spec, attention, layout):
         params_from_jax)
     from chainermn_tpu_torch.ops import flash_attention as fa
     from chainermn_tpu_torch.parallel import MeshConfig, zigzag_indices
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
+    from chainermn_tpu_torch.testing import replicas_bitwise
 
     comm = cmn.create_communicator()
     mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
-    cfg = TransformerConfig(**dict(FLAGSHIP, attention=attention,
-                                   seq_layout=layout, remat=True))
+    cfg = TransformerConfig(**dict(
+        FLAGSHIP, attention=attention, seq_layout=layout, remat=True,
+        vocab_parallel=vocab_parallel == "1", loss_chunk=int(loss_chunk)))
     params = params_from_jax(init_numpy_params(cfg, SEED), cfg,
-                             comm.device)
+                             comm.device, mesh=mesh)
+    model, batch = mesh.comm("model"), mesh.comm(*BATCH_AXES)
+    replicated = [params[k] for k in params if k != "blocks" and not (
+        k == "embed" and cfg.vocab_parallel)] + [
+        params["blocks"]["ln1"], params["blocks"]["ln2"]]
     opt = training.adamw(3e-4)
     state = opt.init(params)
     toks = np.random.RandomState(SEED).randint(
@@ -3081,12 +3354,9 @@ def seq_rank(out, name, mesh_spec, attention, layout):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
-        same = True
-        for t in pytree.tree_leaves(params):
-            bits = t.detach().view(torch.int32)
-            same &= bool(torch.equal(comm.allreduce(bits, "max"),
-                                     comm.allreduce(bits, "min")))
-        equal.append(same)
+        equal.append(
+            replicas_bitwise(batch, params)
+            and replicas_bitwise(model, replicated))
     torch.cuda.synchronize()
     mine = dict(rank=comm.rank, coords=mesh.coords,                # ended
                 launches=(fa.launches, fa.dq_launches, fa.dkv_launches),
@@ -3101,6 +3371,7 @@ def seq_rank(out, name, mesh_spec, attention, layout):
         Path(out).mkdir(parents=True, exist_ok=True)
         (Path(out) / "seq.json").write_text(json.dumps(dict(
             name=name, mesh=mesh.shape, attention=attention, layout=layout,
+            vocab_parallel=cfg.vocab_parallel, loss_chunk=cfg.loss_chunk,
             world=comm.size, tokens=8 * cfg.max_seq, times_ms=times,
             losses=losses, ranks_equal=equal, peak_gib=peak, ranks=ranks)))
     comm.barrier()
@@ -3156,6 +3427,56 @@ def seq_decode_rank(out):
     return 0
 
 
+def _four_card_steps(out, runs):
+    """Each of ``runs`` (name, mesh, attention, layout, and for
+    :func:`seq_rank` the vocab_parallel and loss_chunk flags) under
+    torchrun on 4 ranks, after one card's flash step
+    (``one_card_flash``): every rank's flash launches held to what
+    :func:`seq_predicted_launches` predicts, each mesh's ranks bitwise
+    after every step, its losses finite and within ``SEQ_LOSS_REL`` of
+    one card's.  Returns the runs' results, the report of each mesh (ms
+    a step, the median of steps 2-3; tokens/s a card) and the launches
+    by path."""
+    import numpy as np
+
+    me = str(Path(__file__).resolve())
+    res = {}
+    for name, mesh, attention, layout, *extra in (
+            ("one_card_flash", "data=1", "flash", "contiguous"),) + runs:
+        n = 1 if name == "one_card_flash" else 4
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node",
+                        str(n), me, "--seq-rank", str(out / name), name,
+                        mesh, attention, layout, *extra], check=True,
+                       timeout=300)
+        res[name] = json.loads((out / name / "seq.json").read_text())
+    one = res["one_card_flash"]
+    report = {}
+    for name, r in res.items():
+        # every rank's launches on the path: what its schedule predicts
+        got = {q["rank"]: q["launches"] for q in r["ranks"]}
+        want = {q["rank"]: q["predicted"] for q in r["ranks"]}
+        require(got == want, f"{name}: flash launches (forward, dq, "
+                f"dk/dv) by rank {got}, the schedule predicts {want}")
+    launches_by_path = {name: {q["rank"]: q["launches"] for q in
+                               r["ranks"]} for name, r in res.items()}
+    for name, *_ in runs:
+        r = res[name]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                   one["losses"])]
+        ms = statistics.median(r["times_ms"][1:])
+        report[name] = dict(
+            r, loss_rel_diff=rel, steady_ms=ms,
+            tokens_per_s_per_card=r["tokens"] / ms * 1e3 / r["world"],
+            one_card_steady_ms=statistics.median(one["times_ms"][1:]))
+        require(all(r["ranks_equal"]) and len(r["ranks_equal"])
+                == SEQ_STEPS, f"{name}: ranks differ: {r['ranks_equal']}")
+        require(all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
+        require(all(e < bar for e, bar in zip(rel, SEQ_LOSS_REL)),
+                f"{name}: losses {r['losses']} against one card's "
+                f"{one['losses']}: relative {rel}, bars {SEQ_LOSS_REL}")
+    return res, report, launches_by_path
+
+
 def four_cards_seq(root, smi):
     """``--four-cards``' sequence axis: the flagship's step at full width
     on the same global batch (8 x 2048 tokens) under each of
@@ -3174,39 +3495,8 @@ def four_cards_seq(root, smi):
     out = root / "build" / "four_cards" / "seq"
     me = str(Path(__file__).resolve())
     _build.build_all()          # once, before the children load them
-    res = {}
-    runs = (("one_card_flash", "data=1", "flash", "contiguous"),) + SEQ_FOUR
-    for name, mesh, attention, layout in runs:
-        n = 1 if name == "one_card_flash" else 4
-        subprocess.run(["torchrun", "--standalone", "--nproc_per_node",
-                        str(n), me, "--seq-rank", str(out / name), name,
-                        mesh, attention, layout], check=True, timeout=300)
-        res[name] = json.loads((out / name / "seq.json").read_text())
+    res, report, launches_by_path = _four_card_steps(out, SEQ_FOUR)
     one = res["one_card_flash"]
-    report = {}
-    for name, r in res.items():
-        # every rank's launches on the path: what its schedule predicts
-        got = {q["rank"]: q["launches"] for q in r["ranks"]}
-        want = {q["rank"]: q["predicted"] for q in r["ranks"]}
-        require(got == want, f"{name}: flash launches (forward, dq, "
-                f"dk/dv) by rank {got}, the schedule predicts {want}")
-    launches_by_path = {name: {q["rank"]: q["launches"] for q in
-                               r["ranks"]} for name, r in res.items()}
-    for name, *_ in SEQ_FOUR:
-        r = res[name]
-        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
-                                                   one["losses"])]
-        ms = statistics.median(r["times_ms"][1:])
-        report[name] = dict(
-            r, loss_rel_diff=rel, steady_ms=ms,
-            tokens_per_s_per_card=r["tokens"] / ms * 1e3 / r["world"],
-            one_card_steady_ms=statistics.median(one["times_ms"][1:]))
-        require(all(r["ranks_equal"]) and len(r["ranks_equal"])
-                == SEQ_STEPS, f"{name}: ranks differ: {r['ranks_equal']}")
-        require(all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
-        require(all(e < bar for e, bar in zip(rel, SEQ_LOSS_REL)),
-                f"{name}: losses {r['losses']} against one card's "
-                f"{one['losses']}: relative {rel}, bars {SEQ_LOSS_REL}")
     subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
                     me, "--seq-decode", str(out / "decode")], check=True,
                    timeout=300)
@@ -3232,6 +3522,127 @@ def four_cards_seq(root, smi):
     return 0
 
 
+# --four-cards' model axis: the flagship's step on 4 ranks under each
+# mesh, against one card's flash step on the same global batch (name,
+# mesh, attention, layout, vocab_parallel, loss_chunk)
+TP_FOUR = (("model4", "model=4", "flash", "contiguous", "0", "0"),
+           ("data2_model2_vp_chunk512", "data=2,model=2", "flash",
+            "contiguous", "1", "512"),
+           ("model2_seq2_ring", "model=2,seq=2", "ring", "contiguous", "0",
+            "0"))
+# decoding over the model axis (name, mesh, vocab_parallel), fp32
+TP_DECODE = (("model4", "model=4", "0"),
+             ("data2_model2_vp", "data=2,model=2", "1"))
+# fp32 decode logits against one card's: the row products' partial sums
+# added in another order (~1e-6 relative through 24 layers)
+TP_LOGITS_REL = 1e-4
+
+
+def tp_decode_rank(out, mesh_spec, vocab_parallel):
+    """One rank (under torchrun, 4 ranks) of greedy decoding over a mesh
+    with a model axis: the flagship in fp32 (8 prompts of 128 tokens, 64
+    new), each data member its rows, each model member its shard of the
+    heads (and under ``vocab_parallel`` of the vocabulary), its logits of
+    every step kept; the members of a model group hold the same tokens
+    and logits, bit for bit (checked).  Rank 0 also decodes the whole
+    batch alone on its card and writes ``out/decode.json``: both runs'
+    tokens, the logits' relative L2 error and the ms of the mesh's
+    run."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_generate_fn,
+        params_from_jax)
+    from chainermn_tpu_torch.parallel import MeshConfig
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
+    cfg = TransformerConfig(**dict(FLAGSHIP, dtype="float32",
+                                   vocab_parallel=vocab_parallel == "1"))
+    tree = init_numpy_params(cfg, SEED)
+    params = params_from_jax(tree, cfg, comm.device, mesh=mesh)
+    P, NEW = 128, 64
+    prompts = np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (8, P))
+    gen = make_generate_fn(cfg, max_len=P + NEW, with_logits=True,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = gen(params, prompts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    members_bitwise = replicas_bitwise(mesh.comm("model"), [toks, logits])
+    data = mesh.comm("data")
+    rows = np.concatenate(data.allgather_obj(toks.cpu().numpy()))
+    steps = np.concatenate(data.allgather_obj(logits.cpu().numpy()))
+    del params, logits
+    if comm.rank == 0:
+        one, one_logits = make_generate_fn(
+            cfg, max_len=P + NEW, with_logits=True, device=comm.device)(
+            params_from_jax(tree, cfg, comm.device), prompts)
+        one_logits = one_logits.cpu().numpy()
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "decode.json").write_text(json.dumps(dict(
+            mesh=mesh.shape, vocab_parallel=cfg.vocab_parallel,
+            tokens=rows.tolist(), one_card=one.cpu().numpy().tolist(),
+            logits_rel_l2=float(np.linalg.norm(steps - one_logits)
+                                / np.linalg.norm(one_logits)),
+            members_bitwise=members_bitwise, prompt=P, ms=ms)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_tp(root, smi):
+    """``--four-cards``' model axis: the flagship's step at full width
+    on the same global batch (8 x 2048 tokens) under each of
+    ``TP_FOUR`` on 4 ranks, and one card's flash step; each mesh's
+    losses within ``SEQ_LOSS_REL`` of one card's, its leaves bitwise
+    across their groups after every step (:func:`seq_rank`), and every
+    rank's flash launches those :func:`seq_predicted_launches` predicts
+    (the model axis adds none); ms a step and tokens/s a card, and each
+    rank's traced step.  Then greedy decoding (fp32) under each of
+    ``TP_DECODE`` against one card's: every row's tokens equal, the
+    logits within ``TP_LOGITS_REL``, the model members' tokens and
+    logits bitwise.  Prints ``{"tensor_parallel": {...}}``."""
+    import numpy as np
+
+    from chainermn_tpu_torch import _build
+
+    out = root / "build" / "four_cards" / "tp"
+    me = str(Path(__file__).resolve())
+    _build.build_all()          # once, before the children load them
+    res, report, launches_by_path = _four_card_steps(out, TP_FOUR)
+    one = res["one_card_flash"]
+    decode = {}
+    for name, mesh, vp in TP_DECODE:
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                        me, "--tp-decode", str(out / f"decode_{name}"),
+                        mesh, vp], check=True, timeout=300)
+        dec = json.loads((out / f"decode_{name}" / "decode.json")
+                         .read_text())
+        got, want = np.asarray(dec["tokens"]), np.asarray(dec["one_card"])
+        decode[name] = dict(
+            rows_equal=int((got == want).all(axis=1).sum()),
+            rows=len(got), logits_rel_l2=dec["logits_rel_l2"],
+            members_bitwise=dec["members_bitwise"], ms=dec["ms"])
+    print(json.dumps({"tensor_parallel": dict(
+        report, decode=decode, launches_by_path=launches_by_path,
+        one_card_flash_trace=one["ranks"][0]["trace"], card=smi)}))
+    for name, d in decode.items():
+        require(d["rows_equal"] == d["rows"],
+                f"decode {name}: {d['rows_equal']} of {d['rows']} rows "
+                "equal one card's")
+        require(d["logits_rel_l2"] < TP_LOGITS_REL,
+                f"decode {name}: logits rel L2 {d['logits_rel_l2']}")
+        require(d["members_bitwise"],
+                f"decode {name}: model members' tokens or logits differ")
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3247,11 +3658,18 @@ if __name__ == "__main__":
         if sys.argv[2:3] == ["seq"]:
             # the sequence axis alone
             sys.exit(four_cards_seq(here, card_name()))
+        if sys.argv[2:3] == ["tp"]:
+            # the model axis alone
+            sys.exit(four_cards_tp(here, card_name()))
         sys.exit(four_cards(here, card_name())
-                 or four_cards_seq(here, card_name()))
+                 or four_cards_seq(here, card_name())
+                 or four_cards_tp(here, card_name()))
     if sys.argv[1:2] == ["--seq-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
-        sys.exit(seq_rank(*sys.argv[2:7]))
+        sys.exit(seq_rank(*sys.argv[2:9]))
+    if sys.argv[1:2] == ["--tp-decode"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(tp_decode_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--seq-decode"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(seq_decode_rank(sys.argv[2]))

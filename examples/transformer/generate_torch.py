@@ -1,6 +1,7 @@
 """Greedy text generation with the flagship transformer on the
 PyTorch/CUDA port — ``generate.py``'s greedy KV-cache path through
-``chainermn_tpu_torch``, on one rank or over a mesh's data and seq axes.
+``chainermn_tpu_torch``, on one rank or over a mesh's data, seq and
+model axes.
 It runs from ``lm_state.npz`` written by ``train_lm_torch.py
 --checkpoint`` (so train → generate is a complete loop) or from seeded
 random weights for a smoke run:
@@ -13,17 +14,21 @@ random weights for a smoke run:
     # 2-way data x 2-way sequence-parallel KV cache, one process a card
     torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
         --mesh data=2,seq=2 --max-len 64
+    # 2-way data x 2-way tensor parallelism, the vocabulary sharded
+    torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
+        --mesh data=2,model=2 --vocab-parallel --max-len 64
 
-``--mesh data=D,seq=R`` decodes on a world of ``D·R`` ranks: each data
-member its rows of the batch, the seq members of a row each a block of
-the KV cache; rank 0 prints the whole batch.  Without a data or seq axis
-above 1 one rank decodes.  Pass the model flags the training run used
+``--mesh data=D,seq=R,model=M`` decodes on a world of ``D·R·M`` ranks:
+each data member its rows of the batch, the seq members of a row each a
+block of the KV cache, the model members each its shard of the heads
+(and with ``--vocab-parallel`` of the vocabulary); rank 0 prints the
+whole batch.  Without an axis above 1 one rank decodes.  Pass the model flags the training run used
 (``--vocab`` as the training run printed it, with a tokenizer).
 Sampling (``--temperature``, ``--top-k``, ``--top-p``) comes with the
 serving slice (ROADMAP Queue A item 12); ``--beam``, ``--speculative-k``,
 ``--lookup-k``, ``--int8`` and ``--kv-int8`` with the remaining models and
-decoders (item 9); ``--vocab-parallel`` and model, pipe and expert axes
-with the rest of the parallel slice (item 8).  Each raises.
+decoders (item 9); pipe and expert axes with the rest of the parallel
+slice (item 8).  Each raises.
 """
 
 import argparse
@@ -49,16 +54,16 @@ _UNPORTED = (
     ("--lookup-k", lambda a: a.lookup_k > 0, 9),
     ("--int8", lambda a: a.int8, 9),
     ("--kv-int8", lambda a: a.kv_int8, 9),
-    ("--vocab-parallel", lambda a: a.vocab_parallel, 8),
 )
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="data=D,seq=R over a world of D*R ranks (rows "
-                        "over data, the KV cache's length over seq); "
-                        "without an axis above 1 one rank decodes")
+                   help="data=D,seq=R,model=M over a world of D*R*M "
+                        "ranks (rows over data, the KV cache's length "
+                        "over seq, the heads over model); without an "
+                        "axis above 1 one rank decodes")
     p.add_argument("--vocab", type=int, default=128)
     p.add_argument("--d-model", type=int, default=64)
     p.add_argument("--n-heads", type=int, default=4)
@@ -100,7 +105,8 @@ def parse_args(argv=None):
     p.add_argument("--lookup-k", type=int, default=0)
     p.add_argument("--int8", action="store_true")
     p.add_argument("--kv-int8", action="store_true")
-    p.add_argument("--vocab-parallel", action="store_true")
+    p.add_argument("--vocab-parallel", action="store_true",
+                   help="shard the vocabulary over the model axis too")
     p.add_argument("--checkpoint", default=None,
                    help="train_lm_torch.py checkpoint dir to load params "
                         "from")
@@ -138,7 +144,8 @@ def main(argv=None, keep_logits=False):
         n_heads=args.n_heads, d_head=args.d_model // args.n_heads,
         n_kv_heads=args.n_kv_heads, d_ff=args.d_ff or 4 * args.d_model,
         n_layers=args.n_layers, max_seq=args.max_len, attention="local",
-        pos_embedding=args.pos_embedding, dtype=args.dtype, remat=False)
+        pos_embedding=args.pos_embedding, dtype=args.dtype, remat=False,
+        vocab_parallel=args.vocab_parallel)
     _check_mesh(axes, cfg)
     mesh = None
     if any(n > 1 for n in axes.values()):
@@ -172,11 +179,11 @@ def main(argv=None, keep_logits=False):
             # the position table the run trained: up to its length
             cfg = dataclasses.replace(
                 cfg, max_seq=saved["params"]["pos"].shape[0])
-        params = params_from_jax(saved["params"], cfg, dev)
+        params = params_from_jax(saved["params"], cfg, dev, mesh=mesh)
         say(f"loaded {ckpt_file}")
     else:
         params = init_transformer(torch.Generator().manual_seed(args.seed),
-                                  cfg, device=dev)
+                                  cfg, device=dev, mesh=mesh)
 
     tok = BPETokenizer.load(args.tokenizer) if args.tokenizer else None
 

@@ -1,15 +1,19 @@
-"""Flagship transformer LM training on the PyTorch/CUDA port — the data
-and sequence axes of ``train_lm.py`` through ``chainermn_tpu_torch``:
-ChainerMN's data parallelism for the language model, and ring or
-Ulysses attention over a sequence axis for long contexts.
+"""Flagship transformer LM training on the PyTorch/CUDA port — the data,
+sequence and model axes of ``train_lm.py`` through
+``chainermn_tpu_torch``: ChainerMN's data parallelism for the language
+model, ring or Ulysses attention over a sequence axis for long
+contexts, and Megatron tensor parallelism (with ``--vocab-parallel``,
+the vocabulary too) over a model axis for a model too wide for one
+card.
 
 One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``);
-``--mesh data=D,seq=S`` must name the world (``data=-1``, the default,
-absorbs what ``seq`` leaves of it).  The weights come from
-``torch.Generator`` seed 0 and ``bcast_data`` gives rank 0's to every
-rank; each step takes the global batch, each rank its rows over
-``data`` and its block of the sequence over ``seq``, and the gradients
-are meaned in fp32 over both (``make_train_step(mesh=...)``):
+``--mesh data=D,model=M,seq=S`` must name the world (``data=-1``, the
+default, absorbs what the other axes leave of it).  The weights come
+from ``torch.Generator`` seed 0, ``bcast_data`` gives rank 0's to every
+rank, and each rank keeps its shard over ``model``; each step takes
+the global batch, each rank its rows over ``data`` and its block of
+the sequence over ``seq``, and the gradients are meaned in fp32 over
+both (``make_train_step(mesh=...)``):
 
     torchrun --nproc_per_node 8 examples/transformer/train_lm_torch.py \\
         --mesh data=8 --attention flash --dtype bfloat16 --remat
@@ -22,6 +26,10 @@ are meaned in fp32 over both (``make_train_step(mesh=...)``):
     torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
         --mesh data=2,seq=2 --attention ring --seq-layout zigzag \\
         --dtype bfloat16 --remat
+    # 2-way data x 2-way tensor parallelism, the vocabulary sharded
+    torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
+        --mesh data=2,model=2 --vocab-parallel --loss-chunk 8 \\
+        --attention flash --dtype bfloat16 --remat
     # the CPU over gloo, with a BPE vocabulary over a text file
     torchrun --nproc_per_node 2 examples/transformer/train_lm_torch.py \\
         --device cpu --mesh data=2 --text-file SURVEY.md \\
@@ -40,11 +48,13 @@ its selective checkpoint's Python dispatch on every op, which makes the
 host-bound flagship step slower than the full policy, so the flagship
 command above uses ``--remat`` alone.
 ``--checkpoint DIR`` saves ``lm_state.npz`` (the port's container: params
-in the JAX layout, the optimizer's state, the step) at the end and
-resumes from it.  Model, pipe and expert axes, ``--moe``, ``--fsdp``,
-``--vocab-parallel``, the 1F1B/interleaved schedules and a checkpoint
-grouped for a pipe axis come with the rest of the parallel slice
-(ROADMAP Queue A item 8) and raise.
+and the optimizer's moments gathered into the JAX layout, whatever the
+model axis, the optimizer's state, the step) at the end and resumes
+from it, each rank taking its shard: a run saved at ``model=2`` resumes
+at ``model=1`` and the reverse.  Pipe and expert axes, ``--moe``,
+``--fsdp``, the 1F1B/interleaved schedules and a checkpoint grouped for
+a pipe axis come with the rest of the parallel slice (ROADMAP Queue A
+item 8) and raise.
 """
 
 import argparse
@@ -188,9 +198,10 @@ def make_batches(vocab, batch, seq, steps, seed=0):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="comma list of axis sizes; the data and seq axes "
-                        "are ported, and they must make up the world "
-                        "(data=-1 absorbs what seq leaves)")
+                   help="comma list of axis sizes; the data, seq and "
+                        "model axes are ported, and they must make up "
+                        "the world (data=-1 absorbs what the others "
+                        "leave)")
     p.add_argument("--attention", default="local",
                    choices=["local", "flash", "ring", "ulysses"])
     p.add_argument("--schedule", default="gpipe",
@@ -212,7 +223,9 @@ def parse_args(argv=None):
     p.add_argument("--loss-chunk", type=int, default=0,
                    help="chunked-vocab cross-entropy chunk size "
                         "(0 = whole-shard logits)")
-    p.add_argument("--vocab-parallel", action="store_true")
+    p.add_argument("--vocab-parallel", action="store_true",
+                   help="shard the embedding's rows over the model axis "
+                        "(the vocab-parallel lookup and cross-entropy)")
     p.add_argument("--moe", action="store_true")
     p.add_argument("--seq-layout", default="contiguous",
                    choices=["contiguous", "zigzag"])
@@ -291,7 +304,7 @@ def build(args, init=None, quiet=False):
     import chainermn_tpu_torch as cmn
     from chainermn_tpu_torch import training
     from chainermn_tpu_torch.models import (
-        init_transformer, make_train_step, params_from_jax)
+        init_transformer, make_train_step, params_from_jax, shard_params)
     from chainermn_tpu_torch.parallel import MeshConfig, zigzag_indices
     from chainermn_tpu_torch.training import load_optimizer_state_tree
     from chainermn_tpu_torch.utils.serialization import load_state
@@ -336,10 +349,14 @@ def build(args, init=None, quiet=False):
                 f"virtual_pipe={saved_v}; regrouping a checkpoint "
                 "(reshard_train_state) is not ported to chainermn_tpu_torch "
                 f"yet; it comes with {_PARALLEL_SLICE}")
-        # every rank reads the same file: the same state everywhere
-        params = params_from_jax(saved["params"], cfg, comm.device)
+        # every rank reads the same file (the JAX layout) and keeps its
+        # shard of the parameters and of the optimizer's moments
+        params = params_from_jax(saved["params"], cfg, comm.device,
+                                 mesh=mesh)
         opt_state = opt.init(params)
-        load_optimizer_state_tree(opt_state, saved["opt"])
+        load_optimizer_state_tree(opt_state, relayout_opt_state(
+            saved["opt"], params, lambda t: params_from_jax(
+                t, cfg, comm.device, mesh=mesh)))
         start = int(saved["step"])
         say(f"resumed at step {start}")
     else:
@@ -348,8 +365,10 @@ def build(args, init=None, quiet=False):
         else:
             params = init_transformer(torch.Generator().manual_seed(0),
                                       cfg, device=comm.device)
-        # ChainerMN's first moment: every rank takes rank 0's weights
+        # ChainerMN's first moment: every rank takes rank 0's weights,
+        # then keeps its shard over the model axis
         comm.bcast_data(params)
+        params = shard_params(mesh, cfg, params)
         opt_state = opt.init(params)
     step = make_train_step(cfg, opt, mesh=mesh)
     # the zigzag layout's contract: tokens permuted by zigzag_indices
@@ -381,6 +400,32 @@ def build(args, init=None, quiet=False):
         perplexity=None)
 
 
+def relayout_opt_state(tree, params, fn):
+    """The optimizer's state tree (:func:`optimizer_state_tree`'s: one
+    dict a parameter leaf, in ``params``' leaf order) with ``fn``
+    applied to each of its per-leaf moments (``mu``, ``nu``, ``trace``)
+    as a tree of ``params``' structure: ``params_from_jax`` with the
+    mesh to take a rank's shard of a saved state, ``params_to_numpy``
+    with it to save the whole one in the JAX layout."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    spec = pytree.tree_structure(params)
+
+    def in_order(out, like):
+        # ``out``'s leaves in the order of ``like``'s keys
+        return [x for k, v in like.items() for x in (
+            in_order(out[k], v) if isinstance(v, dict) else [out[k]])]
+
+    state = [dict(s) for s in tree["state"]]
+    for key in [k for k in state[0] if k != "count"] if state else ():
+        moved = in_order(fn(pytree.tree_unflatten(
+            [torch.as_tensor(s[key]) for s in state], spec)), params)
+        for s, t in zip(state, moved):
+            s[key] = t
+    return dict(tree, state=state)
+
+
 def train(run):
     """The step loop; returns the losses (each the mean over the
     ranks)."""
@@ -409,12 +454,14 @@ def train(run):
 def evaluate(run):
     """Held-out perplexity on the text file's tail: each rank forwards
     its block of each batch (its rows, its block of the sequence) and
-    the nll sums are all-reduced.  Returns ``(token_ppl, byte_ppl)``, or
-    None without a held-out split."""
+    the nll sums are all-reduced over the batch-like group (the members
+    of a model group hold the same logits).  Returns ``(token_ppl,
+    byte_ppl)``, or None without a held-out split."""
     import torch
 
     from chainermn_tpu_torch.models import make_forward_fn
     from chainermn_tpu_torch.models.transformer import _shard
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
 
     args, say, comm, mesh = run.args, run.say, run.comm, run.mesh
     if run.heldout is None:
@@ -434,7 +481,7 @@ def evaluate(run):
         total_tokens += y.size
         total_bytes += (run.tok.n_bytes(y.reshape(-1))
                         if run.tok is not None else y.size)
-    total_nll = float(comm.allreduce(nll, "sum"))
+    total_nll = float(mesh.comm(*BATCH_AXES).allreduce(nll, "sum"))
     tok_ppl = float(np.exp(total_nll / total_tokens))
     byte_ppl = float(np.exp(total_nll / total_bytes))
     if run.tok is not None:
@@ -449,16 +496,21 @@ def evaluate(run):
 
 
 def save(run):
-    """Rank 0 writes ``lm_state.npz``: params in the JAX package's layout,
-    the optimizer's state, the step and the pipe grouping."""
+    """Rank 0 writes ``lm_state.npz``: params and the optimizer's moments
+    in the JAX package's layout (gathered over the model axis by every
+    rank), the optimizer's state, the step and the pipe grouping."""
     from chainermn_tpu_torch.models import params_to_numpy
     from chainermn_tpu_torch.training import optimizer_state_tree
     from chainermn_tpu_torch.utils.serialization import save_state
 
+    params = params_to_numpy(run.params, run.cfg, mesh=run.mesh)
+    opt = relayout_opt_state(optimizer_state_tree(run.opt_state),
+                             run.params, lambda t: params_to_numpy(
+                                 t, run.cfg, mesh=run.mesh))
     if run.comm.rank == 0:
         save_state(run.ckpt_file, {
-            "params": params_to_numpy(run.params, run.cfg),
-            "opt": optimizer_state_tree(run.opt_state),
+            "params": params,
+            "opt": opt,
             "step": run.args.steps,
             "pipe": 1,
             "virtual_pipe": 1,

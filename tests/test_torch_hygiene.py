@@ -67,9 +67,11 @@ def test_flash_wrapper_has_no_fallback():
 SEQ_PATH = [PORT / "parallel" / "mesh.py",
             PORT / "parallel" / "ring_attention.py",
             PORT / "parallel" / "ulysses.py", PORT / "models" / "decoding.py"]
+# the model axis: the Megatron operators and the layout's converter
+TP_PATH = [PORT / "parallel" / "tensor.py", PORT / "models" / "convert.py"]
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py",
-                 ROOT / "chip_smoke.py"] + SEQ_PATH
+                 ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
@@ -80,7 +82,7 @@ DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     PORT / "links" / "batch_normalization.py", PORT / "models" / "resnet.py",
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
-    PORT / "iterators" / "_convert.py"] + SEQ_PATH + EXAMPLES
+    PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,

@@ -198,9 +198,12 @@ def test_train_save_resume_generate(port):
             == gen["tokens"][:, -gen["logits"].shape[1]:]).all()
 
 
-TRAIN_UNPORTED = [["--moe"], ["--fsdp"], ["--vocab-parallel"],
+# --vocab-parallel and the model axis are ported (the config checks
+# below, test_torch_tensor_parallel.py): their places hold a vocab-
+# parallel MoE and a pipe axis beside the model axis, which still raise
+TRAIN_UNPORTED = [["--moe"], ["--fsdp"], ["--vocab-parallel", "--moe"],
                   ["--schedule", "1f1b"],
-                  ["--schedule", "interleaved"], ["--mesh", "data=2,model=2"],
+                  ["--schedule", "interleaved"], ["--mesh", "pipe=2,model=2"],
                   ["--mesh", "pipe=2"], ["--mesh", "expert=2"]]
 
 
@@ -212,12 +215,18 @@ def test_train_lm_torch_unported_flags_raise(flags):
         ex.build(ex.parse_args(["--device", "cpu"] + flags))
 
 
-# the sequence axis (ported): the config builds before any world, the
-# zigzag layout needs the ring, and the mesh must make up the world
+# the sequence and model axes (ported): the config builds before any
+# world, the zigzag layout needs the ring, the vocab must divide over the
+# model axis, and the mesh must make up the world
 TRAIN_SEQ = [(["--attention", "ring", "--seq-layout", "zigzag"], None),
              (["--mesh", "data=2,seq=2", "--attention", "ulysses"], None),
              (["--seq-layout", "zigzag"], "ring-attention layout"),
-             (["--mesh", "seq=2", "--attention", "ring"], "needs 2 ranks")]
+             (["--mesh", "seq=2", "--attention", "ring"], "needs 2 ranks"),
+             (["--mesh", "data=2,model=2", "--vocab-parallel"], None),
+             (["--mesh", "model=3", "--n-heads", "3", "--vocab-parallel"],
+              "vocab_size=128 must be divisible by 3"),
+             (["--mesh", "model=2,seq=2", "--attention", "ring"],
+              "needs 4 ranks")]
 
 
 @pytest.mark.parametrize("flags,error", TRAIN_SEQ,
@@ -225,7 +234,7 @@ TRAIN_SEQ = [(["--attention", "ring", "--seq-layout", "zigzag"], None),
 def test_train_lm_torch_seq_flags(flags, error):
     ex = load("examples/transformer/train_lm_torch.py", "train_lm_torch")
     args = ex.parse_args(["--device", "cpu"] + flags)
-    if error == "needs 2 ranks":
+    if error and error.startswith("needs"):
         # on one rank: the mesh is checked against the world
         ex.config(args)
         with pytest.raises(SystemExit, match=error):
@@ -237,13 +246,17 @@ def test_train_lm_torch_seq_flags(flags, error):
         cfg = ex.config(args)
         assert cfg.attention == args.attention
         assert cfg.seq_layout == args.seq_layout
+        assert cfg.vocab_parallel == args.vocab_parallel
 
 
 GEN_UNPORTED = [(["--temperature", "0.7"], 12), (["--top-k", "5"], 12),
                 (["--top-p", "0.9"], 12), (["--beam", "4"], 9),
                 (["--speculative-k", "3"], 9), (["--lookup-k", "2"], 9),
                 (["--int8"], 9), (["--kv-int8"], 9),
-                (["--vocab-parallel"], 8), (["--mesh", "model=2"], 8)]
+                # --vocab-parallel and the model axis are ported
+                # (test_torch_tensor_parallel.py): pipe and expert axes
+                # still raise
+                (["--mesh", "pipe=2"], 8), (["--mesh", "expert=2"], 8)]
 
 
 @pytest.mark.parametrize("flags,item", GEN_UNPORTED,

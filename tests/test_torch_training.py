@@ -245,14 +245,15 @@ def test_optimizer_refuses_other_params():
 
 
 @pytest.mark.parametrize("kw", [
-    # remat_policy="dots", the ring, Ulysses and the zigzag layout are
-    # ported (test_torch_lm_data_parallel.py,
-    # test_torch_sequence_parallel.py); their places here hold options
-    # that still raise
+    # remat_policy="dots", the ring, Ulysses, the zigzag layout and
+    # vocab_parallel are ported (test_torch_lm_data_parallel.py,
+    # test_torch_sequence_parallel.py, test_torch_tensor_parallel.py);
+    # their places here hold options that still raise
     dict(virtual_pipe=2, pipeline_schedule="interleaved"),
     dict(pipeline_schedule="1f1b"),
     dict(pipeline_schedule="interleaved"),
-    dict(moe=True), dict(fsdp=True), dict(vocab_parallel=True),
+    dict(moe=True), dict(fsdp=True),
+    dict(vocab_parallel=True, num_microbatches=2),
     dict(attention="ring", remat=True, remat_policy="dots"),
     dict(num_microbatches=2),
 ])

@@ -1194,6 +1194,141 @@ def battery_sequence_parallel(comm, p):
     return out
 
 
+def battery_tensor_parallel(comm, p):
+    """The mesh's model axis in a 4-rank world, every case of the parity
+    tests in ``test_torch_tensor_parallel.py``: the column→row pair at
+    model=4 (output and gradients), ``shard_params`` and its gather, the
+    flagship's forward at model=4 and data=2,model=2 (``vocab_parallel``
+    on and off), its loss, gradients and one AdamW step at data=2,model=2
+    and model=2,seq=2, greedy decoding at data=2,model=2, and
+    ``train_lm_torch.py``/``generate_torch.py`` at data=2,model=2
+    against data=4, the checkpoint saved at one model size and resumed
+    at the other.  Returns every case's result on this rank, with the
+    flash calls (forward, dq and dk/dv together) of each step: the plain
+    versions', which stand on the CPU where the card launches the
+    kernels."""
+    import contextlib
+    import importlib
+    import io
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_forward_fn, make_generate_fn,
+        make_train_step, make_value_and_grad_fn, params_from_jax,
+        params_to_numpy)
+    from chainermn_tpu_torch.parallel import (
+        MeshConfig, column_parallel_dense, row_parallel_dense)
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
+    from chainermn_tpu_torch.testing import replicas_bitwise
+    from chainermn_tpu_torch.utils.serialization import load_state
+
+    out = {"rank": comm.rank}
+    fa_mod = importlib.import_module(
+        "chainermn_tpu_torch.ops.flash_attention")
+    calls = [0, 0]
+
+    def counted(i, fn):
+        def call(*a, **kw):
+            calls[i] += 1
+            return fn(*a, **kw)
+        return call
+
+    fa_mod.flash_attention_reference = counted(
+        0, fa_mod.flash_attention_reference)
+    fa_mod.flash_attention_bwd_reference = counted(
+        1, fa_mod.flash_attention_bwd_reference)
+
+    def meshed(axes):
+        return MeshConfig(comm, **axes)
+
+    # the column→row pair at model=4: this rank's column block of w1 and
+    # row block of w2
+    m4 = meshed(dict(model=4))
+    x, w1, w2, dz = (torch.as_tensor(a) for a in p["dense"])
+    r, F = m4.axis_index("model"), w1.shape[1] // 4
+    x = x.clone().requires_grad_()
+    w1s = w1[:, r * F:(r + 1) * F].clone().requires_grad_()
+    w2s = w2[r * F:(r + 1) * F].clone().requires_grad_()
+    model = m4.comm("model")
+    z = row_parallel_dense(torch.relu(column_parallel_dense(
+        x, w1s, comm=model)), w2s, comm=model)
+    grads = torch.autograd.grad((z * dz).sum(), (x, w1s, w2s))
+    out["dense"] = [z.detach().numpy()] + [g.numpy() for g in grads]
+
+    # the layout: each rank's shard and the gather of the shards
+    out["layout"] = {}
+    for name, (axes, fields) in p["layout_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), meshed(axes)
+        shard = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        out["layout"][name] = dict(
+            shard=np_tree(shard),
+            gathered=params_to_numpy(shard, cfg, mesh=mesh))
+
+    # the flagship's forward
+    out["fwd"] = {}
+    for name, (axes, fields) in p["fwd_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), meshed(axes)
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        out["fwd"][name] = make_forward_fn(cfg, mesh=mesh)(
+            params, p["x"]).numpy()
+
+    # loss, gradients and one AdamW step; the flash calls of the step;
+    # the leaves' bits across the model group (the replicated ones) and
+    # across the batch-like group (all of them)
+    out["step"] = {}
+    x, y = p["x"], p["y"]
+    for name, (axes, fields) in p["step_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), meshed(axes)
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        loss, grads = make_value_and_grad_fn(cfg, mesh=mesh)(params, x, y)
+        g_np = params_to_numpy(grads, cfg, mesh=mesh)
+        opt = training.adamw(p["lr"])
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        calls[:] = [0, 0]
+        params, state, step_loss = step(params, state, x, y)
+        n_calls = tuple(calls)
+        repl = {k: v for k, v in params.items()
+                if k not in ("blocks",) and not (
+                    k == "embed" and cfg.vocab_parallel)}
+        repl["ln"] = [params["blocks"]["ln1"], params["blocks"]["ln2"]]
+        out["step"][name] = dict(
+            loss=float(loss), step_loss=float(step_loss), grads=g_np,
+            params=params_to_numpy(params, cfg, mesh=mesh), calls=n_calls,
+            model_bitwise=replicas_bitwise(mesh.comm("model"), repl),
+            batch_bitwise=replicas_bitwise(mesh.comm(*BATCH_AXES), params))
+
+    # greedy decoding
+    axes, fields = p["gen_case"]
+    cfg, mesh = TransformerConfig(**fields), meshed(axes)
+    params = params_from_jax(p["gen_tree"], cfg, "cpu", mesh=mesh)
+    out["gen"] = make_generate_fn(cfg, max_len=p["gen_max_len"],
+                                  mesh=mesh)(params, p["gen_prompt"]).numpy()
+
+    # the examples: data=2,model=2 with the vocabulary sharded against
+    # data=4, each checkpoint resumed at the other model size
+    ex = _load_example("examples/transformer/train_lm_torch.py",
+                       "train_lm_torch")
+    runs = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, argv, ck in p["example_runs"]:
+            run = ex.main(p["example_argv"] + argv + ["--checkpoint", ck])
+            runs[name] = dict(losses=run.losses, start=run.start)
+            if name == p["saved_after"]:
+                out["saved"] = {k: v for k, v in load_state(
+                    ck + "/lm_state.npz").items()
+                    if k in ("params", "opt", "step")}
+    out["example"] = runs
+    gen = _load_example("examples/transformer/generate_torch.py",
+                        "generate_torch")
+    out["generate"] = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, argv in p["generate_runs"].items():
+            res = gen.main(argv + ["--checkpoint", p["example_ck"]])
+            out["generate"][name] = res.tokens.numpy().copy()
+    return out
+
+
 # --------------------------------------------------------------------- #
 # the harness's own tests
 # --------------------------------------------------------------------- #
