@@ -24,6 +24,8 @@ from .transformer import (
     make_forward_fn,
     make_train_step,
     make_value_and_grad_fn,
+    regroup_blocks,
+    reshard_train_state,
     shard_params,
     transformer_backbone,
     transformer_forward,
@@ -55,6 +57,8 @@ __all__ = [
     "make_value_and_grad_fn",
     "params_from_jax",
     "params_to_numpy",
+    "regroup_blocks",
+    "reshard_train_state",
     "shard_params",
     "transformer_backbone",
     "transformer_forward",

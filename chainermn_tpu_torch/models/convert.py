@@ -3,13 +3,15 @@
 ``chainermn_tpu.models.init_transformer`` returns a tree of fp32 arrays:
 ``embed (V, D)``, ``pos (max_seq, D)`` (learned positions only),
 ``ln_f (D,)`` and ``blocks`` whose leaves carry a leading
-``(pipe=1, L, ...)`` stack: ``ln1``/``ln2 (D,)``, ``wo (H, Dh, D)``,
+``(pipe, L/pipe, ...)`` stack (``(pipe, V, L/(pipe·V), ...)`` under
+``virtual_pipe = V``): ``ln1``/``ln2 (D,)``, ``wo (H, Dh, D)``,
 ``wqkv (D, 3, H, Dh)`` (MHA) or ``wq (D, H, Dh)`` + ``wkv (D, 2, Hkv,
 Dh)`` (GQA/MQA), ``w1 (D, F)``, ``w2 (F, D)``.  :func:`params_from_jax`
 takes that tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
-checks every shape, squeezes the pipe axis and returns a dict of fp32
-tensors with the same names, blocks stacked ``(L, ...)``;
-:func:`params_to_numpy` is its inverse.
+checks every shape, keeps this rank's stage (the whole stack at pipe 1)
+and returns a dict of fp32 tensors with the same names, blocks stacked
+``(L/pipe, ...)`` (``(V, L/(pipe·V), ...)``); :func:`params_to_numpy`
+is its inverse.
 
 It needs numpy only, so :func:`init_numpy_params` can make seeded weights
 in the same layout (and at the same scales as ``init_transformer``) on a
@@ -17,10 +19,12 @@ machine without JAX; its numbers are numpy's, not ``jax.random``'s.
 :func:`init_transformer` is the port's ``init_transformer``: the same
 leaves, shapes, dtypes and scales drawn from a ``torch.Generator``, as
 tensors in the port's layout (blocks ``(L, ...)``).  Given a ``mesh``
-with a model axis, each of the three works on every rank with the whole
-tree and keeps (or, :func:`params_to_numpy`, gathers) this rank's shard
-(:func:`~.transformer.shard_params`), so the weights are the one-card
-model's.
+with a pipe or model axis, each of the three works on every rank with
+the whole tree and keeps (or, :func:`params_to_numpy`, gathers) this
+rank's shard (:func:`~.transformer.shard_params`), so the weights are
+the one-card model's; the JAX tree is then grouped for the mesh's pipe
+axis, as the JAX ``shard_params`` takes it
+(:func:`~.transformer.regroup_blocks` moves a tree between groupings).
 
 The same for the data-parallel models: :func:`resnet_params_from_jax`
 takes ``init_resnet``'s ``(params, state)`` (conv weights HWIO, BN
@@ -43,7 +47,13 @@ from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.links.batch_normalization import BatchNormState
 
 from .resnet import ResNetConfig
-from .transformer import TransformerConfig, gather_params, shard_params
+from .transformer import (
+    TransformerConfig,
+    _check_layers,
+    gather_params,
+    regroup_blocks,
+    shard_params,
+)
 
 __all__ = ["chain_params_from_jax", "init_mlp_numpy", "init_numpy_params",
            "init_resnet_numpy", "init_transformer", "mlp_params_from_jax",
@@ -79,20 +89,40 @@ def _top_shapes(cfg: TransformerConfig) -> dict:
 
 
 def _check_config(cfg: TransformerConfig):
-    if cfg.moe or cfg.virtual_pipe > 1:
+    if cfg.moe:
         raise NotImplementedError(
-            "MoE and interleaved (virtual_pipe > 1) block stacks are not "
-            "ported yet; they come with the parallel slice")
+            "MoE block stacks are not ported yet; they come with the "
+            "parallel slice (ROADMAP Queue A item 8)")
+
+
+def _grouping(cfg: TransformerConfig, mesh) -> tuple:
+    """The leading dims of a block leaf in the JAX layout grouped for
+    ``mesh``'s pipe axis (1 without a mesh)."""
+    S = 1 if mesh is None else mesh.axis_size("pipe")
+    V = cfg.virtual_pipe
+    _check_layers(S, cfg)
+    return (S, cfg.n_layers // S) if V == 1 \
+        else (S, V, cfg.n_layers // (S * V))
+
+
+def _one_stage(cfg: TransformerConfig, blocks, S: int) -> dict:
+    """JAX-layout blocks grouped for ``S`` stages as the port's whole
+    stack (one stage, squeezed)."""
+    V = cfg.virtual_pipe
+    return {k: v[0] for k, v in regroup_blocks(blocks, S, 1, V, V).items()}
 
 
 def params_from_jax(tree, cfg: TransformerConfig, device=None,
                     mesh=None) -> dict:
-    """The JAX package's parameter tree (numpy leaves, pipe axis of size
-    1) as fp32 tensors on ``device`` (CUDA unless ``"cpu"`` is named).
-    With a ``mesh``, every rank converts the whole tree and keeps its
-    shard over the model axis (:func:`~.transformer.shard_params`)."""
+    """The JAX package's parameter tree (numpy leaves, blocks grouped
+    for the mesh's pipe axis: ``(pipe, L/pipe, ...)``, pipe 1 without a
+    mesh) as fp32 tensors on ``device`` (CUDA unless ``"cpu"`` is
+    named).  With a ``mesh``, every rank converts the whole tree and
+    keeps its shard over the pipe and model axes
+    (:func:`~.transformer.shard_params`)."""
     dev = resolve_device(device)
     _check_config(cfg)
+    lead = _grouping(cfg, mesh)
 
     def leaf(name, a, shape):
         a = np.asarray(a)
@@ -110,23 +140,23 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None,
                          "config (quantized trees are not ported yet)")
     out = {name: leaf(name, tree[name], shape)
            for name, shape in want_top.items()}
-    L = cfg.n_layers
-    out["blocks"] = {
-        name: leaf(f"blocks/{name}", tree["blocks"][name],
-                   (1, L, *shape))[0]
-        for name, (shape, _) in want_blocks.items()}
+    out["blocks"] = _one_stage(cfg, {
+        name: leaf(f"blocks/{name}", tree["blocks"][name], (*lead, *shape))
+        for name, (shape, _) in want_blocks.items()}, lead[0])
     return out if mesh is None else shard_params(mesh, cfg, out)
 
 
 def params_to_numpy(params, cfg: TransformerConfig, mesh=None) -> dict:
     """The inverse of :func:`params_from_jax`: a port tree (parameters,
     or gradients in their structure) as fp32 numpy leaves in the JAX
-    package's layout, the ``(pipe=1, ...)`` axis re-added to the blocks,
-    so it compares leaf by leaf with the JAX tree.  With a ``mesh`` the
-    tree is this rank's shard over the model axis, and the whole one is
-    gathered first (:func:`~.transformer.gather_params`, collective over
-    the model communicator)."""
+    package's layout, the blocks grouped for the mesh's pipe axis (pipe 1
+    without a mesh), so it compares leaf by leaf with the JAX tree.  With
+    a ``mesh`` the tree is this rank's shard over the pipe and model
+    axes, and the whole one is gathered first
+    (:func:`~.transformer.gather_params`, collective over the model and
+    pipe communicators)."""
     _check_config(cfg)
+    lead = _grouping(cfg, mesh)
     if mesh is not None:
         params = gather_params(mesh, cfg, params)
     want_top, want_blocks = _top_shapes(cfg), _block_shapes(cfg)
@@ -145,25 +175,31 @@ def params_to_numpy(params, cfg: TransformerConfig, mesh=None) -> dict:
 
     out = {name: leaf(name, params[name], shape)
            for name, shape in want_top.items()}
-    L = cfg.n_layers
-    out["blocks"] = {
+    whole = _grouping(cfg, None)[1:]
+    V = cfg.virtual_pipe
+    out["blocks"] = regroup_blocks({
         name: leaf(f"blocks/{name}", params["blocks"][name],
-                   (L, *shape))[None]
-        for name, (shape, _) in want_blocks.items()}
+                   (*whole, *shape))[None]
+        for name, (shape, _) in want_blocks.items()}, 1, lead[0], V, V)
     return out
 
 
-def init_numpy_params(cfg: TransformerConfig, seed: int = 0) -> dict:
-    """Seeded fp32 weights in the JAX package's layout: dense leaves
-    ``normal * fan_in**-0.5``, ``embed``/``pos`` ``normal * 0.02``, norm
-    scales one — ``init_transformer``'s scales with numpy's numbers."""
+def init_numpy_params(cfg: TransformerConfig, seed: int = 0,
+                      pipe_size: int = 1) -> dict:
+    """Seeded fp32 weights in the JAX package's layout, the blocks
+    grouped for ``pipe_size`` stages (and ``cfg.virtual_pipe`` chunks):
+    dense leaves ``normal * fan_in**-0.5``, ``embed``/``pos`` ``normal *
+    0.02``, norm scales one — ``init_transformer``'s scales with numpy's
+    numbers, the same numbers in global layer order for every
+    grouping."""
     _check_config(cfg)
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
-    L = cfg.n_layers
+    L, V = cfg.n_layers, cfg.virtual_pipe
+    _check_layers(pipe_size, cfg)
     blocks = {}
     for name, (shape, fan_in) in _block_shapes(cfg).items():
         full = (1, L, *shape)
@@ -171,7 +207,7 @@ def init_numpy_params(cfg: TransformerConfig, seed: int = 0) -> dict:
             else normal(full, fan_in ** -0.5)
     params = {"embed": normal(_top_shapes(cfg)["embed"], 0.02),
               "ln_f": np.ones((cfg.d_model,), np.float32),
-              "blocks": blocks}
+              "blocks": regroup_blocks(blocks, 1, pipe_size, 1, V)}
     if cfg.pos_embedding == "learned":
         params["pos"] = normal((cfg.max_seq, cfg.d_model), 0.02)
     return params
@@ -185,20 +221,23 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
     CPU from ``generator`` (so a seed gives the same numbers on every
     device; they are torch's, not ``jax.random``'s) and returned on
     ``device`` (CUDA unless ``"cpu"`` is named) in the port's layout:
-    blocks stacked ``(L, ...)``.  :func:`params_to_numpy` gives the JAX
-    layout.  With a ``mesh`` every rank draws the whole tree from its
-    ``generator`` (the same seed on every rank) and keeps its shard over
-    the model axis.  Blocks grouped for a pipe axis (``pipe_size > 1``)
-    come with the parallel slice."""
+    blocks stacked ``(L, ...)`` (``(V, L/V, ...)`` under ``virtual_pipe
+    = V``).  :func:`params_to_numpy` gives the JAX layout.  With a
+    ``mesh`` every rank draws the whole tree from its ``generator`` (the
+    same seed on every rank) and keeps its shard over the pipe and model
+    axes.  ``pipe_size`` is the JAX argument: the tree drawn is the same
+    for every grouping, the layers must divide over ``pipe_size·V``
+    stages, and a mesh's pipe axis must then be ``pipe_size``."""
     if not isinstance(generator, torch.Generator):
         raise TypeError(f"init_transformer takes a torch.Generator, got "
                         f"{type(generator).__name__}")
-    if pipe_size != 1:
-        raise NotImplementedError(
-            f"pipe_size={pipe_size} is not ported to chainermn_tpu_torch "
-            "yet; blocks grouped for a pipe axis come with the parallel "
-            "slice (ROADMAP Queue A item 8)")
     _check_config(cfg)
+    V = cfg.virtual_pipe
+    _check_layers(pipe_size, cfg)
+    if mesh is not None and pipe_size > 1 \
+            and mesh.axis_size("pipe") != pipe_size:
+        raise ValueError(f"pipe_size={pipe_size} but the mesh's pipe axis "
+                         f"is {mesh.axis_size('pipe')}")
     dev = resolve_device(device)
 
     def normal(shape, std):
@@ -209,6 +248,9 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
     blocks = {name: torch.ones((L, *shape), device=dev) if fan_in is None
               else normal((L, *shape), fan_in ** -0.5)
               for name, (shape, fan_in) in _block_shapes(cfg).items()}
+    if V > 1:
+        blocks = {k: v.reshape(V, L // V, *v.shape[1:])
+                  for k, v in blocks.items()}
     # the leaf order of params_from_jax, which an optimizer's saved
     # state follows
     params = {"embed": normal(_top_shapes(cfg)["embed"], 0.02),

@@ -32,10 +32,15 @@ products over the model communicator, and under ``vocab_parallel`` the
 embedding lookup is the masked gather with one all-reduce and the head
 the fp32 product over the member's vocab rows, all-gathered: every
 member holds the same full logits, bit for bit, and takes the same
-argmax.
+argmax.  A pipe axis of ``S`` stages shards the layers: each stage holds
+only its blocks and their cache, ``(L/S, rows, kv_len, Hkv/M, Dh)``;
+stage ``p`` runs its layers in phase ``p`` of each step only (the JAX
+package runs every phase on every stage and masks), the hidden state
+goes ``p → p+1`` by one transfer, and the last stage's logits reach
+every stage by a broadcast.
 
-Sampling (``temperature > 0``), int8 weights and int8 KV cache, and
-pipeline-sharded decoding come in later slices and raise here.
+Sampling (``temperature > 0``) and int8 weights and int8 KV cache come
+in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from chainermn_tpu_torch.communicators.loopback import LoopbackCommunicator
 from chainermn_tpu_torch.ops.collectives import allgather
+from chainermn_tpu_torch.parallel.pipeline import _edge_send, _from_stage
 from chainermn_tpu_torch.parallel.ring_attention import (
     _NEG,
     _pv_mix,
@@ -60,7 +66,7 @@ from .transformer import (
     TransformerConfig,
     _check_mesh,
     _check_ported,
-    _layer,
+    _layers,
     _resolve,
     _rms_norm,
     _rows,
@@ -172,13 +178,14 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
 
 
 def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
-                 seq, model, with_logits: bool = True,
+                 seq, model, pipe, with_logits: bool = True,
                  chunk_attends_cache=False, pos_offset=None):
     """Next-token fp32 logits (B, V) for ``tok`` — (B,) in the generation
     loop, or a (B, Tq) chunk starting at ``pos`` for prefill
     (``with_logits=False`` then skips the head).  ``caches`` is the
-    ``(ck, cv)`` pair of (L, B, kv_len_local, Hkv_local, Dh) buffers;
-    ``params`` this rank's shard over ``model``."""
+    ``(ck, cv)`` pair of (L_local, B, kv_len_local, Hkv_local, Dh)
+    buffers; ``params`` this rank's shard over ``model`` and ``pipe``
+    (its stage's layers)."""
     cd = cfg.compute_dtype
     Tq = tok.shape[1] if tok.dim() == 2 else 1
     if cfg.vocab_parallel:
@@ -197,13 +204,27 @@ def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
         h = h + (rows if pos_offset is not None else rows[None]).to(cd)
     h = h.to(cd)
     ck, cv = caches
-    for i in range(cfg.n_layers):
-        h = _decode_block(cfg, h, _layer(params, i), ck[i], cv[i], pos,
-                          seq, model,
-                          chunk_attends_cache=chunk_attends_cache,
-                          pos_offset=pos_offset)
+    S, s = pipe.size, pipe.rank
+    like = (h.shape, h.dtype)
+    for p in range(S):
+        if p == s:
+            for i, blk in enumerate(_layers(cfg, params["blocks"])):
+                h = _decode_block(cfg, h, blk, ck[i], cv[i], pos, seq, model,
+                                  chunk_attends_cache=chunk_attends_cache,
+                                  pos_offset=pos_offset)
+        if p < S - 1:
+            # the one hand-off of phase p: stage p's output to p + 1
+            got = _edge_send(h if s == p else None, pipe, [(p, p + 1)], like)
+            if s == p + 1:
+                h = got
     if not with_logits:
         return None
+    if s != S - 1:
+        # the last stage's logits, broadcast (every stage takes the same
+        # argmax)
+        V = cfg.vocab_size
+        return _from_stage(torch.empty((h.shape[0], V), dtype=torch.float32,
+                                       device=h.device), pipe, S - 1)
     # the decode head is a full fp32 product over the last position;
     # under vocab_parallel over this member's rows, then the vocab
     # shards all-gathered (the same bits on every member, so every
@@ -212,7 +233,7 @@ def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
     logits = (hN.float() @ params["embed"].float().T)[:, 0]
     if cfg.vocab_parallel and model.size > 1:
         logits = allgather(logits, model, axis=1, tiled=True)
-    return logits
+    return _from_stage(logits, pipe, S - 1)
 
 
 def _validate_prompt_lens(prompt, prompt_lens):
@@ -259,10 +280,11 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     ``prompt_lens``) is the global batch: each rank decodes and returns
     its rows over the data axis, a seq axis blocks the KV cache over
     its members (``max_len`` must divide over it; left-padded prompts
-    are not supported there), and a model axis shards the heads (and
-    under ``vocab_parallel`` the vocabulary): ``params`` are then this
-    rank's shard (:func:`~.transformer.shard_params`), and every member
-    of a model group returns the same tokens."""
+    are not supported there), a model axis shards the heads (and under
+    ``vocab_parallel`` the vocabulary) and a pipe axis the layers:
+    ``params`` are then this rank's shard
+    (:func:`~.transformer.shard_params`), and every member of a model
+    group and every stage returns the same tokens."""
     if temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported yet; it comes with the "
@@ -279,6 +301,21 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         raise ValueError(
             "fsdp is a training-path layout; decode with "
             "dataclasses.replace(cfg, fsdp=False, fsdp_wire_dtype='')")
+    pipe = LoopbackCommunicator(device=dev) if mesh is None \
+        else mesh.comm("pipe")
+    if pipe.size > 1 and cfg.virtual_pipe > 1:
+        raise ValueError(
+            "pipe-parallel decode with virtual_pipe > 1 is out of "
+            "scope: interleaved chunks put non-contiguous layers on "
+            "each device, so the S-phase hand-off loop would need "
+            "V*S phases for no capacity gain over repacking — decode "
+            "with the blocks repacked to virtual_pipe=1 "
+            "(V-chunk axes merge exactly; see init_transformer's "
+            "layout note)")
+    if cfg.n_layers % pipe.size:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} not divisible by the pipe mesh "
+            f"axis ({pipe.size})")
     _validate_eos_pad(cfg, eos_id, pad_id)
     max_len = max_len or cfg.max_seq
     if max_len > cfg.max_seq:
@@ -307,7 +344,9 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     def run(params, prompt, offsets):
         B, P = prompt.shape
         cd = cfg.compute_dtype
-        cache = torch.zeros((2, cfg.n_layers, B, max_len // seq.size,
+        # this stage's layers only
+        cache = torch.zeros((2, cfg.n_layers // pipe.size, B,
+                             max_len // seq.size,
                              cfg.kv_heads // model.size, cfg.d_head),
                             dtype=cd, device=dev)
         caches = (cache[0], cache[1])
@@ -318,7 +357,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         buf[:, :P] = prompt
         if P > 1:
             _decode_step(cfg, params, caches, prompt[:, :P - 1], 0, seq,
-                         model, with_logits=False,
+                         model, pipe, with_logits=False,
                          chunk_attends_cache=offsets is not None,
                          pos_offset=offsets)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -331,7 +370,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
                     break
                 gen_len += (~done).to(torch.int32)
             logits = _decode_step(cfg, params, caches, buf[:, t], t, seq,
-                                  model, pos_offset=offsets)
+                                  model, pipe, pos_offset=offsets)
             if with_logits:
                 steps.append(logits)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)

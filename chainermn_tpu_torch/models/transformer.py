@@ -50,10 +50,23 @@ meaned over the batch-like group ``(data, expert, seq)`` and so are the
 gradients, in fp32 by ``multi_node_mean_grad``: every parameter is
 replicated over those axes, and the ring's (or the exchange's) backward
 has already delivered the other blocks' contributions to each rank; a
-model-sharded leaf's mean is over its own shard's group.  Pipe and
-expert axes, MoE, FSDP, pipeline micro-batching and the
-1F1B/interleaved schedules come with the rest of the parallel slice and
-raise here.
+model-sharded leaf's mean is over its own shard's group.
+
+The mesh's pipe axis shards the layers (:mod:`..parallel.pipeline`):
+each rank holds its stage's blocks, ``(L/S, ...)``, or under
+``virtual_pipe = V`` its ``V`` chunks, ``(V, L/(S·V), ...)`` (chunk
+``c`` of stage ``s`` is virtual stage ``c·S + s``), cut from the whole
+tree by :func:`shard_params` (the JAX ``param_specs``' pipe entries).
+The block stack runs as GPipe (:func:`~..parallel.pipeline.
+pipeline_apply`) whenever the pipe axis or ``num_microbatches`` is
+above 1, the ``V`` chunk rings one after the other when ``virtual_pipe
+> 1``, with remat a stage application at a time; ``pipeline_schedule=
+"1f1b"|"interleaved"`` puts the final norm, the tied head and the loss
+inside the schedule (:func:`_grad_1f1b`, the JAX ``_make_1f1b_grad``).
+The leaves replicated over pipe (``embed``, ``pos``, ``ln_f``) get the
+same gradient bits on every pipe rank: every stage computes the same
+head and embedding on the same broadcast values.  The expert axis, MoE
+and FSDP come with the rest of the parallel slice and raise here.
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.utils._pytree as pytree
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import (
     checkpoint,
@@ -77,6 +91,11 @@ from chainermn_tpu_torch.ops.flash_attention import (
     flash_attention_supported,
 )
 from chainermn_tpu_torch.parallel.mesh import BATCH_AXES, MeshConfig
+from chainermn_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pipeline_train_1f1b,
+    pipeline_train_interleaved,
+)
 from chainermn_tpu_torch.parallel.ring_attention import (
     _block_positions,
     broadcast_kv,
@@ -98,15 +117,17 @@ __all__ = [
     "make_train_step",
     "make_value_and_grad_fn",
     "gather_params",
+    "regroup_blocks",
+    "reshard_train_state",
     "shard_params",
     "transformer_backbone",
     "transformer_forward",
 ]
 
 _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
-# the JAX MeshConfig's axes; the port has the data, seq and model axes
+# the JAX MeshConfig's axes; the port has all but the expert axis
 _MESH_AXES = ("pipe", "data", "expert", "seq", "model")
-_PORTED_AXES = ("data", "seq", "model")
+_PORTED_AXES = ("pipe", "data", "seq", "model")
 
 
 @dataclass(frozen=True)
@@ -218,28 +239,19 @@ def _torch_dtype(name: str) -> torch.dtype:
 def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
                   training: bool = False):
     """Raise ``NotImplementedError`` for options a later slice ports."""
-    unported = [
-        ("moe", cfg.moe, _PARALLEL_SLICE),
-        ("virtual_pipe > 1", cfg.virtual_pipe > 1, _PARALLEL_SLICE),
-    ]
+    unported = [("moe", cfg.moe, _PARALLEL_SLICE)]
     if decoding:
         unported.append(
             ('kv_cache_dtype="int8"', cfg.kv_cache_dtype == "int8",
              "the quantization slice (ROADMAP Queue A item 9)"))
     else:
-        unported += [
-            ("fsdp", cfg.fsdp, _PARALLEL_SLICE),
-            ("num_microbatches > 1", cfg.num_microbatches > 1,
-             _PARALLEL_SLICE),
-        ]
+        unported.append(("fsdp", cfg.fsdp, _PARALLEL_SLICE))
     if training:
         if cfg.pipeline_schedule not in ("gpipe", "1f1b", "interleaved"):
             raise ValueError(
                 "pipeline_schedule must be gpipe|1f1b|interleaved, got "
                 f"{cfg.pipeline_schedule!r}")
         unported += [
-            (f"pipeline_schedule={cfg.pipeline_schedule!r}",
-             cfg.pipeline_schedule != "gpipe", _PARALLEL_SLICE),
             # the selective checkpoint would replay the ring's transfers
             # and the exchanges in its recompute; full remat recomputes
             # them in the same order on every rank
@@ -266,7 +278,7 @@ def _check_mesh(mesh, cfg: TransformerConfig):
     """The JAX ``_check_mesh``'s config/mesh divisibility checks, with
     its messages, on ``mesh``: a :class:`MeshConfig` or a mapping of
     axis sizes (``{"data": 4}``; missing axes are 1).  The port has the
-    data, seq and model axes: a pipe or expert axis larger than 1 then
+    pipe, data, seq and model axes: an expert axis larger than 1 then
     raises ``NotImplementedError``."""
     mesh = getattr(mesh, "shape", mesh)
     unknown = set(mesh) - set(_MESH_AXES)
@@ -647,28 +659,44 @@ def _layer(params, i: int) -> dict:
     return {name: leaf[i] for name, leaf in params["blocks"].items()}
 
 
-def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
-                         model=None):
-    """Embedding → block stack → final norm: the normed
-    ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
-    is this rank's block of the sequence when ``seq`` (the seq
-    communicator; None: one rank) is sharded; positions are the block's
-    global ones (the zigzag rows under ``seq_layout="zigzag"``).
-    ``params`` are this rank's shard over ``model`` (the model
-    communicator; None: one rank), see :func:`shard_params`.  With
-    ``cfg.remat`` and gradients enabled each block runs under
-    ``torch.utils.checkpoint``.  ``remat_policy="full"`` keeps only its
-    input, and its forward (the flash kernel and the ring's transfers
-    included, in the same order on every rank) runs again in the
-    backward; ``"dots"`` also keeps the dense products and the
-    attention core's output, so the backward recomputes only the norms
-    and the elementwise ops."""
-    if seq is None:
-        seq = LoopbackCommunicator(device=tokens.device)
-    if model is None:
-        model = LoopbackCommunicator(device=tokens.device)
+def _layers(cfg: TransformerConfig, blocks) -> list:
+    """This rank's blocks as one dict a layer, in the order it runs them
+    (its stage's; chunk after chunk under ``virtual_pipe``): views into
+    the stacked leaves, or ``blocks`` itself when it is such a list."""
+    if isinstance(blocks, list):
+        return blocks
+    if cfg.virtual_pipe > 1:
+        blocks = {k: v.flatten(0, 1) for k, v in blocks.items()}
+    n = next(iter(blocks.values())).shape[0]
+    return [{k: v[i] for k, v in blocks.items()} for i in range(n)]
+
+
+def _stage(cfg: TransformerConfig, layers, h, seq, model):
+    """One pipeline stage (or chunk): its blocks in order."""
+    for blk in layers:
+        h = _block(cfg, h, blk, seq, model)
+    return h
+
+
+def _dots_checkpoint(early_stop: bool):
+    """The ``checkpoint_fn`` of a stage under ``remat_policy="dots"``:
+    the stage under the policy's selective checkpoint (the JAX
+    ``cfg.checkpoint_fn`` around the stage)."""
+    def wrap(fn):
+        def run(p, mb):
+            with set_checkpoint_early_stop(early_stop):
+                return checkpoint(fn, p, mb, use_reentrant=False,
+                                  preserve_rng_state=False,
+                                  context_fn=_dots_context)
+        return run
+    return wrap
+
+
+def _embed(cfg: TransformerConfig, params, tokens, seq, model):
+    """The token embedding plus positions (the block's global ones), in
+    the compute dtype: the residual stream's start."""
     cd = cfg.compute_dtype
-    B, T = tokens.shape
+    T = tokens.shape[1]
     if T * seq.size > cfg.max_seq:
         raise ValueError(f"sequence length {T * seq.size} exceeds max_seq "
                          f"{cfg.max_seq}")
@@ -677,25 +705,69 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
     else:
         h = params["embed"][tokens]                      # (B, T, D) fp32
     if cfg.pos_embedding == "rope":
-        h = h.to(cd)              # rotations happen inside attention
-    elif cfg.seq_layout == "zigzag":
+        return h.to(cd)           # rotations happen inside attention
+    if cfg.seq_layout == "zigzag":
         # position rows follow the zigzag permutation of this block
-        h = (h + params["pos"][_block_positions(
+        return (h + params["pos"][_block_positions(
             seq.rank, T, seq.size, "zigzag", h.device)]).to(cd)
-    else:
-        r = seq.rank
-        h = (h + params["pos"][r * T:(r + 1) * T]).to(cd)
+    r = seq.rank
+    return (h + params["pos"][r * T:(r + 1) * T]).to(cd)
+
+
+def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
+                         model=None, pipe=None):
+    """Embedding → block stack → final norm: the normed
+    ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
+    is this rank's block of the sequence when ``seq`` (the seq
+    communicator; None: one rank) is sharded; positions are the block's
+    global ones (the zigzag rows under ``seq_layout="zigzag"``).
+    ``params`` are this rank's shard over ``model`` (the model
+    communicator; None: one rank) and ``pipe`` (the pipe communicator),
+    see :func:`shard_params`.  With ``cfg.remat`` and gradients enabled
+    each block runs under ``torch.utils.checkpoint``.
+    ``remat_policy="full"`` keeps only its input, and its forward (the
+    flash kernel and the ring's transfers included, in the same order on
+    every rank) runs again in the backward; ``"dots"`` also keeps the
+    dense products and the attention core's output, so the backward
+    recomputes only the norms and the elementwise ops.
+
+    Over a pipe axis of ``S > 1`` stages, or with ``num_microbatches >
+    1`` on one, the stack runs as GPipe (the ``V`` chunk rings one after
+    the other under ``virtual_pipe``), every stage receiving the
+    output; remat is then a stage application's (the stage's input
+    kept, the stage recomputed in the backward)."""
+    if seq is None:
+        seq = LoopbackCommunicator(device=tokens.device)
+    if model is None:
+        model = LoopbackCommunicator(device=tokens.device)
+    if pipe is None:
+        pipe = LoopbackCommunicator(device=tokens.device)
+    h = _embed(cfg, params, tokens, seq, model)
+    layers = _layers(cfg, params["blocks"])
     remat = cfg.remat and torch.is_grad_enabled()
-    context_fn = _dots_context if cfg.remat_policy == "dots" \
-        else noop_context_fn
     # when an axis inside the block is sharded the recompute runs the
     # whole block on every rank: stopping it early, after the block's
     # last saved tensor, would stop the ranks at different collectives
     # (a seq rank skips other masked pairs of the ring and saves other
     # tensors; the model axis's all-reduces must all be replayed)
     early_stop = seq.size == 1 and model.size == 1
-    for i in range(cfg.n_layers):
-        blk = _layer(params, i)
+    if pipe.size > 1 or cfg.num_microbatches > 1 or cfg.virtual_pipe > 1:
+        V = cfg.virtual_pipe
+        n = len(layers) // V
+        kw = dict(remat=remat)
+        if remat and cfg.remat_policy == "dots":
+            kw["checkpoint_fn"] = _dots_checkpoint(early_stop)
+        for c in range(V):
+            # chunk c of every stage as one GPipe pass: virtual stage
+            # order c·S + s
+            h = pipeline_apply(
+                lambda p, mb: _stage(cfg, p, mb, seq, model),
+                layers[c * n:(c + 1) * n], h, comm=pipe,
+                num_microbatches=cfg.num_microbatches, **kw)
+        return _rms_norm(h, params["ln_f"])
+    context_fn = _dots_context if cfg.remat_policy == "dots" \
+        else noop_context_fn
+    for blk in layers:
         if remat:
             # the blocks draw no random numbers: no RNG state to replay
             with set_checkpoint_early_stop(early_stop):
@@ -709,14 +781,14 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
 
 
 def transformer_forward(cfg: TransformerConfig, params, tokens, seq=None,
-                        model=None):
+                        model=None, pipe=None):
     """``(B, T, vocab)`` fp32 logits through the weight-tied head.  Under
     ``vocab_parallel`` each member of ``model`` computes its vocab
     slice and the slices are all-gathered: the full logits, the same
-    bits on every member."""
+    bits on every member (and on every stage of ``pipe``)."""
     if model is None:
         model = LoopbackCommunicator(device=tokens.device)
-    h = transformer_backbone(cfg, params, tokens, seq, model)
+    h = transformer_backbone(cfg, params, tokens, seq, model, pipe)
     if cfg.vocab_parallel:
         logits = _lm_head(cfg.compute_dtype, h, params["embed"], model)
         if model.size == 1:
@@ -744,19 +816,63 @@ def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets, model):
 
 
 def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None,
-            model=None):
+            model=None, pipe=None):
     """Mean next-token cross-entropy of ``(B, T)`` ``inputs`` against
     ``targets`` (this rank's block under a sharded ``seq``; ``params``
-    this rank's shard over ``model``).  The JAX package adds
-    ``0.01·aux``, the MoE balancing loss, which is zero for the dense
-    models the port has."""
+    this rank's shard over ``model`` and ``pipe``).  The JAX package
+    adds ``0.01·aux``, the MoE balancing loss, which is zero for the
+    dense models the port has."""
     _check_ported(cfg, training=True)
     if model is None:
         model = LoopbackCommunicator(device=inputs.device)
     targets = targets.long()
-    h = transformer_backbone(cfg, params, inputs, seq, model)
+    h = transformer_backbone(cfg, params, inputs, seq, model, pipe)
     return _shard_nll_sum(cfg, h, params["embed"], targets,
                           model) / targets.numel()
+
+
+def _grad_1f1b(cfg: TransformerConfig, params, inputs, targets, seq, model,
+               pipe):
+    """The JAX ``_make_1f1b_grad``'s body on this rank: the embedding
+    outside the schedule (its backward takes the schedule's ``dx``), the
+    block stack as the 1F1B (or interleaved) stages, the final norm, the
+    tied head and the cross-entropy as the in-schedule ``loss_fn``.
+    ``params["blocks"]`` is this rank's list of layers.  Returns this
+    rank's loss (the mean over its micro-batches), the gradients of the
+    top-level leaves (``embed``: the lookup side plus the head side) and
+    one dict of gradients a layer."""
+    targets = targets.long()
+    top = [params["embed"]] + ([params["pos"]] if "pos" in params else [])
+    with torch.enable_grad():
+        h = _embed(cfg, params, inputs, seq, model)
+
+    def stage_fn(layers, mb):
+        return _stage(cfg, layers, mb, seq, model)
+
+    def loss_fn(lp, y, tgt):
+        hN = _rms_norm(y, lp["ln_f"])
+        return _shard_nll_sum(cfg, hN, lp["embed"], tgt,
+                              model) / tgt.numel()
+
+    lp = {"ln_f": params["ln_f"], "embed": params["embed"]}
+    layers, M = params["blocks"], cfg.num_microbatches
+    if cfg.pipeline_schedule == "interleaved":
+        V = cfg.virtual_pipe
+        n = len(layers) // V
+        loss, g_chunks, g_lp, dx = pipeline_train_interleaved(
+            stage_fn, loss_fn, [layers[c * n:(c + 1) * n] for c in range(V)],
+            lp, h.detach(), targets, comm=pipe, num_microbatches=M,
+            num_chunks=V)
+        g_layers = [g for chunk in g_chunks for g in chunk]
+    else:
+        loss, g_layers, g_lp, dx = pipeline_train_1f1b(
+            stage_fn, loss_fn, layers, lp, h.detach(), targets, comm=pipe,
+            num_microbatches=M)
+    d_top = torch.autograd.grad(h, top, dx)
+    grads = {"embed": d_top[0] + g_lp["embed"], "ln_f": g_lp["ln_f"]}
+    if "pos" in params:
+        grads["pos"] = d_top[1]
+    return loss, grads, g_layers
 
 
 def _resolve(device, comm, mesh):
@@ -804,6 +920,24 @@ def _shard(mesh, x, dev):
     return x.to(dev)
 
 
+def _check_layers(S: int, cfg: TransformerConfig):
+    """The block stack must divide over ``S`` pipe stages and their
+    chunks (the JAX ``init_transformer``'s check and message)."""
+    V = cfg.virtual_pipe
+    if cfg.n_layers % (S * V):
+        raise ValueError(
+            f"{cfg.n_layers} layers not divisible by "
+            f"pipe·virtual_pipe = {S}·{V}")
+
+
+def _axes(mesh, dev):
+    """The seq, model and pipe communicators of ``mesh`` (loopback ones
+    without a mesh)."""
+    if mesh is None:
+        return tuple(LoopbackCommunicator(device=dev) for _ in range(3))
+    return mesh.comm("seq"), mesh.comm("model"), mesh.comm("pipe")
+
+
 def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
                     mesh=None):
     """``fn(params, tokens) -> logits``: the scoring entry point.
@@ -816,18 +950,20 @@ def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
     batch and each rank returns the logits of its rows and its block of
     the sequence, its shard of the JAX function's output; ``params`` are
     then its shard (:func:`shard_params`), and the logits are the full
-    vocabulary on every member of the model axis."""
+    vocabulary on every member of the model axis and every stage of the
+    pipe axis (the last stage's, broadcast)."""
     dev, mesh = _resolve(device, comm, mesh)
     if mesh is not None:
         _check_mesh(mesh, cfg)
+    _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, decoding=False)
-    seq = None if mesh is None else mesh.comm("seq")
-    model = None if mesh is None else mesh.comm("model")
+    seq, model, pipe = _axes(mesh, dev)
 
     def forward(params, tokens):
         tokens = _shard(mesh, tokens, dev)
         with torch.inference_mode():
-            return transformer_forward(cfg, params, tokens, seq, model)
+            return transformer_forward(cfg, params, tokens, seq, model,
+                                       pipe)
 
     return forward
 
@@ -850,13 +986,18 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
     ``params`` are this rank's shard (:func:`shard_params`) and so are
     ``grads``; a leaf replicated over model (the norm scales, ``pos``,
     ``embed`` without ``vocab_parallel``) comes out the same on every
-    member: the column products' backward all-reduce makes it so."""
+    member: the column products' backward all-reduce makes it so.  Over
+    a pipe axis ``params`` hold this rank's stage; the leaves replicated
+    over pipe (``embed``, ``pos``, ``ln_f``) come out the same on every
+    stage.  ``pipeline_schedule="1f1b"|"interleaved"`` runs the loss
+    inside the schedule (:func:`_grad_1f1b`); ``"gpipe"`` differentiates
+    :func:`lm_loss`."""
     dev, mesh = _resolve(device, comm, mesh)
     if mesh is not None:
         _check_mesh(mesh, cfg)
+    _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, training=True)
-    seq = None if mesh is None else mesh.comm("seq")
-    model = None if mesh is None else mesh.comm("model")
+    seq, model, pipe = _axes(mesh, dev)
     group = None if mesh is None else mesh.comm(*BATCH_AXES)
 
     def value_and_grad(params, inputs, targets):
@@ -867,18 +1008,25 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
         # each layer's slice of a stacked (L, ...) block leaf is a leaf of
         # its own: a gradient into a view of the stacked tensor would be
         # scattered into a zero-filled full-size tensor, once per layer
-        layers = {k: [x.requires_grad_() for x in p.detach().unbind(0)]
-                  for k, p in params["blocks"].items()}
+        layers = [{k: x.requires_grad_() for k, x in blk.items()}
+                  for blk in _layers(cfg, {k: p.detach() for k, p in
+                                           params["blocks"].items()})]
         live["blocks"] = layers
-        with torch.enable_grad():
-            loss = lm_loss(cfg, live, inputs, targets, seq, model)
-            grads = torch.autograd.grad(
-                loss, [live[k] for k in top]
-                + [x for xs in layers.values() for x in xs])
-        out = dict(zip(top, grads))
-        rest = iter(grads[len(top):])
-        out["blocks"] = {k: torch.stack([next(rest) for _ in xs])
-                         for k, xs in layers.items()}
+        if cfg.pipeline_schedule in ("1f1b", "interleaved"):
+            loss, out, g_layers = _grad_1f1b(cfg, live, inputs, targets,
+                                             seq, model, pipe)
+        else:
+            with torch.enable_grad():
+                loss = lm_loss(cfg, live, inputs, targets, seq, model, pipe)
+                grads = torch.autograd.grad(
+                    loss, [live[k] for k in top]
+                    + [x for blk in layers for x in blk.values()])
+            out = dict(zip(top, grads))
+            rest = iter(grads[len(top):])
+            g_layers = [{k: next(rest) for k in blk} for blk in layers]
+        out["blocks"] = {
+            k: torch.stack([g[k] for g in g_layers]).reshape(p.shape)
+            for k, p in params["blocks"].items()}
         grads = {k: out[k] for k in params}
         loss = loss.detach()
         if group is not None:
@@ -893,8 +1041,8 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
 def make_train_step(cfg: TransformerConfig, optimizer, device=None,
                     comm=None, mesh=None):
     """``step(params, opt_state, inputs, targets) -> (params, opt_state,
-    loss)``: the JAX ``make_train_step`` at a mesh with data, seq and
-    model axes (the GPipe branch at pipe size 1).  ``optimizer`` is one of
+    loss)``: the JAX ``make_train_step`` at a mesh with pipe, data, seq
+    and model axes, under ``cfg.pipeline_schedule``.  ``optimizer`` is one of
     :mod:`chainermn_tpu_torch.training`'s (``adamw``, ``sgd``) and
     ``opt_state`` its ``init(params)``.  ``loss`` is the loss before the
     update.  Where JAX returns new arrays, the port updates ``params``
@@ -915,20 +1063,23 @@ def make_train_step(cfg: TransformerConfig, optimizer, device=None,
 
 
 # --------------------------------------------------------------------- #
-# the layout over the model axis
+# the layout over the model and pipe axes
 # --------------------------------------------------------------------- #
 
 
 def _shard_dims(cfg: TransformerConfig) -> dict:
     """The dim each leaf shards over ``model`` in the port's layout
-    (blocks ``(L, ...)``), None for a replicated leaf: the JAX
-    ``param_specs``' model and vocab entries with the pipe axis
-    squeezed."""
+    (blocks ``(L, ...)``, or ``(V, L/V, ...)`` under ``virtual_pipe``),
+    None for a replicated leaf: the JAX ``param_specs``' model and vocab
+    entries with the pipe axis squeezed."""
     blocks = {"ln1": None, "ln2": None, "wo": 1, "w1": 2, "w2": 1}
     if cfg.kv_heads == cfg.n_heads:
         blocks["wqkv"] = 3
     else:
         blocks.update(wq=2, wkv=3)
+    if cfg.virtual_pipe > 1:
+        # the chunk axis before the layers
+        blocks = {k: None if d is None else d + 1 for k, d in blocks.items()}
     return {"embed": 0 if cfg.vocab_parallel else None, "ln_f": None,
             "pos": None, "blocks": blocks}
 
@@ -947,23 +1098,93 @@ def _map_sharded(cfg, params, fn):
     return {k: out[k] for k in params}
 
 
+def regroup_blocks(blocks, from_pipe: int, to_pipe: int,
+                   from_virtual: int = 1, to_virtual: int = 1):
+    """Regroup a block stack in the JAX layout between pipeline
+    groupings (the JAX ``regroup_blocks``; numpy or torch leaves).
+
+    Leaves are ``(P, L/P, *base)``, or ``(P, V, L/(P·V), *base)`` under
+    ``virtual_pipe = V > 1`` (chunk ``c`` of stage ``s`` is virtual stage
+    ``g = c·P + s``, the ``g``-th contiguous layer slice).  Each leaf is
+    flattened to global layer order and grouped for the target, so a
+    state trained on any (pipe, virtual) grouping resumes or decodes on
+    any other."""
+
+    def leaf(a):
+        if from_virtual > 1:
+            if a.shape[0] != from_pipe or a.shape[1] != from_virtual:
+                raise ValueError(
+                    f"block leaf {tuple(a.shape)} does not match from_pipe="
+                    f"{from_pipe}, from_virtual={from_virtual}")
+            base = a.shape[3:]
+            # (P, V, lpc) -> (V, P, lpc) -> layer order g·lpc + i
+            layers = a.swapaxes(0, 1).reshape(-1, *base)
+        else:
+            if a.shape[0] != from_pipe:
+                raise ValueError(
+                    f"block leaf {tuple(a.shape)} does not match "
+                    f"from_pipe={from_pipe}")
+            base = a.shape[2:]
+            layers = a.reshape(-1, *base)
+        L = layers.shape[0]
+        if L % (to_pipe * to_virtual):
+            raise ValueError(
+                f"{L} layers not divisible by to_pipe·to_virtual = "
+                f"{to_pipe}·{to_virtual}")
+        if to_virtual > 1:
+            lpc = L // (to_pipe * to_virtual)
+            return layers.reshape(
+                to_virtual, to_pipe, lpc, *base).swapaxes(0, 1)
+        return layers.reshape(to_pipe, L // to_pipe, *base)
+
+    return pytree.tree_map(leaf, blocks)
+
+
+def _stage_blocks(cfg: TransformerConfig, blocks, S: int, s: int) -> dict:
+    """Stage ``s`` of ``S``'s blocks, cut from the whole stack (the
+    port's one-stage layout): ``(L/S, ...)``, or ``(V, L/(S·V), ...)``
+    under ``virtual_pipe``; tensors of their own."""
+    V = cfg.virtual_pipe
+    grouped = regroup_blocks({k: v[None] for k, v in blocks.items()},
+                             1, S, V, V)
+    return {k: v[s].clone() for k, v in grouped.items()}
+
+
+def _whole_blocks(cfg: TransformerConfig, blocks, pipe) -> dict:
+    """The whole stack from every stage's blocks: an all-gather over
+    ``pipe``, regrouped to one stage."""
+    V = cfg.virtual_pipe
+    stacked = {k: pipe.allgather(v.detach().contiguous())
+               for k, v in blocks.items()}
+    return {k: v[0] for k, v in regroup_blocks(stacked, pipe.size, 1, V,
+                                               V).items()}
+
+
 def shard_params(mesh, cfg: TransformerConfig, params) -> dict:
-    """This rank's shard of the whole tree ``params`` (the port's layout,
-    on every rank alike) over ``mesh``'s model axis: the JAX
-    ``shard_params``, where rank ``r`` is device ``r``.  Model coordinate
-    ``m`` of ``M`` keeps block ``m`` of the head dim of ``wqkv``/``wq``/
-    ``wkv`` and ``wo``, of ``w1``'s columns and ``w2``'s rows, and under
-    ``vocab_parallel`` of ``embed``'s rows; the other leaves are kept
-    whole.  The shards are tensors of their own.  At model size 1 the
-    tree is returned as it is."""
+    """This rank's shard of the whole tree ``params`` (the port's layout
+    at pipe and model size 1, on every rank alike) over ``mesh``: the
+    JAX ``shard_params``, where rank ``r`` is device ``r``.  Pipe
+    coordinate ``s`` of ``S`` keeps its stage's blocks (the JAX
+    ``param_specs``' pipe entries: ``(L/S, ...)``, or under
+    ``virtual_pipe`` its chunks ``(V, L/(S·V), ...)``, virtual stages
+    ``c·S + s``); model coordinate ``m`` of ``M`` keeps block ``m`` of
+    the head dim of ``wqkv``/``wq``/``wkv`` and ``wo``, of ``w1``'s
+    columns and ``w2``'s rows, and under ``vocab_parallel`` of
+    ``embed``'s rows; the other leaves are kept whole.  The shards are
+    tensors of their own.  At pipe and model size 1 the tree is returned
+    as it is."""
     _check_mesh(mesh, cfg)
+    S = mesh.axis_size("pipe")
+    if S > 1:
+        params = dict(params, blocks=_stage_blocks(
+            cfg, params["blocks"], S, mesh.axis_index("pipe")))
     return _shard_tree(cfg, params, mesh.axis_size("model"),
                        mesh.axis_index("model"))
 
 
 def _shard_tree(cfg: TransformerConfig, params, M: int, m: int) -> dict:
     """Member ``m``'s shard of ``params`` over a model axis of ``M``
-    members (:func:`shard_params` without a mesh)."""
+    members (:func:`shard_params`' model half, without a mesh)."""
     if M == 1:
         return params
     return _map_sharded(cfg, params,
@@ -973,11 +1194,58 @@ def _shard_tree(cfg: TransformerConfig, params, M: int, m: int) -> dict:
 def gather_params(mesh, cfg: TransformerConfig, params) -> dict:
     """The inverse of :func:`shard_params`: the whole tree from every
     rank's shard (parameters, or a tree of their structure such as
-    gradients or an optimizer's moments), by an all-gather over
-    ``mesh``'s model communicator; every member gets it.  At model size
-    1 the tree is returned as it is."""
-    model = mesh.comm("model")
-    if model.size == 1:
-        return params
-    return _map_sharded(cfg, params, lambda t, d: torch.cat(
-        list(model.allgather(t.detach().contiguous()).unbind(0)), dim=d))
+    gradients or an optimizer's moments), by all-gathers over ``mesh``'s
+    model communicator, then its pipe communicator; every rank gets it.
+    At pipe and model size 1 the tree is returned as it is."""
+    model, pipe = mesh.comm("model"), mesh.comm("pipe")
+    if model.size > 1:
+        params = _map_sharded(cfg, params, lambda t, d: torch.cat(
+            list(model.allgather(t.detach().contiguous()).unbind(0)),
+            dim=d))
+    if pipe.size > 1:
+        params = dict(params, blocks=_whole_blocks(cfg, params["blocks"],
+                                                   pipe))
+    return params
+
+
+def reshard_train_state(mesh, cfg: TransformerConfig, optimizer, params,
+                        opt_state, from_pipe: int = 1,
+                        from_virtual: int = 1):
+    """Lay a saved training state onto ``mesh``: the JAX
+    ``reshard_train_state`` (elastic resume) for the port.
+
+    ``params`` is a tree in the JAX layout (numpy, as a checkpoint keeps
+    it) grouped for ``from_pipe`` stages of ``from_virtual`` chunks, and
+    ``opt_state`` the optimizer's state tree
+    (:func:`~chainermn_tpu_torch.training.optimizer_state_tree`'s form)
+    whose param-shaped moments are in the same layout.  The blocks of
+    both are regrouped for ``mesh``'s pipe axis and
+    ``cfg.virtual_pipe`` (:func:`regroup_blocks`), and each rank keeps
+    its shard (:func:`.convert.params_from_jax`).  Returns ``(params,
+    opt_state)`` on the mesh's device: this rank's parameters and
+    ``optimizer.init`` of them with the moments loaded.  FSDP's
+    shard-width moments come with the parallel slice and raise."""
+    if cfg.fsdp:
+        raise NotImplementedError(
+            "reshard_train_state with fsdp is not ported to "
+            f"chainermn_tpu_torch yet; it comes with {_PARALLEL_SLICE}")
+    from chainermn_tpu_torch.training import (
+        load_optimizer_state_tree,
+        map_state_moments,
+    )
+
+    from .convert import params_from_jax
+
+    to_pipe = mesh.axis_size("pipe")
+
+    def place(tree):
+        tree = dict(tree, blocks=regroup_blocks(
+            tree["blocks"], from_pipe, to_pipe, from_virtual,
+            cfg.virtual_pipe))
+        return params_from_jax(tree, cfg, mesh.device, mesh=mesh)
+
+    new = place(params)
+    state = optimizer.init(new)
+    load_optimizer_state_tree(state, map_state_moments(opt_state, new,
+                                                       place))
+    return new, state

@@ -74,11 +74,12 @@ def _permute(x, comm, perm, token=None, like=None):
     return _Transfer.apply(x, token, comm, perm, like)
 
 
-def ppermute(x, comm, perm: Sequence[Tuple[int, int]]):
+def ppermute(x, comm, perm: Sequence[Tuple[int, int]], like=None):
     """Raw collective permute: ``perm`` is ``[(source, dest), ...]``;
     ranks with no source receive zeros.  Backward: the inverse
-    permutation."""
-    return _permute(x, comm, perm)[0]
+    permutation.  A rank that sends nothing passes ``x=None`` and
+    ``like``, the ``(shape, dtype)`` it receives."""
+    return _permute(x, comm, perm, like=like)[0]
 
 
 def send(x, comm, dest: int, source: int):

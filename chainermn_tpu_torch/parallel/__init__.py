@@ -1,8 +1,15 @@
 """The parallel layer: the mesh over the world communicator, ring and
-Ulysses attention over its sequence axis, and the Megatron dense layers
-over its model axis."""
+Ulysses attention over its sequence axis, the Megatron dense layers
+over its model axis, and the pipeline schedules over its pipe axis."""
 
 from .mesh import MeshConfig
+from .pipeline import (
+    pipeline_apply,
+    pipeline_train_1f1b,
+    pipeline_train_interleaved,
+    stack_stage_params,
+    unstack_stage_params,
+)
 from .ring_attention import (
     broadcast_kv,
     local_attention,
@@ -14,6 +21,8 @@ from .tensor import column_parallel_dense, row_parallel_dense
 from .ulysses import all_to_all_tiled, ulysses_attention
 
 __all__ = ["MeshConfig", "all_to_all_tiled", "broadcast_kv",
-           "column_parallel_dense", "local_attention", "ring_attention",
-           "row_parallel_dense", "simulate_ring", "ulysses_attention",
-           "zigzag_indices"]
+           "column_parallel_dense", "local_attention", "pipeline_apply",
+           "pipeline_train_1f1b", "pipeline_train_interleaved",
+           "ring_attention", "row_parallel_dense", "simulate_ring",
+           "stack_stage_params", "ulysses_attention",
+           "unstack_stage_params", "zigzag_indices"]

@@ -37,8 +37,8 @@ class MeshConfig:
     One axis may be ``-1``: it absorbs what the others leave of the
     world (``data`` does by default).  Every axis of size 1 still exists.
     The sub-communicators of ``seq``, ``data``, the batch-like group
-    ``("data", "expert", "seq")`` and ``model`` are built here, by every
-    rank together and in that order (``split`` is collective: an NCCL
+    ``("data", "expert", "seq")``, ``model`` and ``pipe`` are built
+    here, by every rank together and in that order (``split`` is collective: an NCCL
     group first split inside a block, by some ranks only, hangs);
     others on first use of :meth:`comm`, which every rank must then call
     in the same order.
@@ -75,7 +75,8 @@ class MeshConfig:
             r //= self.shape[a]
         self.coords: Dict[str, int] = {a: coords[a] for a in _AXIS_ORDER}
         self._comms: Dict[Tuple[str, ...], object] = {}
-        for axes in (("seq",), ("data",), BATCH_AXES, ("model",)):
+        for axes in (("seq",), ("data",), BATCH_AXES, ("model",),
+                     ("pipe",)):
             self.comm(*axes)
 
     device = property(lambda self: self.world.device)

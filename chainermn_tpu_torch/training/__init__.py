@@ -14,6 +14,7 @@ from .optimizers import (
     lamb,
     lars,
     load_optimizer_state_tree,
+    map_state_moments,
     optimizer_state_tree,
     sgd,
 )
@@ -48,6 +49,7 @@ __all__ = [
     "linear_schedule",
     "load_optimizer_state_tree",
     "make_extension",
+    "map_state_moments",
     "optimizer_state_tree",
     "sgd",
 ]

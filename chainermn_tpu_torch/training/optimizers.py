@@ -38,8 +38,8 @@ from chainermn_tpu_torch.ops import fused as _fused
 
 __all__ = ["MultiNodeState", "OptaxRule", "adamw",
            "create_multi_node_optimizer", "cross_replica_mean", "lamb",
-           "lars", "load_optimizer_state_tree", "optimizer_state_tree",
-           "sgd"]
+           "lars", "load_optimizer_state_tree", "map_state_moments",
+           "optimizer_state_tree", "sgd"]
 
 
 def tree_leaves(tree) -> list:
@@ -110,6 +110,29 @@ def optimizer_state_tree(opt_state) -> dict:
         "param_groups": [{k: v for k, v in g.items() if _numeric(v)}
                          for g in sd["param_groups"]],
     }
+
+
+def map_state_moments(tree: dict, params, fn) -> dict:
+    """:func:`optimizer_state_tree`'s ``tree`` with ``fn`` applied to
+    each of its per-leaf moments (``mu``, ``nu``, ``trace``) as one tree
+    of ``params``' structure: a whole saved state brought to a rank's
+    shard (``params_from_jax`` with a mesh), or a rank's gathered into
+    the whole one (``params_to_numpy`` with it).  ``fn``'s tree must
+    have ``params``' keys; its leaves are taken in ``params``' order."""
+
+    def in_order(out, like):
+        # ``out``'s leaves in the order of ``like``'s keys
+        return [x for k, v in like.items() for x in (
+            in_order(out[k], v) if isinstance(v, dict) else [out[k]])]
+
+    spec = pytree.tree_structure(params)
+    state = [dict(s) for s in tree["state"]]
+    for key in [k for k in state[0] if k != "count"] if state else ():
+        moved = in_order(fn(pytree.tree_unflatten(
+            [torch.as_tensor(s[key]) for s in state], spec)), params)
+        for s, t in zip(state, moved):
+            s[key] = t
+    return dict(tree, state=state)
 
 
 def _plain(v):

@@ -104,10 +104,16 @@ Phases (any failure exits non-zero before the last line is printed):
     member); (b) the 4 vocab shards' logits against the whole head; (c)
     the flagship's step at mesh model=1 bitwise the plain step over 2
     steps, and ``vocab_parallel`` at model=1 against the replicated
-    head.
+    head;
+17. the mesh's pipe axis on one card (after phase 16): the flagship's
+    step at full width under GPipe, 1F1B and interleaved (two virtual
+    stages) at pipe=1 over 8 micro-batches of one row, each against the
+    plain step (loss, gradients), its launches against the schedule's
+    count, its ms a step and peak memory.  Phases 2 and 5 also hold and
+    time the kernels at such a micro-batch (B=1).
 
-Phases 3, 6, 13, 15 (a) and (c) and 16 (a) and (c) are the main paths
-of the kernels:
+Phases 3, 6, 13, 15 (a) and (c), 16 (a) and (c) and 17 are the main
+paths of the kernels:
 each starts with every launch count at 0 and reads the counts when it
 ends; phases 7 to 12 run no hand-written kernel, and hold their counts
 at 0.  It prints the card's name and power limit, a
@@ -115,21 +121,25 @@ at 0.  It prints the card's name and power limit, a
 ``{"large_batch": {...}}`` line of phase 12's,
 ``{"lm_data_parallel": {...}}`` of phase 13's, ``{"seq_parallel":
 {...}}`` of phase 15's, ``{"tensor_parallel_one_card": {...}}`` of
-phase 16's, ``{"drift_one_rank": {...}}`` of phase 14's, a
+phase 16's, ``{"pipeline_one_card": {...}}`` of phase 17's,
+``{"drift_one_rank": {...}}`` of phase 14's, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Weights are random, from numpy seed 0.  fp32 references run with TF32
 off.
 
 ``python3 chip_smoke.py --four-cards`` (four cards) runs the checks that
 exist only across cards (:func:`four_cards`, then
-:func:`four_cards_seq` and :func:`four_cards_tp`); ``--four-cards seq``
+:func:`four_cards_seq`, :func:`four_cards_tp` and :func:`four_cards_pp`);
+``--four-cards seq``
 runs the sequence axis's alone: the flagship's step on 4 ranks under
 ring (contiguous, zigzag), Ulysses and data=2, seq=2 against one
 card's, and seq-KV decoding; ``--four-cards tp`` the model axis's
 alone: the flagship's step at model=4, data=2,model=2 (the vocabulary
 sharded, the loss chunked) and model=2,seq=2 (the ring) against one
 card's, and decoding at model=4 and data=2,model=2 (the vocabulary
-sharded).
+sharded); ``--four-cards pp`` the pipe axis's alone: the flagship's
+step at pipe=4 under GPipe, 1F1B and interleaved and at pipe=2,data=2
+under 1F1B against one card's, and decoding at pipe=4.
 """
 
 import dataclasses
@@ -292,6 +302,23 @@ def phase_kernel(torch, fa):
           f"T=2048 D=64 bfloat16 causal against the plain version: max abs "
           f"{err:.3e} rel L2 {rel:.3e} outside the band {n_off} lse "
           f"{err_lse:.3e}")
+    # a pipeline micro-batch of the flagship (phase 17, --four-cards pp):
+    # one row, 16 heads, causal; checked and timed there
+    q, k, v = (torch.randn(1, 2048, H, 64, device="cuda", generator=gen,
+                           dtype=bf16) for _ in range(3))
+    o, lse = fa(q, k, v, return_lse=True, causal=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_reference(q, k, v, causal=True)
+    fault, err, rel, n_off = bar_fault(torch, o, o_ref, O_BAR)
+    require(fault is None, f"a micro-batch (B=1): o: {fault}")
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    print(f"kernel flash_fwd [a micro-batch] B=1 T=2048 H=16 D=64 bfloat16 "
+          f"causal against the plain version: max abs {err:.3e} rel L2 "
+          f"{rel:.3e} outside the band {n_off}")
+    row["microbatch_b1"] = dict(time_forward(torch, fa, q, k, v,
+                                             dict(causal=True)),
+                                max_abs_err=err, rel_l2=rel)
     row["max_abs_err"] = worst
     row["max_rel_l2"] = worst_rel
     return row
@@ -544,6 +571,18 @@ def phase_backward(torch, fa):
     worst, worst_rel = max(worst, err), max(worst_rel, rel)
     print(f"kernel flash_bwd [{name}] B=8 T=2048 D=64 bfloat16 causal "
           "against the plain version: " + "; ".join(readings))
+    # a pipeline micro-batch of the flagship (phase 17, --four-cards pp)
+    name = "a micro-batch: B=1"
+    readings, err, rel, operands, *_ = backward_case(
+        torch, fa, name, 1, 2048, 2048, 16, 16, 64, bf16, dict(causal=True),
+        gen)
+    worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    print(f"kernel flash_bwd [{name}] T=2048 H=16 D=64 bfloat16 causal "
+          "against the plain version: " + "; ".join(readings))
+    micro = time_backward(torch, ops, *operands, dict(causal=True))
+    for label in ("dq", "dkv"):
+        rows[label]["microbatch_b1"] = dict(micro[label], max_abs_err=err,
+                                            rel_l2=rel)
     for row in rows.values():
         row["max_abs_err"] = worst
         row["max_rel_l2"] = worst_rel
@@ -2769,6 +2808,145 @@ def tree_rel_err(a, b):
                       for _, y in pairs)) ** 0.5
 
 
+# phase 17: the pipe axis's schedules on one card (pipe=1) at the
+# flagship's full width, 8 micro-batches of one row: (name, config fields)
+PP_ONE = (("gpipe", dict(num_microbatches=8)),
+          ("1f1b", dict(num_microbatches=8, pipeline_schedule="1f1b")),
+          ("interleaved", dict(num_microbatches=8, virtual_pipe=2,
+                               pipeline_schedule="interleaved")))
+# bf16, eight micro-batches of one row against one batch of eight: the
+# products run at other shapes (cuBLAS may tile and sum them otherwise)
+# and the loss is the mean of eight means.  Through 24 layers such
+# roundings reach the gradients as phase 16 (c)'s bf16 head did (6.25e-3)
+PP_LOSS_REL, PP_GRAD_REL = 1e-3, 2e-2
+
+
+def pp_predicted_launches(cfg, S, s, steps):
+    """The flash kernels' launches ``(forward, dq, dk/dv)`` that
+    ``steps`` training steps of ``cfg`` make on stage ``s`` of ``S``,
+    counted from the schedule's tables: each forward slot runs the
+    stage's (under ``virtual_pipe`` the chunk's) layers once; each
+    backward slot runs them again (the 1F1B slot's recompute, GPipe's
+    under remat) and then backward.  GPipe: ``M`` forward ticks and
+    ``M`` reverse ones."""
+    from chainermn_tpu_torch.parallel.pipeline import _interleaved_tables
+
+    M, V = cfg.num_microbatches, cfg.virtual_pipe
+    per_slot = cfg.n_layers // (S * V)
+    if cfg.pipeline_schedule == "interleaved":
+        _, f_act, _, _, b_act, *_ = _interleaved_tables(S, V, M)
+        fwd, bwd = int(f_act[s].sum()), int(b_act[s].sum())
+    elif cfg.pipeline_schedule == "1f1b":
+        ticks = range(M + 2 * (S - 1))
+        fwd = sum(0 <= t - s < M for t in ticks)
+        bwd = sum(0 <= t - (2 * S - 2 - s) < M for t in ticks)
+    else:
+        fwd = bwd = M
+    again = cfg.remat or cfg.pipeline_schedule != "gpipe"
+    n = steps * bwd * per_slot
+    return (steps * per_slot * (fwd + (bwd if again else 0)), n, n)
+
+
+def pp_bubble(cfg, S):
+    """The schedule's idle share of its ticks on one stage: ``(S-1)/(M+S-1)``
+    for GPipe, ``2(S-1)/(M+2(S-1))`` for 1F1B, and the interleaved
+    table's idle slots over its slots."""
+    M, V = cfg.num_microbatches, cfg.virtual_pipe
+    if cfg.pipeline_schedule == "gpipe":
+        return (S - 1) / (M + S - 1)
+    if cfg.pipeline_schedule == "1f1b":
+        return 2 * (S - 1) / (M + 2 * (S - 1))
+    from chainermn_tpu_torch.parallel.pipeline import _interleaved_tables
+
+    T, f_act, _, _, b_act, *_ = _interleaved_tables(S, V, M)
+    return 1 - (f_act[0].sum() + b_act[0].sum()) / (2 * T)
+
+
+def blocks_in_layer_order(cfg, blocks, S):
+    """Block leaves in the JAX layout grouped for ``S`` stages (and
+    ``cfg.virtual_pipe`` chunks) as ``(L, ...)`` in global layer order."""
+    from chainermn_tpu_torch.models import regroup_blocks
+
+    return {k: v[0] for k, v in regroup_blocks(
+        blocks, S, 1, cfg.virtual_pipe, 1).items()}
+
+
+def phase_pipeline(torch, np, root, smi):
+    """17. The pipe axis's schedules on one card (pipe=1), at the
+    flagship's full width on one batch of 8 x 2048 tokens (bf16, full
+    remat, ``adamw(3e-4)``): GPipe, 1F1B and interleaved (two virtual
+    stages), each over 8 micro-batches of one row, through
+    ``make_value_and_grad_fn`` and ``make_train_step``.  Each
+    schedule's loss and gradients against the plain step's
+    (``PP_LOSS_REL``, ``PP_GRAD_REL``); its flash launches over one step
+    (counts set to 0 just before, read just after) against
+    :func:`pp_predicted_launches` (``2·L·M`` forward, ``L·M`` dq and
+    dk/dv); ms a step (the median of 3 after a warm-up) and peak
+    GiB.  Returns the launch counts and the printed metrics."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        make_value_and_grad_fn, params_from_jax)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    base = TransformerConfig(**dict(FLAGSHIP, remat=True))
+    rng = np.random.RandomState(SEED)
+    toks = rng.randint(0, base.vocab_size, (8, base.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    want_loss, want = make_value_and_grad_fn(base, device=dev)(
+        params_from_jax(init_numpy_params(base, SEED), base, dev), x, y)
+    metrics = dict(card=smi, B=8, T=base.max_seq, schedules={})
+    counts = {}
+    for name, extra in PP_ONE:
+        cfg = dataclasses.replace(base, **extra)
+        params = params_from_jax(init_numpy_params(cfg, SEED), cfg, dev)
+        loss, grads = make_value_and_grad_fn(cfg, device=dev)(params, x, y)
+        # the interleaved stack's (V, L/V) chunks in layer order
+        grads["blocks"] = {k: v.reshape(want["blocks"][k].shape)
+                           for k, v in grads["blocks"].items()}
+        lrel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        grel = tree_rel_err(grads, want)
+        del grads
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, device=dev)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        step(params, state, x, y)
+        torch.cuda.synchronize()
+        got = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+        counts[f"pp_{name}"] = got
+        predicted = pp_predicted_launches(cfg, 1, 0, 1)
+        times, peak, resident, losses = time_steps(torch, step, params,
+                                                    state, x, y, n=3)
+        ms = statistics.median(times)
+        metrics["schedules"][name] = dict(
+            M=cfg.num_microbatches, V=cfg.virtual_pipe, loss=loss.item(),
+            plain_loss=want_loss.item(), loss_rel=lrel, grads_rel_l2=grel,
+            launches=got, predicted=predicted, times_ms=times, ms=ms,
+            tokens_per_s=8 * cfg.max_seq / ms * 1e3, peak_gib=peak,
+            resident_gib=resident, losses=losses)
+        print(f"pipeline (one card) {name}: M={cfg.num_microbatches} "
+              f"V={cfg.virtual_pipe} at pipe=1: loss {loss.item():.6f} vs "
+              f"the plain step's {want_loss.item():.6f} (rel {lrel:.3e}, bar "
+              f"{PP_LOSS_REL}), gradients rel L2 {grel:.3e} (bar "
+              f"{PP_GRAD_REL}); launches a step {got} (predicted "
+              f"{predicted}); {ms:.2f} ms a step ({times}), peak "
+              f"{peak:.2f} GiB")
+        require(lrel < PP_LOSS_REL and grel < PP_GRAD_REL,
+                f"{name}: loss rel {lrel}, gradients rel L2 {grel}")
+        require(got == predicted,
+                f"{name}: launches {got}, predicted {predicted}")
+        require(all(np.isfinite(losses)), f"{name}: losses {losses}")
+        del params, state, step
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"pipeline_one_card": metrics}))
+    print(f"pipeline (one card): phase {metrics['seconds']:.1f} s ({smi})")
+    return counts, metrics
+
+
 def main():
     import torch
 
@@ -2936,6 +3114,9 @@ def main():
     tp_counts, _ = phase_tensor_parallel(torch, np, root, smi)
     torch.distributed.destroy_process_group()
 
+    # 17. the pipe axis's schedules on one card -------------------------
+    pp_counts, _ = phase_pipeline(torch, np, root, smi)
+
     # 14. Queue C: the large-batch example on one card against the CPU --
     phase_drift(np, root, smi)
 
@@ -2950,7 +3131,9 @@ def main():
                                    **{f"seq_{p}": c[0] for p, c in
                                       seq_counts.items()},
                                    **{p: c[0] for p, c in
-                                      tp_counts.items()}),
+                                      tp_counts.items()},
+                                   **{p: c[0] for p, c in
+                                      pp_counts.items()}),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
@@ -2958,7 +3141,8 @@ def main():
                  training=counts["flash_bwd_dq"],
                  lm_data_parallel=lm_counts["flash_bwd_dq"],
                  **{f"seq_{p}": c[1] for p, c in seq_counts.items()},
-                 **{p: c[1] for p, c in tp_counts.items()}),
+                 **{p: c[1] for p, c in tp_counts.items()},
+                 **{p: c[1] for p, c in pp_counts.items()}),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
@@ -2967,7 +3151,8 @@ def main():
                  training=counts["flash_bwd_dkv"],
                  lm_data_parallel=lm_counts["flash_bwd_dkv"],
                  **{f"seq_{p}": c[2] for p, c in seq_counts.items()},
-                 **{p: c[2] for p, c in tp_counts.items()}),
+                 **{p: c[2] for p, c in tp_counts.items()},
+                 **{p: c[2] for p, c in pp_counts.items()}),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -3643,6 +3828,288 @@ def four_cards_tp(root, smi):
     return 0
 
 
+# --four-cards' pipe axis: the flagship's step on 4 ranks under each mesh
+# and schedule, against one card's flash step (M=1) on the same global
+# batch (name, mesh, schedule, micro-batches, virtual stages)
+PP_FOUR = (("pipe4_gpipe", "pipe=4", "gpipe", "8", "1"),
+           ("pipe4_1f1b", "pipe=4", "1f1b", "8", "1"),
+           ("pipe4_interleaved", "pipe=4", "interleaved", "8", "2"),
+           ("pipe2_data2_1f1b", "pipe=2,data=2", "1f1b", "4", "1"))
+# the gathered gradients of the first step against one card's: bf16 and
+# micro-batches of one row, as phase 17's PP_GRAD_REL.  The parameters
+# after 3 AdamW steps: an update is about lr·sign(g) at first, so an
+# element whose gradient is within its rounding of zero may move by
+# 2·lr the other way; a few such elements in a thousand, over updates
+# of ~1e-3 of the weights, stay far below 1e-2
+PP_PARAMS_REL = 1e-2
+
+
+def _save_tree(path, tree):
+    import numpy as np
+    import torch.utils._pytree as pytree
+
+    leaves = pytree.tree_leaves(tree)
+    np.savez(path, *leaves)
+
+
+def _tree_rel_to_saved(np, path, tree):
+    """Relative L2 over the leaves of ``tree`` (numpy) against the tree
+    saved at ``path`` in the same leaf order."""
+    import torch.utils._pytree as pytree
+
+    saved = np.load(path)
+    num = den = 0.0
+    for i, a in enumerate(pytree.tree_leaves(tree)):
+        b = saved[f"arr_{i}"]
+        num += float(np.sum((a.astype(np.float64) - b) ** 2))
+        den += float(np.sum(b.astype(np.float64) ** 2))
+    return (num / den) ** 0.5
+
+
+def pp_rank(out, name, mesh_spec, schedule, M, V):
+    """One rank (under torchrun) of the flagship's step over a mesh with
+    a pipe axis, or on one card (``name == "one_card"``: mesh data=1,
+    M=1, the flash step the others are held to): 8 x 2048 tokens
+    globally, bf16, full remat, ``adamw(3e-4)``.  First the gradients of
+    the initial parameters (``make_value_and_grad_fn``), gathered; then
+    ``SEQ_STEPS`` steps, each timed (host clock around a synchronised
+    step), with after each the leaves of every rank compared bitwise
+    across the batch-like group and the pipe-replicated ones (``embed``,
+    ``pos``, ``ln_f``) across the pipe group; the flash launches counted
+    from 0 just before the steps to just after, beside
+    :func:`pp_predicted_launches`; the peak memory; the gathered
+    parameters after the steps; one more step traced on every rank
+    (``profile_port.trace``).  One card saves its gradients and
+    parameters (``out/../one_card/*.npz``); a mesh's rank 0 holds its
+    own against them.  Rank 0 writes ``out/pp.json``."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    import profile_port
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        make_value_and_grad_fn, params_from_jax, params_to_numpy)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
+    S = mesh.axis_size("pipe")
+    cfg = TransformerConfig(**dict(
+        FLAGSHIP, remat=True, pipeline_schedule=schedule,
+        num_microbatches=int(M), virtual_pipe=int(V)))
+    params = params_from_jax(init_numpy_params(cfg, SEED, pipe_size=S), cfg,
+                             comm.device, mesh=mesh)
+    pipe, batch = mesh.comm("pipe"), mesh.comm(*BATCH_AXES)
+    replicated = [params[k] for k in ("embed", "pos", "ln_f")]
+    toks = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    one = Path(out).parent / "one_card"
+    loss0, grads = make_value_and_grad_fn(cfg, mesh=mesh)(params, x, y)
+    grads = params_to_numpy(grads, cfg, mesh=mesh)
+    grads["blocks"] = blocks_in_layer_order(cfg, grads["blocks"], S)
+    mine = dict(rank=comm.rank, coords=mesh.coords)
+    if comm.rank == 0:
+        if name == "one_card":
+            one.mkdir(parents=True, exist_ok=True)
+            _save_tree(one / "grads.npz", grads)
+        else:
+            mine["grads_rel_l2"] = _tree_rel_to_saved(
+                np, one / "grads.npz", grads)
+    del grads
+    opt = training.adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, equal = [], [], []
+    torch.cuda.synchronize()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0      # path starts
+    for _ in range(SEQ_STEPS):
+        comm.barrier()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        equal.append(replicas_bitwise(batch, params)
+                     and replicas_bitwise(pipe, replicated))
+    torch.cuda.synchronize()
+    mine.update(                                                # ended
+        launches=(fa.launches, fa.dq_launches, fa.dkv_launches),
+        predicted=pp_predicted_launches(cfg, S, mesh.axis_index("pipe"),
+                                        SEQ_STEPS),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    gathered = params_to_numpy(params, cfg, mesh=mesh)
+    gathered["blocks"] = blocks_in_layer_order(cfg, gathered["blocks"], S)
+    if comm.rank == 0:
+        if name == "one_card":
+            _save_tree(one / "params.npz", gathered)
+        else:
+            mine["params_rel_l2"] = _tree_rel_to_saved(
+                np, one / "params.npz", gathered)
+    del gathered
+    comm.barrier()
+    mine["trace"] = profile_port.trace(
+        torch, lambda: step(params, state, x, y), name, warm=False,
+        show=False)
+    ranks = comm.allgather_obj(mine)
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "pp.json").write_text(json.dumps(dict(
+            name=name, mesh=mesh.shape, schedule=schedule, M=int(M),
+            V=int(V), world=comm.size, tokens=8 * cfg.max_seq,
+            bubble_predicted=pp_bubble(cfg, S), first_loss=loss0.item(),
+            times_ms=times, losses=losses, ranks_equal=equal, ranks=ranks)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def pp_decode_rank(out):
+    """One rank (under torchrun, 4 ranks) of greedy decoding over mesh
+    pipe=4: the flagship in fp32 (8 prompts of 128 tokens, 64 new), each
+    stage its 6 layers and their cache, the logits of every step kept;
+    the stages hold the same tokens and logits, bit for bit (checked).
+    Rank 0 also decodes the whole batch alone on its card and writes
+    ``out/decode.json``: both runs' tokens, whether the logits are the
+    one card's bits, their relative L2 error and the ms of the mesh's
+    run."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_generate_fn,
+        params_from_jax)
+    from chainermn_tpu_torch.parallel import MeshConfig
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, pipe=4)
+    cfg = TransformerConfig(**dict(FLAGSHIP, dtype="float32"))
+    params = params_from_jax(init_numpy_params(cfg, SEED, pipe_size=4), cfg,
+                             comm.device, mesh=mesh)
+    P, NEW = 128, 64
+    prompts = np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (8, P))
+    gen = make_generate_fn(cfg, max_len=P + NEW, with_logits=True,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = gen(params, prompts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stages_bitwise = replicas_bitwise(mesh.comm("pipe"), [toks, logits])
+    del params
+    if comm.rank == 0:
+        one, one_logits = make_generate_fn(
+            cfg, max_len=P + NEW, with_logits=True, device=comm.device)(
+            params_from_jax(init_numpy_params(cfg, SEED), cfg, comm.device),
+            prompts)
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "decode.json").write_text(json.dumps(dict(
+            mesh=mesh.shape, tokens=toks.cpu().numpy().tolist(),
+            one_card=one.cpu().numpy().tolist(),
+            logits_bitwise=bool(torch.equal(logits, one_logits)),
+            logits_rel_l2=rel_err(logits, one_logits),
+            stages_bitwise=stages_bitwise, prompt=P, ms=ms)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_pp(root, smi):
+    """``--four-cards``' pipe axis: the flagship's step at full width on
+    the same global batch (8 x 2048 tokens) under each of ``PP_FOUR`` on
+    4 ranks (:func:`pp_rank`), and one card's flash step; for each mesh
+    the first step's gradients and the parameters after 3 steps against
+    one card's (``PP_GRAD_REL``, ``PP_PARAMS_REL``), its losses within
+    ``SEQ_LOSS_REL`` of one card's, every data- and pipe-replicated leaf
+    bitwise across its ranks after every step, every rank's flash
+    launches those :func:`pp_predicted_launches` counts from the
+    schedule's tables; ms a step (the median of steps 2-3), tokens/s a
+    card, peak GiB a rank and a traced step a rank (busy and idle share
+    beside the schedule's bubble).  Then greedy decoding at pipe=4
+    (fp32, :func:`pp_decode_rank`) against one card's: every row's
+    tokens equal, the stages' tokens and logits bitwise.  Prints
+    ``{"pipeline": {...}}``."""
+    import numpy as np
+
+    from chainermn_tpu_torch import _build
+
+    out = root / "build" / "four_cards" / "pp"
+    me = str(Path(__file__).resolve())
+    _build.build_all()          # once, before the children load them
+    res = {}
+    for name, mesh, schedule, M, V in (
+            ("one_card", "data=1", "gpipe", "1", "1"),) + PP_FOUR:
+        n = 1 if name == "one_card" else 4
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node",
+                        str(n), me, "--pp-rank", str(out / name), name,
+                        mesh, schedule, M, V], check=True, timeout=420)
+        res[name] = json.loads((out / name / "pp.json").read_text())
+    one = res["one_card"]
+    report = {}
+    for name, r in res.items():
+        got = {q["rank"]: q["launches"] for q in r["ranks"]}
+        want = {q["rank"]: q["predicted"] for q in r["ranks"]}
+        require(got == want, f"{name}: flash launches (forward, dq, "
+                f"dk/dv) by rank {got}, the tables predict {want}")
+    for name, *_ in PP_FOUR:
+        r = res[name]
+        lead = r["ranks"][0]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                   one["losses"])]
+        ms = statistics.median(r["times_ms"][1:])
+        report[name] = dict(
+            {k: v for k, v in r.items() if k != "ranks"},
+            loss_rel_diff=rel, steady_ms=ms,
+            tokens_per_s_per_card=r["tokens"] / ms * 1e3 / r["world"],
+            one_card_steady_ms=statistics.median(one["times_ms"][1:]),
+            grads_rel_l2=lead["grads_rel_l2"],
+            params_rel_l2=lead["params_rel_l2"],
+            peak_gib=[q["peak_gib"] for q in r["ranks"]],
+            launches={q["rank"]: q["launches"] for q in r["ranks"]},
+            trace={q["rank"]: q["trace"] for q in r["ranks"]})
+        require(all(r["ranks_equal"]) and len(r["ranks_equal"])
+                == SEQ_STEPS, f"{name}: replicas differ: {r['ranks_equal']}")
+        require(all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
+        require(all(e < bar for e, bar in zip(rel, SEQ_LOSS_REL)),
+                f"{name}: losses {r['losses']} against one card's "
+                f"{one['losses']}: relative {rel}, bars {SEQ_LOSS_REL}")
+        require(lead["grads_rel_l2"] < PP_GRAD_REL,
+                f"{name}: gradients rel L2 {lead['grads_rel_l2']}")
+        require(lead["params_rel_l2"] < PP_PARAMS_REL,
+                f"{name}: parameters rel L2 {lead['params_rel_l2']}")
+    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                    me, "--pp-decode", str(out / "decode")], check=True,
+                   timeout=420)
+    dec = json.loads((out / "decode" / "decode.json").read_text())
+    got, want = np.asarray(dec["tokens"]), np.asarray(dec["one_card"])
+    report["decode_pipe4"] = dict(
+        rows_equal=int((got == want).all(axis=1).sum()), rows=len(got),
+        logits_bitwise=dec["logits_bitwise"],
+        logits_rel_l2=dec["logits_rel_l2"],
+        stages_bitwise=dec["stages_bitwise"], ms=dec["ms"])
+    print(json.dumps({"pipeline": dict(
+        report, one_card=dict(times_ms=one["times_ms"],
+                              losses=one["losses"],
+                              peak_gib=one["ranks"][0]["peak_gib"],
+                              trace=one["ranks"][0]["trace"]), card=smi)}))
+    d = report["decode_pipe4"]
+    require(d["rows_equal"] == d["rows"],
+            f"decode pipe=4: {d['rows_equal']} of {d['rows']} rows equal "
+            "one card's")
+    require(d["stages_bitwise"], "decode pipe=4: the stages' tokens or "
+            "logits differ")
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3661,12 +4128,22 @@ if __name__ == "__main__":
         if sys.argv[2:3] == ["tp"]:
             # the model axis alone
             sys.exit(four_cards_tp(here, card_name()))
+        if sys.argv[2:3] == ["pp"]:
+            # the pipe axis alone
+            sys.exit(four_cards_pp(here, card_name()))
         sys.exit(four_cards(here, card_name())
                  or four_cards_seq(here, card_name())
-                 or four_cards_tp(here, card_name()))
+                 or four_cards_tp(here, card_name())
+                 or four_cards_pp(here, card_name()))
     if sys.argv[1:2] == ["--seq-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(seq_rank(*sys.argv[2:9]))
+    if sys.argv[1:2] == ["--pp-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(pp_rank(*sys.argv[2:8]))
+    if sys.argv[1:2] == ["--pp-decode"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(pp_decode_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-decode"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(tp_decode_rank(*sys.argv[2:5]))

@@ -1,7 +1,7 @@
 """Greedy text generation with the flagship transformer on the
 PyTorch/CUDA port — ``generate.py``'s greedy KV-cache path through
-``chainermn_tpu_torch``, on one rank or over a mesh's data, seq and
-model axes.
+``chainermn_tpu_torch``, on one rank or over a mesh's pipe, data, seq
+and model axes.
 It runs from ``lm_state.npz`` written by ``train_lm_torch.py
 --checkpoint`` (so train → generate is a complete loop) or from seeded
 random weights for a smoke run:
@@ -17,18 +17,24 @@ random weights for a smoke run:
     # 2-way data x 2-way tensor parallelism, the vocabulary sharded
     torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
         --mesh data=2,model=2 --vocab-parallel --max-len 64
+    # 2 pipeline stages x 2-way data, from any checkpoint's grouping
+    torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
+        --mesh pipe=2,data=2 --checkpoint ck --max-len 64
 
-``--mesh data=D,seq=R,model=M`` decodes on a world of ``D·R·M`` ranks:
-each data member its rows of the batch, the seq members of a row each a
-block of the KV cache, the model members each its shard of the heads
-(and with ``--vocab-parallel`` of the vocabulary); rank 0 prints the
-whole batch.  Without an axis above 1 one rank decodes.  Pass the model flags the training run used
+``--mesh pipe=P,data=D,seq=R,model=M`` decodes on a world of
+``P·D·R·M`` ranks: each data member its rows of the batch, the seq
+members of a row each a block of the KV cache, the model members each
+its shard of the heads (and with ``--vocab-parallel`` of the
+vocabulary), the pipe stages each its layers and their cache; rank 0
+prints the whole batch.  A checkpoint trained at any pipe grouping (the
+file records it) is regrouped for the decode mesh.  Without an axis
+above 1 one rank decodes.  Pass the model flags the training run used
 (``--vocab`` as the training run printed it, with a tokenizer).
 Sampling (``--temperature``, ``--top-k``, ``--top-p``) comes with the
 serving slice (ROADMAP Queue A item 12); ``--beam``, ``--speculative-k``,
 ``--lookup-k``, ``--int8`` and ``--kv-int8`` with the remaining models and
-decoders (item 9); pipe and expert axes with the rest of the parallel
-slice (item 8).  Each raises.
+decoders (item 9); the expert axis with the rest of the parallel slice
+(item 8).  Each raises.
 """
 
 import argparse
@@ -60,10 +66,11 @@ _UNPORTED = (
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="data=D,seq=R,model=M over a world of D*R*M "
-                        "ranks (rows over data, the KV cache's length "
-                        "over seq, the heads over model); without an "
-                        "axis above 1 one rank decodes")
+                   help="pipe=P,data=D,seq=R,model=M over a world of "
+                        "P*D*R*M ranks (the layers over pipe, rows over "
+                        "data, the KV cache's length over seq, the heads "
+                        "over model); without an axis above 1 one rank "
+                        "decodes")
     p.add_argument("--vocab", type=int, default=128)
     p.add_argument("--d-model", type=int, default=64)
     p.add_argument("--n-heads", type=int, default=4)
@@ -134,7 +141,7 @@ def main(argv=None, keep_logits=False):
     from chainermn_tpu_torch.datasets import BPETokenizer
     from chainermn_tpu_torch.models import (
         TransformerConfig, init_transformer, make_generate_fn,
-        params_from_jax)
+        params_from_jax, regroup_blocks)
     from chainermn_tpu_torch.models.transformer import _check_mesh
     from chainermn_tpu_torch.utils.serialization import load_state
 
@@ -168,13 +175,13 @@ def main(argv=None, keep_logits=False):
                  if args.checkpoint else None)
     if ckpt_file and os.path.exists(ckpt_file):
         saved = load_state(ckpt_file)
+        # the blocks are grouped for the pipe axis that trained them (the
+        # file records it): regroup them for this decode mesh's
         saved_pipe = int(saved.get("pipe", 1))
         saved_v = int(saved.get("virtual_pipe", 1))
-        if (saved_pipe, saved_v) != (1, 1):
-            raise NotImplementedError(
-                f"{ckpt_file} was saved grouped for pipe={saved_pipe}, "
-                f"virtual_pipe={saved_v}; regrouping blocks is not ported "
-                "to chainermn_tpu_torch yet (ROADMAP Queue A item 8)")
+        saved["params"] = dict(saved["params"], blocks=regroup_blocks(
+            saved["params"]["blocks"], saved_pipe, axes.get("pipe", 1),
+            saved_v, 1))
         if "pos" in saved["params"]:
             # the position table the run trained: up to its length
             cfg = dataclasses.replace(

@@ -1,19 +1,20 @@
-"""Flagship transformer LM training on the PyTorch/CUDA port — the data,
-sequence and model axes of ``train_lm.py`` through
+"""Flagship transformer LM training on the PyTorch/CUDA port — the pipe,
+data, sequence and model axes of ``train_lm.py`` through
 ``chainermn_tpu_torch``: ChainerMN's data parallelism for the language
 model, ring or Ulysses attention over a sequence axis for long
-contexts, and Megatron tensor parallelism (with ``--vocab-parallel``,
-the vocabulary too) over a model axis for a model too wide for one
-card.
+contexts, Megatron tensor parallelism (with ``--vocab-parallel``, the
+vocabulary too) over a model axis for a model too wide for one card,
+and pipeline parallelism (GPipe, 1F1B or interleaved, ``--schedule``)
+over a pipe axis for one too deep.
 
 One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``);
-``--mesh data=D,model=M,seq=S`` must name the world (``data=-1``, the
-default, absorbs what the other axes leave of it).  The weights come
+``--mesh pipe=P,data=D,model=M,seq=S`` must name the world (``data=-1``,
+the default, absorbs what the other axes leave of it).  The weights come
 from ``torch.Generator`` seed 0, ``bcast_data`` gives rank 0's to every
-rank, and each rank keeps its shard over ``model``; each step takes
-the global batch, each rank its rows over ``data`` and its block of
-the sequence over ``seq``, and the gradients are meaned in fp32 over
-both (``make_train_step(mesh=...)``):
+rank, and each rank keeps its shard over ``pipe`` and ``model``; each
+step takes the global batch, each rank its rows over ``data`` and its
+block of the sequence over ``seq``, and the gradients are meaned in fp32
+over both (``make_train_step(mesh=...)``):
 
     torchrun --nproc_per_node 8 examples/transformer/train_lm_torch.py \\
         --mesh data=8 --attention flash --dtype bfloat16 --remat
@@ -30,6 +31,10 @@ both (``make_train_step(mesh=...)``):
     torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
         --mesh data=2,model=2 --vocab-parallel --loss-chunk 8 \\
         --attention flash --dtype bfloat16 --remat
+    # 2 pipeline stages x 2-way data, the 1F1B schedule
+    torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
+        --mesh pipe=2,data=2 --schedule 1f1b --attention flash \\
+        --dtype bfloat16
     # the CPU over gloo, with a BPE vocabulary over a text file
     torchrun --nproc_per_node 2 examples/transformer/train_lm_torch.py \\
         --device cpu --mesh data=2 --text-file SURVEY.md \\
@@ -47,14 +52,18 @@ otherwise.  ``--remat-policy dots`` recomputes less on the card but runs
 its selective checkpoint's Python dispatch on every op, which makes the
 host-bound flagship step slower than the full policy, so the flagship
 command above uses ``--remat`` alone.
+With a pipe axis the run takes ``train_lm.py``'s schedule settings: two
+micro-batches, and two virtual stages a rank under ``--schedule
+interleaved``.
 ``--checkpoint DIR`` saves ``lm_state.npz`` (the port's container: params
-and the optimizer's moments gathered into the JAX layout, whatever the
-model axis, the optimizer's state, the step) at the end and resumes
-from it, each rank taking its shard: a run saved at ``model=2`` resumes
-at ``model=1`` and the reverse.  Pipe and expert axes, ``--moe``,
-``--fsdp``, the 1F1B/interleaved schedules and a checkpoint grouped for
-a pipe axis come with the rest of the parallel slice (ROADMAP Queue A
-item 8) and raise.
+and the optimizer's moments gathered into the JAX layout, its blocks
+grouped for the run's pipe axis and virtual stages, which it records,
+the optimizer's state, the step) at the end and resumes from it, each
+rank taking its shard (``reshard_train_state``): a run saved at
+``model=2`` resumes at ``model=1``, one saved at ``pipe=2`` at
+``pipe=1``, and the reverse.  The expert axis, ``--moe`` and ``--fsdp``
+come with the rest of the parallel slice (ROADMAP Queue A item 8) and
+raise.
 """
 
 import argparse
@@ -67,8 +76,6 @@ import types
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
-
-_PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
 
 
 def parse_mesh(spec: str, world=None):
@@ -198,9 +205,9 @@ def make_batches(vocab, batch, seq, steps, seed=0):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="comma list of axis sizes; the data, seq and "
-                        "model axes are ported, and they must make up "
-                        "the world (data=-1 absorbs what the others "
+                   help="comma list of axis sizes; the pipe, data, seq "
+                        "and model axes are ported, and they must make "
+                        "up the world (data=-1 absorbs what the others "
                         "leave)")
     p.add_argument("--attention", default="local",
                    choices=["local", "flash", "ring", "ulysses"])
@@ -271,8 +278,10 @@ def config(args):
     what the port has, before any world is started."""
     from chainermn_tpu_torch.models import TransformerConfig
     from chainermn_tpu_torch.models.transformer import (
-        _check_mesh, _check_ported)
+        _check_layers, _check_mesh, _check_ported)
 
+    axes = parse_mesh(args.mesh)
+    pipe = axes.get("pipe", 1)
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model,
         n_heads=args.n_heads, d_head=args.d_model // args.n_heads,
@@ -282,10 +291,14 @@ def config(args):
         pos_embedding=args.pos_embedding, seq_layout=args.seq_layout,
         moe=args.moe, loss_chunk=args.loss_chunk,
         vocab_parallel=args.vocab_parallel,
-        pipeline_schedule=args.schedule, fsdp=args.fsdp,
-        dtype=args.dtype, remat=args.remat,
+        # train_lm.py's schedule settings
+        num_microbatches=2 if pipe > 1 else 1,
+        pipeline_schedule=args.schedule,
+        virtual_pipe=2 if args.schedule == "interleaved" else 1,
+        fsdp=args.fsdp, dtype=args.dtype, remat=args.remat,
         remat_policy=args.remat_policy)
-    _check_mesh(parse_mesh(args.mesh), cfg)
+    _check_mesh(axes, cfg)
+    _check_layers(pipe, cfg)
     _check_ported(cfg, training=True)
     return cfg
 
@@ -304,9 +317,9 @@ def build(args, init=None, quiet=False):
     import chainermn_tpu_torch as cmn
     from chainermn_tpu_torch import training
     from chainermn_tpu_torch.models import (
-        init_transformer, make_train_step, params_from_jax, shard_params)
+        init_transformer, make_train_step, params_from_jax,
+        reshard_train_state, shard_params)
     from chainermn_tpu_torch.parallel import MeshConfig, zigzag_indices
-    from chainermn_tpu_torch.training import load_optimizer_state_tree
     from chainermn_tpu_torch.utils.serialization import load_state
 
     # fail fast, before the world: the mesh, then what is not ported yet
@@ -343,21 +356,16 @@ def build(args, init=None, quiet=False):
     if saved is not None:
         saved_pipe = int(saved.get("pipe", 1))
         saved_v = int(saved.get("virtual_pipe", 1))
-        if (saved_pipe, saved_v) != (1, 1):
-            raise NotImplementedError(
-                f"{ckpt_file} was saved grouped for pipe={saved_pipe}, "
-                f"virtual_pipe={saved_v}; regrouping a checkpoint "
-                "(reshard_train_state) is not ported to chainermn_tpu_torch "
-                f"yet; it comes with {_PARALLEL_SLICE}")
-        # every rank reads the same file (the JAX layout) and keeps its
-        # shard of the parameters and of the optimizer's moments
-        params = params_from_jax(saved["params"], cfg, comm.device,
-                                 mesh=mesh)
-        opt_state = opt.init(params)
-        load_optimizer_state_tree(opt_state, relayout_opt_state(
-            saved["opt"], params, lambda t: params_from_jax(
-                t, cfg, comm.device, mesh=mesh)))
+        # every rank reads the same file (the JAX layout, grouped for the
+        # run that saved it) and keeps its shard of the parameters and of
+        # the optimizer's moments, regrouped for this mesh
+        params, opt_state = reshard_train_state(
+            mesh, cfg, opt, saved["params"], saved["opt"],
+            from_pipe=saved_pipe, from_virtual=saved_v)
         start = int(saved["step"])
+        if (saved_pipe, saved_v) != (axes.get("pipe", 1), cfg.virtual_pipe):
+            say(f"regrouped checkpoint pipe={saved_pipe}/V={saved_v} -> "
+                f"pipe={axes.get('pipe', 1)}/V={cfg.virtual_pipe}")
         say(f"resumed at step {start}")
     else:
         if init is not None:
@@ -366,7 +374,7 @@ def build(args, init=None, quiet=False):
             params = init_transformer(torch.Generator().manual_seed(0),
                                       cfg, device=comm.device)
         # ChainerMN's first moment: every rank takes rank 0's weights,
-        # then keeps its shard over the model axis
+        # then keeps its shard over the pipe and model axes
         comm.bcast_data(params)
         params = shard_params(mesh, cfg, params)
         opt_state = opt.init(params)
@@ -398,32 +406,6 @@ def build(args, init=None, quiet=False):
         start=start, batches=batches,
         heldout=heldout, tok=tok, ckpt_file=ckpt_file, say=say, losses=[],
         perplexity=None)
-
-
-def relayout_opt_state(tree, params, fn):
-    """The optimizer's state tree (:func:`optimizer_state_tree`'s: one
-    dict a parameter leaf, in ``params``' leaf order) with ``fn``
-    applied to each of its per-leaf moments (``mu``, ``nu``, ``trace``)
-    as a tree of ``params``' structure: ``params_from_jax`` with the
-    mesh to take a rank's shard of a saved state, ``params_to_numpy``
-    with it to save the whole one in the JAX layout."""
-    import torch
-    import torch.utils._pytree as pytree
-
-    spec = pytree.tree_structure(params)
-
-    def in_order(out, like):
-        # ``out``'s leaves in the order of ``like``'s keys
-        return [x for k, v in like.items() for x in (
-            in_order(out[k], v) if isinstance(v, dict) else [out[k]])]
-
-    state = [dict(s) for s in tree["state"]]
-    for key in [k for k in state[0] if k != "count"] if state else ():
-        moved = in_order(fn(pytree.tree_unflatten(
-            [torch.as_tensor(s[key]) for s in state], spec)), params)
-        for s, t in zip(state, moved):
-            s[key] = t
-    return dict(tree, state=state)
 
 
 def train(run):
@@ -497,23 +479,25 @@ def evaluate(run):
 
 def save(run):
     """Rank 0 writes ``lm_state.npz``: params and the optimizer's moments
-    in the JAX package's layout (gathered over the model axis by every
-    rank), the optimizer's state, the step and the pipe grouping."""
+    in the JAX package's layout (gathered over the pipe and model axes by
+    every rank, the blocks grouped for the run's pipe axis), the
+    optimizer's state, the step and the pipe grouping."""
     from chainermn_tpu_torch.models import params_to_numpy
-    from chainermn_tpu_torch.training import optimizer_state_tree
+    from chainermn_tpu_torch.training import (
+        map_state_moments, optimizer_state_tree)
     from chainermn_tpu_torch.utils.serialization import save_state
 
     params = params_to_numpy(run.params, run.cfg, mesh=run.mesh)
-    opt = relayout_opt_state(optimizer_state_tree(run.opt_state),
-                             run.params, lambda t: params_to_numpy(
-                                 t, run.cfg, mesh=run.mesh))
+    opt = map_state_moments(optimizer_state_tree(run.opt_state),
+                            run.params, lambda t: params_to_numpy(
+                                t, run.cfg, mesh=run.mesh))
     if run.comm.rank == 0:
         save_state(run.ckpt_file, {
             "params": params,
             "opt": opt,
             "step": run.args.steps,
-            "pipe": 1,
-            "virtual_pipe": 1,
+            "pipe": run.axes.get("pipe", 1),
+            "virtual_pipe": run.cfg.virtual_pipe,
         })
         run.say(f"saved {run.ckpt_file}")
     run.comm.barrier()

@@ -360,6 +360,42 @@ def test_cuda_remat_dots_launches_the_forward_once_a_layer(cuda):
                                out["full"][1]["embed"], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])
+def test_cuda_pipeline_schedules_match_the_plain_step(cuda, schedule):
+    # the pipe axis's schedules at pipe=1 over 4 micro-batches of two
+    # rows against the plain step: bf16 products at other shapes and the
+    # loss a mean of 4 means, so the bars of chip_smoke.py's phase 17
+    # (loss 1e-3 relative, gradients 2e-2 relative L2 over the tree);
+    # each layer's kernels on each micro-batch: the forward twice (the
+    # stage's forward, then its recompute), dq and dk/dv once
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            n_kv_heads=2, d_head=32, d_ff=256, n_layers=4,
+                            max_seq=128, attention="flash", remat=True,
+                            dtype="bfloat16")
+    toks = np.random.RandomState(2).randint(0, 256, (8, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    want_loss, want = make_value_and_grad_fn(cfg)(
+        params_from_jax(init_numpy_params(cfg, 0), cfg), x, y)
+    pcfg = dataclasses.replace(
+        cfg, num_microbatches=4, pipeline_schedule=schedule,
+        virtual_pipe=2 if schedule == "interleaved" else 1)
+    params = params_from_jax(init_numpy_params(pcfg, 0), pcfg)
+    flash_attention.launches = flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = 0
+    loss, grads = make_value_and_grad_fn(pcfg)(params, x, y)
+    torch.cuda.synchronize()
+    L, M = cfg.n_layers, pcfg.num_microbatches
+    assert _launch_counts() == (2 * L * M, L * M, L * M)
+    assert abs(loss.item() - want_loss.item()) < 1e-3 * abs(want_loss.item())
+    grads["blocks"] = {k: v.reshape(want["blocks"][k].shape)
+                       for k, v in grads["blocks"].items()}
+    pairs = [(grads[k], want[k]) for k in ("embed", "pos", "ln_f")] + [
+        (grads["blocks"][k], w) for k, w in want["blocks"].items()]
+    num = sum(((a - b).float().norm() ** 2).item() for a, b in pairs)
+    den = sum((b.float().norm() ** 2).item() for _, b in pairs)
+    assert (num / den) ** 0.5 < 2e-2
+
+
 @pytest.mark.parametrize("layout,window", [("contiguous", None),
                                            ("zigzag", None),
                                            ("zigzag", 200)])

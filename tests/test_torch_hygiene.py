@@ -69,9 +69,11 @@ SEQ_PATH = [PORT / "parallel" / "mesh.py",
             PORT / "parallel" / "ulysses.py", PORT / "models" / "decoding.py"]
 # the model axis: the Megatron operators and the layout's converter
 TP_PATH = [PORT / "parallel" / "tensor.py", PORT / "models" / "convert.py"]
+# the pipe axis: the schedules
+PP_PATH = [PORT / "parallel" / "pipeline.py"]
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py",
-                 ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH
+                 ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH + PP_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
@@ -82,7 +84,8 @@ DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     PORT / "links" / "batch_normalization.py", PORT / "models" / "resnet.py",
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
-    PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + EXAMPLES
+    PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + PP_PATH \
+    + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,

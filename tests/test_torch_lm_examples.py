@@ -9,6 +9,7 @@ train → save → resume → ``generate_torch.py`` round trip over a text
 file with a BPE vocabulary.  The port's side of the world is
 ``battery_lm_examples`` in ``test_torch_world.py``."""
 
+import dataclasses
 import functools
 import importlib.util
 import re
@@ -120,9 +121,14 @@ def test_init_transformer_matches_jax_layout_and_scales(kw):
 
 
 def test_init_transformer_refuses():
+    # blocks grouped for a pipe axis are ported (test_torch_pipeline.py):
+    # MoE blocks still raise, and the layers must divide over the stages
     cfg = TransformerConfig(**LM_CFG)
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        init_transformer(torch.Generator(), cfg, pipe_size=2, device="cpu")
+        init_transformer(torch.Generator(),
+                         dataclasses.replace(cfg, moe=True), device="cpu")
+    with pytest.raises(ValueError, match="not divisible by pipe"):
+        init_transformer(torch.Generator(), cfg, pipe_size=3, device="cpu")
     with pytest.raises(TypeError, match="torch.Generator"):
         init_transformer(0, cfg, device="cpu")
 
@@ -198,13 +204,16 @@ def test_train_save_resume_generate(port):
             == gen["tokens"][:, -gen["logits"].shape[1]:]).all()
 
 
-# --vocab-parallel and the model axis are ported (the config checks
-# below, test_torch_tensor_parallel.py): their places hold a vocab-
-# parallel MoE and a pipe axis beside the model axis, which still raise
+# --vocab-parallel, the model and pipe axes and the schedules are ported
+# (the config checks below, test_torch_tensor_parallel.py,
+# test_torch_pipeline.py): their places hold a vocab-parallel MoE, the
+# schedules beside MoE or FSDP and an expert axis beside the pipe or
+# model axis, which still raise
 TRAIN_UNPORTED = [["--moe"], ["--fsdp"], ["--vocab-parallel", "--moe"],
-                  ["--schedule", "1f1b"],
-                  ["--schedule", "interleaved"], ["--mesh", "pipe=2,model=2"],
-                  ["--mesh", "pipe=2"], ["--mesh", "expert=2"]]
+                  ["--schedule", "1f1b", "--moe"],
+                  ["--schedule", "interleaved", "--fsdp"],
+                  ["--mesh", "expert=2,model=2"],
+                  ["--mesh", "pipe=2,expert=2"], ["--mesh", "expert=2"]]
 
 
 @pytest.mark.parametrize("flags", TRAIN_UNPORTED,
@@ -226,7 +235,12 @@ TRAIN_SEQ = [(["--attention", "ring", "--seq-layout", "zigzag"], None),
              (["--mesh", "model=3", "--n-heads", "3", "--vocab-parallel"],
               "vocab_size=128 must be divisible by 3"),
              (["--mesh", "model=2,seq=2", "--attention", "ring"],
-              "needs 4 ranks")]
+              "needs 4 ranks"),
+             (["--mesh", "pipe=2,data=2", "--schedule", "1f1b"], None),
+             (["--mesh", "pipe=2", "--schedule", "interleaved"], None),
+             (["--mesh", "pipe=3", "--schedule", "1f1b"],
+              "4 layers not divisible by pipe"),
+             (["--mesh", "pipe=2,model=2"], "needs 4 ranks")]
 
 
 @pytest.mark.parametrize("flags,error", TRAIN_SEQ,
@@ -247,16 +261,23 @@ def test_train_lm_torch_seq_flags(flags, error):
         assert cfg.attention == args.attention
         assert cfg.seq_layout == args.seq_layout
         assert cfg.vocab_parallel == args.vocab_parallel
+        # train_lm.py's schedule settings under a pipe axis
+        pipe = ex.parse_mesh(args.mesh).get("pipe", 1)
+        assert cfg.num_microbatches == (2 if pipe > 1 else 1)
+        assert cfg.virtual_pipe == (2 if args.schedule == "interleaved"
+                                    else 1)
 
 
 GEN_UNPORTED = [(["--temperature", "0.7"], 12), (["--top-k", "5"], 12),
                 (["--top-p", "0.9"], 12), (["--beam", "4"], 9),
                 (["--speculative-k", "3"], 9), (["--lookup-k", "2"], 9),
                 (["--int8"], 9), (["--kv-int8"], 9),
-                # --vocab-parallel and the model axis are ported
-                # (test_torch_tensor_parallel.py): pipe and expert axes
-                # still raise
-                (["--mesh", "pipe=2"], 8), (["--mesh", "expert=2"], 8)]
+                # --vocab-parallel and the model and pipe axes are
+                # ported (test_torch_tensor_parallel.py,
+                # test_torch_pipeline.py): the expert axis still raises,
+                # beside the pipe axis too
+                (["--mesh", "pipe=2,expert=2"], 8),
+                (["--mesh", "expert=2"], 8)]
 
 
 @pytest.mark.parametrize("flags,item", GEN_UNPORTED,

@@ -245,17 +245,18 @@ def test_optimizer_refuses_other_params():
 
 
 @pytest.mark.parametrize("kw", [
-    # remat_policy="dots", the ring, Ulysses, the zigzag layout and
-    # vocab_parallel are ported (test_torch_lm_data_parallel.py,
-    # test_torch_sequence_parallel.py, test_torch_tensor_parallel.py);
-    # their places here hold options that still raise
-    dict(virtual_pipe=2, pipeline_schedule="interleaved"),
-    dict(pipeline_schedule="1f1b"),
-    dict(pipeline_schedule="interleaved"),
+    # remat_policy="dots", the ring, Ulysses, the zigzag layout,
+    # vocab_parallel, micro-batches and the pipeline schedules are ported
+    # (test_torch_lm_data_parallel.py, test_torch_sequence_parallel.py,
+    # test_torch_tensor_parallel.py, test_torch_pipeline.py); their
+    # places here hold options that still raise (MoE or FSDP beside them)
+    dict(virtual_pipe=2, pipeline_schedule="interleaved", moe=True),
+    dict(pipeline_schedule="1f1b", fsdp=True),
+    dict(pipeline_schedule="interleaved", moe=True),
     dict(moe=True), dict(fsdp=True),
-    dict(vocab_parallel=True, num_microbatches=2),
+    dict(vocab_parallel=True, num_microbatches=2, fsdp=True),
     dict(attention="ring", remat=True, remat_policy="dots"),
-    dict(num_microbatches=2),
+    dict(num_microbatches=2, moe=True),
 ])
 def test_unported_training_options_raise(kw):
     _, cfg = configs(**kw)

@@ -131,12 +131,14 @@ def test_params_from_jax_rejects_wrong_shapes():
 
 
 @pytest.mark.parametrize("kw", [
-    # vocab_parallel is ported (test_torch_tensor_parallel.py): its
-    # place holds FSDP beside it, which still raises
+    # vocab_parallel, micro-batches and the virtual stages are ported
+    # (test_torch_tensor_parallel.py, test_torch_pipeline.py): their
+    # places hold MoE or FSDP beside them, which still raise
     dict(moe=True), dict(fsdp=True), dict(vocab_parallel=True, fsdp=True),
-    dict(attention="ring", num_microbatches=2),
-    dict(attention="ulysses", fsdp=True), dict(num_microbatches=2),
-    dict(virtual_pipe=2, pipeline_schedule="interleaved"),
+    dict(attention="ring", num_microbatches=2, moe=True),
+    dict(attention="ulysses", fsdp=True),
+    dict(num_microbatches=2, fsdp=True),
+    dict(virtual_pipe=2, pipeline_schedule="interleaved", moe=True),
 ])
 def test_unported_options_raise(kw):
     _, cfg = configs(**kw)

@@ -1329,6 +1329,179 @@ def battery_tensor_parallel(comm, p):
     return out
 
 
+def toy_stage(p, x):
+    """The toy stage of the pipeline tests (a tanh dense layer); with
+    ``aux`` it also returns a scalar of its output."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def toy_stage_aux(p, x):
+    y = toy_stage(p, x)
+    return y, (y * y).mean() * 0.1
+
+
+def toy_loss(lp, y, tgt):
+    return ((y @ lp["head"] - tgt) ** 2).mean()
+
+
+def battery_pipeline(comm, p):
+    """The mesh's pipe axis in a 4-rank world, every case of the parity
+    tests in ``test_torch_pipeline.py``: the three schedules on the toy
+    stage, the layout, the flagship's forward, its loss, gradients and
+    one AdamW step under each schedule (with each step's flash calls and
+    whether its pipe-replicated leaves' gradients and parameters are the
+    same bits on every stage), pipe-sharded decoding, and
+    ``train_lm_torch.py``/``generate_torch.py`` at pipe=2,data=2 against
+    data=4 with a checkpoint resumed across the groupings.  Returns
+    every case's result on this rank."""
+    import contextlib
+    import importlib
+    import io
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_forward_fn, make_generate_fn,
+        make_train_step, make_value_and_grad_fn, params_from_jax,
+        params_to_numpy)
+    from chainermn_tpu_torch.parallel import MeshConfig
+    from chainermn_tpu_torch.parallel import pipeline as pp
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    out = {"rank": comm.rank}
+    fa_mod = importlib.import_module(
+        "chainermn_tpu_torch.ops.flash_attention")
+    calls = [0, 0]
+
+    def counted(i, fn):
+        def call(*a, **kw):
+            calls[i] += 1
+            return fn(*a, **kw)
+        return call
+
+    fa_mod.flash_attention_reference = counted(
+        0, fa_mod.flash_attention_reference)
+    fa_mod.flash_attention_bwd_reference = counted(
+        1, fa_mod.flash_attention_bwd_reference)
+
+    def tensors(tree):
+        import torch.utils._pytree as pytree
+        return pytree.tree_map(torch.as_tensor, tree)
+
+    # the schedules on the toy stage
+    toy = p["toy"]
+    stages, lp = tensors(toy["stages"]), tensors(toy["lp"])
+    x, y = torch.as_tensor(toy["x"]), torch.as_tensor(toy["y"])
+    out["toy"] = {}
+    for name, case in toy["cases"].items():
+        mesh = MeshConfig(comm, pipe=case["S"], data=4 // case["S"])
+        pipe = mesh.comm("pipe")
+        s, S, M = pipe.rank, pipe.size, case["M"]
+        aux = case.get("aux", False)
+        fn = toy_stage_aux if aux else toy_stage
+        if case["kind"] == "apply":
+            q = {k: v.clone().requires_grad_() for k, v in stages[s].items()}
+            xx = x.clone().requires_grad_()
+            res = pp.pipeline_apply(fn, q, xx, comm=pipe, num_microbatches=M,
+                                    with_aux=aux, remat=case["remat"])
+            o, a = res if aux else (res, None)
+            loss = toy_loss(lp, o, y) + (case["aux_weight"] * a if aux
+                                         else 0.0)
+            loss.backward()
+            out["toy"][name] = dict(
+                out=o.detach().numpy(), aux=None if a is None else a.item(),
+                gp=np_tree({k: v.grad for k, v in q.items()}),
+                dx=xx.grad.numpy())
+            continue
+        kw = dict(comm=pipe, num_microbatches=M, with_aux=aux)
+        if aux:
+            kw["aux_weight"] = case["aux_weight"]
+        if case["kind"] == "1f1b":
+            res = pp.pipeline_train_1f1b(fn, toy_loss, stages[s], lp, x, y,
+                                         **kw)
+        else:
+            V = case["V"]
+            res = pp.pipeline_train_interleaved(
+                fn, toy_loss, [stages[c * S + s] for c in range(V)], lp, x,
+                y, num_chunks=V, **kw)
+        out["toy"][name] = np_tree(res)
+
+    # the layout: each rank's shard and the gather of the shards
+    out["layout"] = {}
+    for name, (axes, fields) in p["layout_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        shard = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        out["layout"][name] = dict(
+            shard=np_tree(shard),
+            gathered=params_to_numpy(shard, cfg, mesh=mesh))
+
+    # the flagship's forward
+    out["fwd"] = {}
+    for name, (axes, fields) in p["fwd_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        out["fwd"][name] = make_forward_fn(cfg, mesh=mesh)(
+            params, p["x"]).numpy()
+
+    # loss, gradients and one AdamW step; the flash calls of the step; the
+    # pipe-replicated leaves' bits across the pipe group
+    out["step"] = {}
+    x, y = p["x"], p["y"]
+    for name, (axes, fields) in p["step_cases"].items():
+        cfg = TransformerConfig(**fields)
+        mesh = None if axes is None else MeshConfig(comm, **axes)
+        dev = "cpu" if mesh is None else None
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        loss, grads = make_value_and_grad_fn(cfg, device=dev, mesh=mesh)(
+            params, x, y)
+        g_np = params_to_numpy(grads, cfg, mesh=mesh)
+        repl = [k for k in ("embed", "pos", "ln_f") if k in params]
+        opt = training.adamw(p["lr"])
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, device=dev, mesh=mesh)
+        calls[:] = [0, 0]
+        params, state, step_loss = step(params, state, x, y)
+        n_calls = tuple(calls)
+        pipe_bitwise = None
+        if mesh is not None:
+            pipe = mesh.comm("pipe")
+            pipe_bitwise = (
+                replicas_bitwise(pipe, [grads[k] for k in repl])
+                and replicas_bitwise(pipe, [params[k] for k in repl]))
+        out["step"][name] = dict(
+            loss=float(loss), step_loss=float(step_loss), grads=g_np,
+            params=params_to_numpy(params, cfg, mesh=mesh), calls=n_calls,
+            pipe_bitwise=pipe_bitwise)
+
+    # greedy decoding
+    out["gen"] = {}
+    for name, (axes, fields) in p["gen_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        params = params_from_jax(p["gen_tree"][name], cfg, "cpu", mesh=mesh)
+        out["gen"][name] = make_generate_fn(
+            cfg, max_len=p["gen_max_len"], mesh=mesh)(
+            params, p["gen_prompt"]).numpy()
+
+    # the examples: pipe=2,data=2 (1F1B) against data=4, each checkpoint
+    # resumed at the other grouping; generate_torch.py on the pipe=2
+    # checkpoint at pipe=2 and at data=4
+    ex = _load_example("examples/transformer/train_lm_torch.py",
+                       "train_lm_torch")
+    runs = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, argv, ck in p["example_runs"]:
+            run = ex.main(p["example_argv"] + argv + ["--checkpoint", ck])
+            runs[name] = dict(losses=run.losses, start=run.start)
+    out["example"] = runs
+    gen = _load_example("examples/transformer/generate_torch.py",
+                        "generate_torch")
+    out["generate"] = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, argv in p["generate_runs"].items():
+            res = gen.main(argv + ["--checkpoint", p["example_ck"]])
+            out["generate"][name] = res.tokens.numpy().copy()
+    return out
+
+
 # --------------------------------------------------------------------- #
 # the harness's own tests
 # --------------------------------------------------------------------- #
