@@ -6,7 +6,8 @@
 ``(pipe, L/pipe, ...)`` stack (``(pipe, V, L/(pipe·V), ...)`` under
 ``virtual_pipe = V``): ``ln1``/``ln2 (D,)``, ``wo (H, Dh, D)``,
 ``wqkv (D, 3, H, Dh)`` (MHA) or ``wq (D, H, Dh)`` + ``wkv (D, 2, Hkv,
-Dh)`` (GQA/MQA), ``w1 (D, F)``, ``w2 (F, D)``.  :func:`params_from_jax`
+Dh)`` (GQA/MQA), ``w1 (D, F)``, ``w2 (F, D)``, or under MoE ``router
+(D, E)``, ``w1 (E, D, F)`` and ``w2 (E, F, D)``.  :func:`params_from_jax`
 takes that tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
 checks every shape, keeps this rank's stage (the whole stack at pipe 1)
 and returns a dict of fp32 tensors with the same names, blocks stacked
@@ -21,7 +22,8 @@ leaves, shapes, dtypes and scales drawn from a ``torch.Generator``, as
 tensors in the port's layout (blocks ``(L, ...)``).  Given a ``mesh``
 with a pipe or model axis, each of the three works on every rank with
 the whole tree and keeps (or, :func:`params_to_numpy`, gathers) this
-rank's shard (:func:`~.transformer.shard_params`), so the weights are
+rank's shard over pipe, model and expert
+(:func:`~.transformer.shard_params`), so the weights are
 the one-card model's; the JAX tree is then grouped for the mesh's pipe
 axis, as the JAX ``shard_params`` takes it
 (:func:`~.transformer.regroup_blocks` moves a tree between groupings).
@@ -69,9 +71,13 @@ def _block_shapes(cfg: TransformerConfig) -> dict:
         "ln1": ((D,), None),
         "ln2": ((D,), None),
         "wo": ((H, Dh, D), H * Dh),
-        "w1": ((D, F), D),
-        "w2": ((F, D), F),
     }
+    if cfg.moe:
+        E = cfg.n_experts
+        shapes.update(router=((D, E), D), w1=((E, D, F), D),
+                      w2=((E, F, D), F))
+    else:
+        shapes.update(w1=((D, F), D), w2=((F, D), F))
     if cfg.kv_heads == H:
         shapes["wqkv"] = ((D, 3, H, Dh), D)
     else:
@@ -86,13 +92,6 @@ def _top_shapes(cfg: TransformerConfig) -> dict:
     if cfg.pos_embedding == "learned":
         shapes["pos"] = (cfg.max_seq, cfg.d_model)
     return shapes
-
-
-def _check_config(cfg: TransformerConfig):
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE block stacks are not ported yet; they come with the "
-            "parallel slice (ROADMAP Queue A item 8)")
 
 
 def _grouping(cfg: TransformerConfig, mesh) -> tuple:
@@ -118,10 +117,9 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None,
     for the mesh's pipe axis: ``(pipe, L/pipe, ...)``, pipe 1 without a
     mesh) as fp32 tensors on ``device`` (CUDA unless ``"cpu"`` is
     named).  With a ``mesh``, every rank converts the whole tree and
-    keeps its shard over the pipe and model axes
+    keeps its shard over the pipe, model and expert axes
     (:func:`~.transformer.shard_params`)."""
     dev = resolve_device(device)
-    _check_config(cfg)
     lead = _grouping(cfg, mesh)
 
     def leaf(name, a, shape):
@@ -151,11 +149,10 @@ def params_to_numpy(params, cfg: TransformerConfig, mesh=None) -> dict:
     or gradients in their structure) as fp32 numpy leaves in the JAX
     package's layout, the blocks grouped for the mesh's pipe axis (pipe 1
     without a mesh), so it compares leaf by leaf with the JAX tree.  With
-    a ``mesh`` the tree is this rank's shard over the pipe and model
-    axes, and the whole one is gathered first
-    (:func:`~.transformer.gather_params`, collective over the model and
-    pipe communicators)."""
-    _check_config(cfg)
+    a ``mesh`` the tree is this rank's shard over the pipe, model and
+    expert axes, and the whole one is gathered first
+    (:func:`~.transformer.gather_params`, collective over the model,
+    expert and pipe communicators)."""
     lead = _grouping(cfg, mesh)
     if mesh is not None:
         params = gather_params(mesh, cfg, params)
@@ -192,7 +189,6 @@ def init_numpy_params(cfg: TransformerConfig, seed: int = 0,
     0.02``, norm scales one — ``init_transformer``'s scales with numpy's
     numbers, the same numbers in global layer order for every
     grouping."""
-    _check_config(cfg)
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -231,7 +227,6 @@ def init_transformer(generator: torch.Generator, cfg: TransformerConfig,
     if not isinstance(generator, torch.Generator):
         raise TypeError(f"init_transformer takes a torch.Generator, got "
                         f"{type(generator).__name__}")
-    _check_config(cfg)
     V = cfg.virtual_pipe
     _check_layers(pipe_size, cfg)
     if mesh is not None and pipe_size > 1 \

@@ -18,26 +18,28 @@ with the same semantics step for step:
   ``pad_id``) and stops once every row is done.
 
 Over a mesh (``mesh=``, or ``comm=`` as the mesh ``data=N``) each rank
-decodes its rows of the batch (the data axis), and every rank runs the
-same number of steps: the stop is taken when no rank of the data group
-has an unfinished row.  A seq axis of ``R`` members blocks the cache's
-length (sequence-parallel KV): member ``r`` holds positions
-``[r·Tl, (r+1)·Tl)``, ``Tl = max_len/R``; prefill writes each member's
-block, a token step writes on the owning member only, and attention is
-the distributed softmax (a max of the row maxima, then sums of the
-exp-sums and of the value partials over the seq group).  A model axis
-of ``M`` members shards the heads (tensor parallelism): each member's
-cache holds its ``Hkv/M`` K/V heads, each block runs its column→row
-products over the model communicator, and under ``vocab_parallel`` the
-embedding lookup is the masked gather with one all-reduce and the head
-the fp32 product over the member's vocab rows, all-gathered: every
-member holds the same full logits, bit for bit, and takes the same
-argmax.  A pipe axis of ``S`` stages shards the layers: each stage holds
-only its blocks and their cache, ``(L/S, rows, kv_len, Hkv/M, Dh)``;
-stage ``p`` runs its layers in phase ``p`` of each step only (the JAX
-package runs every phase on every stage and masks), the hidden state
-goes ``p → p+1`` by one transfer, and the last stage's logits reach
-every stage by a broadcast.
+decodes its rows of the batch (the data and expert axes), and every
+rank runs the same number of steps: the stop is taken when no rank of
+the rows' group has an unfinished row.  Under MoE each block's MLP is
+the training one: every prefill chunk and every token step routes its
+own tokens, over the expert axis's all-to-alls.  A seq axis of ``R``
+members blocks the cache's length (sequence-parallel KV): member ``r``
+holds positions ``[r·Tl, (r+1)·Tl)``, ``Tl = max_len/R``; prefill
+writes each member's block, a token step writes on the owning member
+only, and attention is the distributed softmax (a max of the row
+maxima, then sums of the exp-sums and of the value partials over the
+seq group).  A model axis of ``M`` members shards the heads (tensor
+parallelism): each member's cache holds its ``Hkv/M`` K/V heads, each
+block runs its column→row products over the model communicator, and
+under ``vocab_parallel`` the embedding lookup is the masked gather with
+one all-reduce and the head the fp32 product over the member's vocab
+rows, all-gathered: every member holds the same full logits, bit for
+bit, and takes the same argmax.  A pipe axis of ``S`` stages shards the
+layers: each stage holds only its blocks and their cache, ``(L/S, rows,
+kv_len, Hkv/M, Dh)``; stage ``p`` runs its layers in phase ``p`` of
+each step only (the JAX package runs every phase on every stage and
+masks), the hidden state goes ``p → p+1`` by one transfer, and the last
+stage's logits reach every stage by a broadcast.
 
 Sampling (``temperature > 0``) and int8 weights and int8 KV cache come
 in later slices and raise here.
@@ -67,6 +69,7 @@ from .transformer import (
     _check_mesh,
     _check_ported,
     _layers,
+    _mlp,
     _resolve,
     _rms_norm,
     _rows,
@@ -78,7 +81,7 @@ __all__ = ["make_generate_fn"]
 
 
 def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
-                  model, chunk_attends_cache: bool = False,
+                  model, expert, chunk_attends_cache: bool = False,
                   pos_offset=None):
     """One block for a chunk of new tokens ``h`` (B, Tq, D) whose first
     token sits at position ``pos``.  ``ck``/``cv`` are this layer's
@@ -86,7 +89,8 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
     ``max_len``, or under sequence-parallel KV (``seq``, the seq
     communicator, of size R > 1) this member's block of ``max_len/R``
     positions; ``blk`` is this rank's shard over ``model`` (the model
-    communicator), whose heads the cache holds."""
+    communicator), whose heads the cache holds, and over ``expert`` (the
+    expert communicator), whose experts the MoE MLP reaches."""
     cd = cfg.compute_dtype
     x = _rms_norm(h, blk["ln1"])
     B, Tq, D = x.shape
@@ -172,13 +176,14 @@ def _decode_block(cfg: TransformerConfig, h, blk, ck, cv, pos: int, seq,
             o = _pv_mix(torch.softmax(s, dim=-1), cv).transpose(1, 2)
     h = h + row_parallel_dense(
         o.reshape(B, Tq, -1), blk["wo"].reshape(-1, D).to(cd), comm=model)
-    x = _rms_norm(h, blk["ln2"])
-    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd), comm=model))
-    return h + row_parallel_dense(y, blk["w2"].to(cd), comm=model)
+    # the training MLP: under MoE each call routes its own B·Tq tokens
+    # (a prefill chunk and a token step have different capacities, and a
+    # step may drop tokens, as the JAX decode does)
+    return _mlp(cfg, h, blk, model, expert)[0]
 
 
 def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
-                 seq, model, pipe, with_logits: bool = True,
+                 seq, model, pipe, expert, with_logits: bool = True,
                  chunk_attends_cache=False, pos_offset=None):
     """Next-token fp32 logits (B, V) for ``tok`` — (B,) in the generation
     loop, or a (B, Tq) chunk starting at ``pos`` for prefill
@@ -210,6 +215,7 @@ def _decode_step(cfg: TransformerConfig, params, caches, tok, pos: int,
         if p == s:
             for i, blk in enumerate(_layers(cfg, params["blocks"])):
                 h = _decode_block(cfg, h, blk, ck[i], cv[i], pos, seq, model,
+                                  expert,
                                   chunk_attends_cache=chunk_attends_cache,
                                   pos_offset=pos_offset)
         if p < S - 1:
@@ -278,9 +284,9 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     With a ``mesh`` (a :class:`~chainermn_tpu_torch.parallel.MeshConfig`;
     ``comm`` alone is the mesh ``data=comm.size``) ``prompt`` (and
     ``prompt_lens``) is the global batch: each rank decodes and returns
-    its rows over the data axis, a seq axis blocks the KV cache over
-    its members (``max_len`` must divide over it; left-padded prompts
-    are not supported there), a model axis shards the heads (and under
+    its rows over the data and expert axes, a seq axis blocks the KV
+    cache over its members (``max_len`` must divide over it; left-padded
+    prompts are not supported there), a model axis shards the heads (and under
     ``vocab_parallel`` the vocabulary) and a pipe axis the layers:
     ``params`` are then this rank's shard
     (:func:`~.transformer.shard_params`), and every member of a model
@@ -330,12 +336,15 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
             f"sequence-parallel KV decode blocks the cache over the "
             f"seq axis: max_len={max_len} must be divisible by the seq "
             f"mesh axis ({seq.size})")
-    data = None if mesh is None else mesh.comm("data")
+    expert = LoopbackCommunicator(device=dev) if mesh is None \
+        else mesh.comm("expert")
+    data = None if mesh is None else mesh.comm("data", "expert")
 
     def running(done):
-        """Whether any rank of the data group has an unfinished row: the
-        same answer on every rank of the mesh, so every rank takes the
-        same number of steps (the JAX ``pmax`` over the batch axes)."""
+        """Whether any rank of the batch rows' group (data and expert)
+        has an unfinished row: the same answer on every rank of the
+        mesh, so every rank takes the same number of steps (the JAX
+        ``pmax`` over the batch axes)."""
         left = (~done.all()).to(torch.int32).reshape(1)
         if data is not None:
             left = data.allreduce(left, "max")
@@ -357,7 +366,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
         buf[:, :P] = prompt
         if P > 1:
             _decode_step(cfg, params, caches, prompt[:, :P - 1], 0, seq,
-                         model, pipe, with_logits=False,
+                         model, pipe, expert, with_logits=False,
                          chunk_attends_cache=offsets is not None,
                          pos_offset=offsets)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -370,7 +379,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
                     break
                 gen_len += (~done).to(torch.int32)
             logits = _decode_step(cfg, params, caches, buf[:, t], t, seq,
-                                  model, pipe, pos_offset=offsets)
+                                  model, pipe, expert, pos_offset=offsets)
             if with_logits:
                 steps.append(logits)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)

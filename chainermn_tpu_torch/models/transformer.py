@@ -1,10 +1,9 @@
 """The flagship decoder-only transformer: the scoring forward and
 training, on one device or over a mesh's data, seq and model axes.
 
-Counterpart of ``chainermn_tpu/models/transformer.py`` at pipe and
-expert axes of size 1: the same config, the same parameter layout (with
-the pipe axis squeezed, see :mod:`.convert`) and the same mixed
-precision:
+Counterpart of ``chainermn_tpu/models/transformer.py``: the same
+config, the same parameter layout (with the pipe axis squeezed, see
+:mod:`.convert`) and the same mixed precision:
 
 - params fp32; the residual stream in the compute dtype (bf16) from the
   embedding on; products take compute-dtype operands;
@@ -24,12 +23,14 @@ head of ``loss_chunk``), remat (each block under
 block's input, ``"dots"`` also the JAX policy's saves, see
 :func:`_dots_context`) and :func:`make_train_step`.
 
-The mesh has a data, a sequence and a model axis (a :class:`MeshConfig`
-over the world communicator; ``comm=`` alone is the mesh ``data=N``).
+The mesh has a pipe, a data, an expert, a sequence and a model axis (a
+:class:`MeshConfig` over the world communicator; ``comm=`` alone is the
+mesh ``data=N``).
 :func:`make_value_and_grad_fn`, :func:`make_train_step` and
 :func:`make_forward_fn` work per rank, one process a device: rank ``r``
-takes its rows of the global batch over ``data`` and its block of
-columns over ``seq`` (the JAX ``_BATCH_SPEC``), and holds its shard of
+takes its rows of the global batch over ``data`` and ``expert`` and
+its block of columns over ``seq`` (the JAX ``_BATCH_SPEC``), and holds
+its shard of
 the parameters over ``model`` (:func:`shard_params`, the JAX
 ``param_specs``: the heads of ``wqkv``/``wq``/``wkv`` and ``wo``,
 ``w1``'s columns and ``w2``'s rows, and under ``vocab_parallel``
@@ -65,8 +66,23 @@ above 1, the ``V`` chunk rings one after the other when ``virtual_pipe
 inside the schedule (:func:`_grad_1f1b`, the JAX ``_make_1f1b_grad``).
 The leaves replicated over pipe (``embed``, ``pos``, ``ln_f``) get the
 same gradient bits on every pipe rank: every stage computes the same
-head and embedding on the same broadcast values.  The expert axis, MoE
-and FSDP come with the rest of the parallel slice and raise here.
+head and embedding on the same broadcast values.
+
+``moe=True`` makes every block's MLP a Switch (``router_top_k=1``) or
+GShard (``> 1``) mixture of ``n_experts`` experts
+(:func:`~chainermn_tpu_torch.parallel.expert.expert_parallel_moe`),
+whose balancing loss rides the block stack (``(h, aux)`` through the
+blocks and the pipeline schedules) into the loss as ``0.01·aux``.  The
+mesh's expert axis holds ``E/X`` experts a rank (``w1``/``w2``'s expert
+dim, :func:`shard_params`) and is a batch axis outside the MLP: the
+rows of the batch are split over ``(data, expert)`` together, and
+inside each MoE MLP one all-to-all each way moves the tokens to their
+experts' ranks and back.  An expert's gradient already holds the
+contributions of every rank of its expert group (the all-to-all's
+backward brings them), so ``w1``/``w2`` are summed over ``(data, seq)``
+only and divided by the batch-like group's size; every other leaf is
+meaned over ``(data, expert, seq)``.  FSDP comes with the rest of the
+parallel slice and raises here.
 """
 
 from __future__ import annotations
@@ -90,6 +106,7 @@ from chainermn_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_supported,
 )
+from chainermn_tpu_torch.parallel.expert import expert_parallel_moe
 from chainermn_tpu_torch.parallel.mesh import BATCH_AXES, MeshConfig
 from chainermn_tpu_torch.parallel.pipeline import (
     pipeline_apply,
@@ -125,9 +142,11 @@ __all__ = [
 ]
 
 _PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
-# the JAX MeshConfig's axes; the port has all but the expert axis
+# the JAX MeshConfig's axes
 _MESH_AXES = ("pipe", "data", "expert", "seq", "model")
-_PORTED_AXES = ("pipe", "data", "seq", "model")
+# the coefficient of the Switch balancing loss in the training objective
+# (the JAX _AUX_WEIGHT, the same on every schedule)
+_AUX_WEIGHT = 0.01
 
 
 @dataclass(frozen=True)
@@ -239,7 +258,7 @@ def _torch_dtype(name: str) -> torch.dtype:
 def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
                   training: bool = False):
     """Raise ``NotImplementedError`` for options a later slice ports."""
-    unported = [("moe", cfg.moe, _PARALLEL_SLICE)]
+    unported = []
     if decoding:
         unported.append(
             ('kv_cache_dtype="int8"', cfg.kv_cache_dtype == "int8",
@@ -277,9 +296,7 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
 def _check_mesh(mesh, cfg: TransformerConfig):
     """The JAX ``_check_mesh``'s config/mesh divisibility checks, with
     its messages, on ``mesh``: a :class:`MeshConfig` or a mapping of
-    axis sizes (``{"data": 4}``; missing axes are 1).  The port has the
-    pipe, data, seq and model axes: an expert axis larger than 1 then
-    raises ``NotImplementedError``."""
+    axis sizes (``{"data": 4}``; missing axes are 1)."""
     mesh = getattr(mesh, "shape", mesh)
     unknown = set(mesh) - set(_MESH_AXES)
     if unknown:
@@ -315,12 +332,6 @@ def _check_mesh(mesh, cfg: TransformerConfig):
             f"fsdp shards every matrix's d_model dim over the data "
             f"axis: d_model={cfg.d_model} must be divisible by the "
             f"data mesh axis ({dp})")
-    wide = {a: n for a, n in mesh.items()
-            if a not in _PORTED_AXES and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide} are not ported to chainermn_tpu_torch yet; "
-            f"they come with {_PARALLEL_SLICE}")
 
 
 def _rms_norm(x, scale):
@@ -642,16 +653,40 @@ def _attention(cfg: TransformerConfig, h, blk, seq, model):
     return h + o
 
 
-def _mlp(cfg: TransformerConfig, h, blk, model):
-    """Pre-LN MLP: the column→row pair over ``model``, one all-reduce."""
+def _mlp(cfg: TransformerConfig, h, blk, model, expert):
+    """Pre-LN MLP: the dense column→row pair over ``model`` (one
+    all-reduce), or the mixture of experts over ``expert`` (the expert
+    communicator; two all-to-alls), each expert's FFN that same pair.
+    Returns ``(h, aux)``: the balancing loss, None for the dense MLP."""
     cd = cfg.compute_dtype
     x = _rms_norm(h, blk["ln2"])
-    y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd), comm=model))
-    return h + row_parallel_dense(y, blk["w2"].to(cd), comm=model)
+    if not cfg.moe:
+        y = torch.relu(column_parallel_dense(x, blk["w1"].to(cd),
+                                             comm=model))
+        return h + row_parallel_dense(y, blk["w2"].to(cd), comm=model), None
+    B, T, D = x.shape
+
+    def expert_fn(p, tokens):
+        # the local experts at once: (E/X, S·C, D) by (E/X, D, F/M)
+        y = torch.relu(column_parallel_dense(tokens, p["w1"], comm=model))
+        return row_parallel_dense(y, p["w2"], comm=model)
+
+    out, aux = expert_parallel_moe(
+        x.reshape(B * T, D), blk["router"].to(cd),
+        {"w1": blk["w1"].to(cd), "w2": blk["w2"].to(cd)}, expert_fn,
+        comm=expert, capacity_factor=cfg.capacity_factor,
+        top_k=cfg.router_top_k)
+    return h + out.reshape(B, T, D), aux
 
 
-def _block(cfg: TransformerConfig, h, blk, seq, model):
-    return _mlp(cfg, _attention(cfg, h, blk, seq, model), blk, model)
+def _block(cfg: TransformerConfig, h, blk, seq, model, expert):
+    """One block: ``(h, aux)``, aux None for a dense MLP."""
+    return _mlp(cfg, _attention(cfg, h, blk, seq, model), blk, model,
+                expert)
+
+
+def _add_aux(total, a):
+    return a if total is None else (total if a is None else total + a)
 
 
 def _layer(params, i: int) -> dict:
@@ -671,11 +706,14 @@ def _layers(cfg: TransformerConfig, blocks) -> list:
     return [{k: v[i] for k, v in blocks.items()} for i in range(n)]
 
 
-def _stage(cfg: TransformerConfig, layers, h, seq, model):
-    """One pipeline stage (or chunk): its blocks in order."""
+def _stage(cfg: TransformerConfig, layers, h, seq, model, expert):
+    """One pipeline stage (or chunk): its blocks in order.  Under MoE
+    ``(h, aux)``, the aux summed over the blocks (the JAX ``_stage``)."""
+    aux = None
     for blk in layers:
-        h = _block(cfg, h, blk, seq, model)
-    return h
+        h, a = _block(cfg, h, blk, seq, model, expert)
+        aux = _add_aux(aux, a)
+    return (h, aux) if cfg.moe else h
 
 
 def _dots_checkpoint(early_stop: bool):
@@ -714,34 +752,19 @@ def _embed(cfg: TransformerConfig, params, tokens, seq, model):
     return (h + params["pos"][r * T:(r + 1) * T]).to(cd)
 
 
-def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
-                         model=None, pipe=None):
-    """Embedding → block stack → final norm: the normed
-    ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
-    is this rank's block of the sequence when ``seq`` (the seq
-    communicator; None: one rank) is sharded; positions are the block's
-    global ones (the zigzag rows under ``seq_layout="zigzag"``).
-    ``params`` are this rank's shard over ``model`` (the model
-    communicator; None: one rank) and ``pipe`` (the pipe communicator),
-    see :func:`shard_params`.  With ``cfg.remat`` and gradients enabled
-    each block runs under ``torch.utils.checkpoint``.
-    ``remat_policy="full"`` keeps only its input, and its forward (the
-    flash kernel and the ring's transfers included, in the same order on
-    every rank) runs again in the backward; ``"dots"`` also keeps the
-    dense products and the attention core's output, so the backward
-    recomputes only the norms and the elementwise ops.
+def _loopbacks(dev, *comms):
+    """Each of ``comms``, or a loopback communicator where it is None."""
+    return tuple(LoopbackCommunicator(device=dev) if c is None else c
+                 for c in comms)
 
-    Over a pipe axis of ``S > 1`` stages, or with ``num_microbatches >
-    1`` on one, the stack runs as GPipe (the ``V`` chunk rings one after
-    the other under ``virtual_pipe``), every stage receiving the
-    output; remat is then a stage application's (the stage's input
-    kept, the stage recomputed in the backward)."""
-    if seq is None:
-        seq = LoopbackCommunicator(device=tokens.device)
-    if model is None:
-        model = LoopbackCommunicator(device=tokens.device)
-    if pipe is None:
-        pipe = LoopbackCommunicator(device=tokens.device)
+
+def _backbone(cfg: TransformerConfig, params, tokens, seq, model, pipe,
+              expert):
+    """:func:`transformer_backbone` and the MoE balancing loss summed
+    over the layers: ``(h, aux)``, aux None for a dense model (the JAX
+    ``transformer_backbone``'s pair)."""
+    seq, model, pipe, expert = _loopbacks(tokens.device, seq, model, pipe,
+                                          expert)
     h = _embed(cfg, params, tokens, seq, model)
     layers = _layers(cfg, params["blocks"])
     remat = cfg.remat and torch.is_grad_enabled()
@@ -749,46 +772,78 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
     # whole block on every rank: stopping it early, after the block's
     # last saved tensor, would stop the ranks at different collectives
     # (a seq rank skips other masked pairs of the ring and saves other
-    # tensors; the model axis's all-reduces must all be replayed)
-    early_stop = seq.size == 1 and model.size == 1
+    # tensors; the model axis's all-reduces and the expert axis's
+    # all-to-alls must all be replayed)
+    early_stop = seq.size == 1 and model.size == 1 and expert.size == 1
+    aux = None
     if pipe.size > 1 or cfg.num_microbatches > 1 or cfg.virtual_pipe > 1:
         V = cfg.virtual_pipe
         n = len(layers) // V
-        kw = dict(remat=remat)
+        kw = dict(remat=remat, with_aux=cfg.moe)
         if remat and cfg.remat_policy == "dots":
             kw["checkpoint_fn"] = _dots_checkpoint(early_stop)
         for c in range(V):
             # chunk c of every stage as one GPipe pass: virtual stage
-            # order c·S + s
-            h = pipeline_apply(
-                lambda p, mb: _stage(cfg, p, mb, seq, model),
+            # order c·S + s; the chunks' aux added (the JAX loop's)
+            out = pipeline_apply(
+                lambda p, mb: _stage(cfg, p, mb, seq, model, expert),
                 layers[c * n:(c + 1) * n], h, comm=pipe,
                 num_microbatches=cfg.num_microbatches, **kw)
-        return _rms_norm(h, params["ln_f"])
+            h, a = out if cfg.moe else (out, None)
+            aux = _add_aux(aux, a)
+        return _rms_norm(h, params["ln_f"]), aux
     context_fn = _dots_context if cfg.remat_policy == "dots" \
         else noop_context_fn
     for blk in layers:
         if remat:
             # the blocks draw no random numbers: no RNG state to replay
             with set_checkpoint_early_stop(early_stop):
-                h = checkpoint(_block, cfg, h, blk, seq, model,
-                               use_reentrant=False,
-                               preserve_rng_state=False,
-                               context_fn=context_fn)
+                h, a = checkpoint(_block, cfg, h, blk, seq, model, expert,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False,
+                                  context_fn=context_fn)
         else:
-            h = _block(cfg, h, blk, seq, model)
-    return _rms_norm(h, params["ln_f"])
+            h, a = _block(cfg, h, blk, seq, model, expert)
+        aux = _add_aux(aux, a)
+    return _rms_norm(h, params["ln_f"]), aux
+
+
+def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
+                         model=None, pipe=None, expert=None):
+    """Embedding → block stack → final norm: the normed
+    ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
+    is this rank's block of the sequence when ``seq`` (the seq
+    communicator; None: one rank) is sharded; positions are the block's
+    global ones (the zigzag rows under ``seq_layout="zigzag"``).
+    ``params`` are this rank's shard over ``model`` (the model
+    communicator; None: one rank), ``pipe`` (the pipe communicator) and
+    ``expert`` (the expert communicator, which under MoE exchanges the
+    tokens with the other ranks' experts), see :func:`shard_params`.
+    With ``cfg.remat`` and gradients enabled each block runs under
+    ``torch.utils.checkpoint``.  ``remat_policy="full"`` keeps only its
+    input, and its forward (the flash kernel and the ring's transfers
+    included, in the same order on every rank) runs again in the
+    backward; ``"dots"`` also keeps the dense products and the attention
+    core's output, so the backward recomputes only the norms and the
+    elementwise ops.
+
+    Over a pipe axis of ``S > 1`` stages, or with ``num_microbatches >
+    1`` on one, the stack runs as GPipe (the ``V`` chunk rings one after
+    the other under ``virtual_pipe``), every stage receiving the
+    output; remat is then a stage application's (the stage's input
+    kept, the stage recomputed in the backward)."""
+    return _backbone(cfg, params, tokens, seq, model, pipe, expert)[0]
 
 
 def transformer_forward(cfg: TransformerConfig, params, tokens, seq=None,
-                        model=None, pipe=None):
+                        model=None, pipe=None, expert=None):
     """``(B, T, vocab)`` fp32 logits through the weight-tied head.  Under
     ``vocab_parallel`` each member of ``model`` computes its vocab
     slice and the slices are all-gathered: the full logits, the same
     bits on every member (and on every stage of ``pipe``)."""
     if model is None:
         model = LoopbackCommunicator(device=tokens.device)
-    h = transformer_backbone(cfg, params, tokens, seq, model, pipe)
+    h = transformer_backbone(cfg, params, tokens, seq, model, pipe, expert)
     if cfg.vocab_parallel:
         logits = _lm_head(cfg.compute_dtype, h, params["embed"], model)
         if model.size == 1:
@@ -816,38 +871,41 @@ def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets, model):
 
 
 def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None,
-            model=None, pipe=None):
+            model=None, pipe=None, expert=None):
     """Mean next-token cross-entropy of ``(B, T)`` ``inputs`` against
     ``targets`` (this rank's block under a sharded ``seq``; ``params``
-    this rank's shard over ``model`` and ``pipe``).  The JAX package
-    adds ``0.01·aux``, the MoE balancing loss, which is zero for the
-    dense models the port has."""
+    this rank's shard over ``model``, ``pipe`` and ``expert``), plus
+    ``0.01·aux`` under MoE: the balancing loss summed over the layers
+    (the JAX ``lm_loss``)."""
     _check_ported(cfg, training=True)
     if model is None:
         model = LoopbackCommunicator(device=inputs.device)
     targets = targets.long()
-    h = transformer_backbone(cfg, params, inputs, seq, model, pipe)
-    return _shard_nll_sum(cfg, h, params["embed"], targets,
+    h, aux = _backbone(cfg, params, inputs, seq, model, pipe, expert)
+    loss = _shard_nll_sum(cfg, h, params["embed"], targets,
                           model) / targets.numel()
+    return loss if aux is None else loss + _AUX_WEIGHT * aux
 
 
 def _grad_1f1b(cfg: TransformerConfig, params, inputs, targets, seq, model,
-               pipe):
+               pipe, expert):
     """The JAX ``_make_1f1b_grad``'s body on this rank: the embedding
     outside the schedule (its backward takes the schedule's ``dx``), the
     block stack as the 1F1B (or interleaved) stages, the final norm, the
-    tied head and the cross-entropy as the in-schedule ``loss_fn``.
-    ``params["blocks"]`` is this rank's list of layers.  Returns this
-    rank's loss (the mean over its micro-batches), the gradients of the
-    top-level leaves (``embed``: the lookup side plus the head side) and
-    one dict of gradients a layer."""
+    tied head and the cross-entropy as the in-schedule ``loss_fn``; under
+    MoE the stages' balancing loss rides the schedule, its gradient
+    seeded at ``0.01``.  ``params["blocks"]`` is this rank's list of
+    layers.  Returns this rank's loss (the mean over its micro-batches,
+    plus ``0.01·aux`` under MoE), the gradients of the top-level leaves
+    (``embed``: the lookup side plus the head side) and one dict of
+    gradients a layer."""
     targets = targets.long()
     top = [params["embed"]] + ([params["pos"]] if "pos" in params else [])
     with torch.enable_grad():
         h = _embed(cfg, params, inputs, seq, model)
 
     def stage_fn(layers, mb):
-        return _stage(cfg, layers, mb, seq, model)
+        return _stage(cfg, layers, mb, seq, model, expert)
 
     def loss_fn(lp, y, tgt):
         hN = _rms_norm(y, lp["ln_f"])
@@ -856,18 +914,21 @@ def _grad_1f1b(cfg: TransformerConfig, params, inputs, targets, seq, model,
 
     lp = {"ln_f": params["ln_f"], "embed": params["embed"]}
     layers, M = params["blocks"], cfg.num_microbatches
+    kw = dict(with_aux=True, aux_weight=_AUX_WEIGHT) if cfg.moe else {}
     if cfg.pipeline_schedule == "interleaved":
         V = cfg.virtual_pipe
         n = len(layers) // V
-        loss, g_chunks, g_lp, dx = pipeline_train_interleaved(
+        *head, g_chunks, g_lp, dx = pipeline_train_interleaved(
             stage_fn, loss_fn, [layers[c * n:(c + 1) * n] for c in range(V)],
             lp, h.detach(), targets, comm=pipe, num_microbatches=M,
-            num_chunks=V)
+            num_chunks=V, **kw)
         g_layers = [g for chunk in g_chunks for g in chunk]
     else:
-        loss, g_layers, g_lp, dx = pipeline_train_1f1b(
+        *head, g_layers, g_lp, dx = pipeline_train_1f1b(
             stage_fn, loss_fn, layers, lp, h.detach(), targets, comm=pipe,
-            num_microbatches=M)
+            num_microbatches=M, **kw)
+    # the scalar the GPipe path's lm_loss reports
+    loss = head[0] if len(head) == 1 else head[0] + _AUX_WEIGHT * head[1]
     d_top = torch.autograd.grad(h, top, dx)
     grads = {"embed": d_top[0] + g_lp["embed"], "ln_f": g_lp["ln_f"]}
     if "pos" in params:
@@ -892,17 +953,19 @@ def _resolve(device, comm, mesh):
 
 
 def _rows(mesh, x):
-    """This rank's rows of the global batch ``x``: ``d·B/D … (d+1)·B/D``
-    over data; all of it without a mesh."""
+    """This rank's rows of the global batch ``x``: block ``i`` of ``n``
+    over the data and expert axes together (``i = d·X + e``, the JAX
+    ``P(("data", "expert"))``); all of it without a mesh."""
     x = torch.as_tensor(x)
     if mesh is None:
         return x
-    B, n = x.shape[0], mesh.axis_size("data")
+    X = mesh.axis_size("expert")
+    B, n = x.shape[0], mesh.axis_size("data") * X
     if B % n:
         raise ValueError(f"global batch {B} does not divide over the data "
-                         f"axis ({n} ranks)")
-    d = mesh.axis_index("data")
-    return x[d * (B // n):(d + 1) * (B // n)]
+                         f"and expert axes ({n} ranks)")
+    i = mesh.axis_index("data") * X + mesh.axis_index("expert")
+    return x[i * (B // n):(i + 1) * (B // n)]
 
 
 def _shard(mesh, x, dev):
@@ -931,11 +994,12 @@ def _check_layers(S: int, cfg: TransformerConfig):
 
 
 def _axes(mesh, dev):
-    """The seq, model and pipe communicators of ``mesh`` (loopback ones
-    without a mesh)."""
+    """The seq, model, pipe and expert communicators of ``mesh``
+    (loopback ones without a mesh)."""
     if mesh is None:
-        return tuple(LoopbackCommunicator(device=dev) for _ in range(3))
-    return mesh.comm("seq"), mesh.comm("model"), mesh.comm("pipe")
+        return _loopbacks(dev, None, None, None, None)
+    return (mesh.comm("seq"), mesh.comm("model"), mesh.comm("pipe"),
+            mesh.comm("expert"))
 
 
 def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
@@ -957,13 +1021,13 @@ def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
         _check_mesh(mesh, cfg)
     _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, decoding=False)
-    seq, model, pipe = _axes(mesh, dev)
+    seq, model, pipe, expert = _axes(mesh, dev)
 
     def forward(params, tokens):
         tokens = _shard(mesh, tokens, dev)
         with torch.inference_mode():
             return transformer_forward(cfg, params, tokens, seq, model,
-                                       pipe)
+                                       pipe, expert)
 
     return forward
 
@@ -981,9 +1045,12 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
     batch: each rank takes its rows and its block of the sequence, and
     ``loss`` and ``grads`` are the means over the batch-like group
     ``(data, expert, seq)``, the gradients meaned in fp32 by
-    ``multi_node_mean_grad``.  On one rank that mean is a copy, so the
-    result is bitwise the step without a mesh.  Over a model axis
-    ``params`` are this rank's shard (:func:`shard_params`) and so are
+    ``multi_node_mean_grad`` (under MoE the experts' ``w1``/``w2``
+    summed over ``(data, seq)`` and divided by that group's size: the
+    expert group's members hold different experts).  On one rank that
+    mean is a copy, so the result is bitwise the step without a mesh.
+    Over a model axis ``params`` are this rank's shard
+    (:func:`shard_params`) and so are
     ``grads``; a leaf replicated over model (the norm scales, ``pos``,
     ``embed`` without ``vocab_parallel``) comes out the same on every
     member: the column products' backward all-reduce makes it so.  Over
@@ -997,8 +1064,20 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
         _check_mesh(mesh, cfg)
     _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, training=True)
-    seq, model, pipe = _axes(mesh, dev)
+    seq, model, pipe, expert = _axes(mesh, dev)
+    if cfg.remat and cfg.remat_policy == "dots" and expert.size > 1:
+        # the selective checkpoint's recompute would replay the
+        # all-to-alls of some ranks' blocks only
+        raise NotImplementedError(
+            'remat_policy="dots" with an expert axis is not ported to '
+            f"chainermn_tpu_torch yet; it comes with {_PARALLEL_SLICE}")
     group = None if mesh is None else mesh.comm(*BATCH_AXES)
+    # the experts' own gradients are summed over (data, seq) only: the
+    # members of the expert group hold different experts, and the
+    # all-to-all's backward has already brought each expert the other
+    # members' contributions
+    split_experts = cfg.moe and expert.size > 1
+    data_seq = mesh.comm("data", "seq") if split_experts else None
 
     def value_and_grad(params, inputs, targets):
         inputs = _shard(mesh, inputs, dev)
@@ -1014,10 +1093,11 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
         live["blocks"] = layers
         if cfg.pipeline_schedule in ("1f1b", "interleaved"):
             loss, out, g_layers = _grad_1f1b(cfg, live, inputs, targets,
-                                             seq, model, pipe)
+                                             seq, model, pipe, expert)
         else:
             with torch.enable_grad():
-                loss = lm_loss(cfg, live, inputs, targets, seq, model, pipe)
+                loss = lm_loss(cfg, live, inputs, targets, seq, model, pipe,
+                               expert)
                 grads = torch.autograd.grad(
                     loss, [live[k] for k in top]
                     + [x for blk in layers for x in blk.values()])
@@ -1031,7 +1111,18 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
         loss = loss.detach()
         if group is not None:
             # fp32 on the wire, as the JAX step's psum: no bf16 wire here
-            grads = group.multi_node_mean_grad(grads, torch.float32)
+            own = ("w1", "w2") if split_experts else ()
+            blocks = grads["blocks"]
+            grads = group.multi_node_mean_grad(dict(grads, blocks={
+                k: g for k, g in blocks.items() if k not in own}),
+                torch.float32)
+            if own:
+                # Σ over (data, seq) / (D·X·S): the (data, seq) mean / X
+                mean = data_seq.multi_node_mean_grad(
+                    {k: blocks[k] for k in own}, torch.float32)
+                grads["blocks"] = {
+                    k: mean[k] / expert.size if k in own
+                    else grads["blocks"][k] for k in blocks}
             loss = group.allreduce(loss, "mean")
         return loss, grads
 
@@ -1041,17 +1132,19 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
 def make_train_step(cfg: TransformerConfig, optimizer, device=None,
                     comm=None, mesh=None):
     """``step(params, opt_state, inputs, targets) -> (params, opt_state,
-    loss)``: the JAX ``make_train_step`` at a mesh with pipe, data, seq
-    and model axes, under ``cfg.pipeline_schedule``.  ``optimizer`` is one of
-    :mod:`chainermn_tpu_torch.training`'s (``adamw``, ``sgd``) and
-    ``opt_state`` its ``init(params)``.  ``loss`` is the loss before the
-    update.  Where JAX returns new arrays, the port updates ``params``
-    and ``opt_state`` in place and returns them.  With a ``mesh`` (or
-    ``comm``, the mesh ``data=comm.size``) each rank steps on its block
-    of the global batch and applies the same rule to the same fp32 mean
-    of the gradients (see :func:`make_value_and_grad_fn`), so the
-    ranks' parameters (over a model axis: the members' of one shard)
-    stay equal; ``loss`` is the mean over the batch-like group."""
+    loss)``: the JAX ``make_train_step`` at a mesh with pipe, data,
+    expert, seq and model axes, under ``cfg.pipeline_schedule``.
+    ``optimizer`` is one of :mod:`chainermn_tpu_torch.training`'s
+    (``adamw``, ``sgd``) and ``opt_state`` its ``init(params)``.
+    ``loss`` is the loss before the update.  Where JAX returns new
+    arrays, the port updates ``params`` and ``opt_state`` in place and
+    returns them.  With a ``mesh`` (or ``comm``, the mesh
+    ``data=comm.size``) each rank steps on its block of the global batch
+    and applies the same rule to the same fp32 mean of the gradients
+    (see :func:`make_value_and_grad_fn`), so the ranks' parameters (over
+    a model axis: the members' of one shard, over an expert axis: all
+    but the experts) stay equal; ``loss`` is the mean over the
+    batch-like group."""
     value_and_grad = make_value_and_grad_fn(cfg, device, comm, mesh)
 
     def step(params, opt_state, inputs, targets):
@@ -1067,33 +1160,42 @@ def make_train_step(cfg: TransformerConfig, optimizer, device=None,
 # --------------------------------------------------------------------- #
 
 
-def _shard_dims(cfg: TransformerConfig) -> dict:
-    """The dim each leaf shards over ``model`` in the port's layout
-    (blocks ``(L, ...)``, or ``(V, L/V, ...)`` under ``virtual_pipe``),
-    None for a replicated leaf: the JAX ``param_specs``' model and vocab
-    entries with the pipe axis squeezed."""
-    blocks = {"ln1": None, "ln2": None, "wo": 1, "w1": 2, "w2": 1}
-    if cfg.kv_heads == cfg.n_heads:
-        blocks["wqkv"] = 3
+def _shard_dims(cfg: TransformerConfig, axis: str = "model") -> dict:
+    """The dim each leaf shards over ``axis`` (``"model"`` or
+    ``"expert"``) in the port's layout (blocks ``(L, ...)``, or ``(V,
+    L/V, ...)`` under ``virtual_pipe``), None for a leaf replicated over
+    it: the JAX ``param_specs``' model, vocab and expert entries with
+    the pipe axis squeezed.  Under MoE ``w1 (L, E, D, F)`` and ``w2 (L,
+    E, F, D)`` shard their experts over ``expert`` and ``F`` over
+    ``model``; the router is replicated."""
+    if axis == "expert":
+        blocks = {"w1": 1, "w2": 1} if cfg.moe else {}
+        top = {}
     else:
-        blocks.update(wq=2, wkv=3)
+        blocks = {"wo": 1, "w1": 3, "w2": 2} if cfg.moe \
+            else {"wo": 1, "w1": 2, "w2": 1}
+        if cfg.kv_heads == cfg.n_heads:
+            blocks["wqkv"] = 3
+        else:
+            blocks.update(wq=2, wkv=3)
+        top = {"embed": 0} if cfg.vocab_parallel else {}
     if cfg.virtual_pipe > 1:
         # the chunk axis before the layers
-        blocks = {k: None if d is None else d + 1 for k, d in blocks.items()}
-    return {"embed": 0 if cfg.vocab_parallel else None, "ln_f": None,
-            "pos": None, "blocks": blocks}
+        blocks = {k: d + 1 for k, d in blocks.items()}
+    return {"top": top, "blocks": blocks}
 
 
-def _map_sharded(cfg, params, fn):
+def _map_sharded(cfg, params, fn, axis: str = "model"):
     """``params`` with ``fn(leaf, dim)`` on every leaf that shards over
-    model (the others kept), in ``params``' order."""
-    dims = _shard_dims(cfg)
+    ``axis`` (the others kept), in ``params``' order."""
+    dims = _shard_dims(cfg, axis)
 
     def one(t, dim):
         return t if dim is None else fn(t, dim)
 
-    out = {k: one(v, dims[k]) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: one(v, dims["blocks"][k])
+    out = {k: one(v, dims["top"].get(k)) for k, v in params.items()
+           if k != "blocks"}
+    out["blocks"] = {k: one(v, dims["blocks"].get(k))
                      for k, v in params["blocks"].items()}
     return {k: out[k] for k in params}
 
@@ -1170,38 +1272,46 @@ def shard_params(mesh, cfg: TransformerConfig, params) -> dict:
     ``c·S + s``); model coordinate ``m`` of ``M`` keeps block ``m`` of
     the head dim of ``wqkv``/``wq``/``wkv`` and ``wo``, of ``w1``'s
     columns and ``w2``'s rows, and under ``vocab_parallel`` of
-    ``embed``'s rows; the other leaves are kept whole.  The shards are
-    tensors of their own.  At pipe and model size 1 the tree is returned
-    as it is."""
+    ``embed``'s rows; expert coordinate ``e`` of ``X`` keeps block ``e``
+    of the experts of ``w1``/``w2`` under MoE; the other leaves are kept
+    whole.  The shards are tensors of their own.  At pipe, model and
+    expert size 1 the tree is returned as it is."""
     _check_mesh(mesh, cfg)
     S = mesh.axis_size("pipe")
     if S > 1:
         params = dict(params, blocks=_stage_blocks(
             cfg, params["blocks"], S, mesh.axis_index("pipe")))
-    return _shard_tree(cfg, params, mesh.axis_size("model"),
-                       mesh.axis_index("model"))
+    params = _shard_tree(cfg, params, mesh.axis_size("model"),
+                         mesh.axis_index("model"))
+    return _shard_tree(cfg, params, mesh.axis_size("expert"),
+                       mesh.axis_index("expert"), axis="expert")
 
 
-def _shard_tree(cfg: TransformerConfig, params, M: int, m: int) -> dict:
-    """Member ``m``'s shard of ``params`` over a model axis of ``M``
-    members (:func:`shard_params`' model half, without a mesh)."""
+def _shard_tree(cfg: TransformerConfig, params, M: int, m: int,
+                axis: str = "model") -> dict:
+    """Member ``m``'s shard of ``params`` over a model (or expert) axis
+    of ``M`` members (:func:`shard_params`' model or expert part,
+    without a mesh)."""
     if M == 1:
         return params
     return _map_sharded(cfg, params,
-                        lambda t, d: t.chunk(M, dim=d)[m].clone())
+                        lambda t, d: t.chunk(M, dim=d)[m].clone(), axis)
 
 
 def gather_params(mesh, cfg: TransformerConfig, params) -> dict:
     """The inverse of :func:`shard_params`: the whole tree from every
     rank's shard (parameters, or a tree of their structure such as
     gradients or an optimizer's moments), by all-gathers over ``mesh``'s
-    model communicator, then its pipe communicator; every rank gets it.
-    At pipe and model size 1 the tree is returned as it is."""
-    model, pipe = mesh.comm("model"), mesh.comm("pipe")
-    if model.size > 1:
-        params = _map_sharded(cfg, params, lambda t, d: torch.cat(
-            list(model.allgather(t.detach().contiguous()).unbind(0)),
-            dim=d))
+    model communicator, its expert communicator, then its pipe
+    communicator; every rank gets it.  At pipe, model and expert size 1
+    the tree is returned as it is."""
+    pipe = mesh.comm("pipe")
+    for axis in ("model", "expert"):
+        group = mesh.comm(axis)
+        if group.size > 1:
+            params = _map_sharded(cfg, params, lambda t, d: torch.cat(
+                list(group.allgather(t.detach().contiguous()).unbind(0)),
+                dim=d), axis)
     if pipe.size > 1:
         params = dict(params, blocks=_whole_blocks(cfg, params["blocks"],
                                                    pipe))

@@ -1,7 +1,13 @@
 """The parallel layer: the mesh over the world communicator, ring and
 Ulysses attention over its sequence axis, the Megatron dense layers
-over its model axis, and the pipeline schedules over its pipe axis."""
+over its model axis, the pipeline schedules over its pipe axis, and the
+mixture of experts over its expert axis."""
 
+from .expert import (
+    SimulatedExpertAxis,
+    expert_parallel_moe,
+    simulate_expert_parallel,
+)
 from .mesh import MeshConfig
 from .pipeline import (
     pipeline_apply,
@@ -20,9 +26,11 @@ from .ring_attention import (
 from .tensor import column_parallel_dense, row_parallel_dense
 from .ulysses import all_to_all_tiled, ulysses_attention
 
-__all__ = ["MeshConfig", "all_to_all_tiled", "broadcast_kv",
-           "column_parallel_dense", "local_attention", "pipeline_apply",
+__all__ = ["MeshConfig", "SimulatedExpertAxis", "all_to_all_tiled",
+           "broadcast_kv", "column_parallel_dense", "expert_parallel_moe",
+           "local_attention", "pipeline_apply",
            "pipeline_train_1f1b", "pipeline_train_interleaved",
-           "ring_attention", "row_parallel_dense", "simulate_ring",
+           "ring_attention", "row_parallel_dense",
+           "simulate_expert_parallel", "simulate_ring",
            "stack_stage_params", "ulysses_attention",
            "unstack_stage_params", "zigzag_indices"]

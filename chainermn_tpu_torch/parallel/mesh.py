@@ -37,9 +37,11 @@ class MeshConfig:
     One axis may be ``-1``: it absorbs what the others leave of the
     world (``data`` does by default).  Every axis of size 1 still exists.
     The sub-communicators of ``seq``, ``data``, the batch-like group
-    ``("data", "expert", "seq")``, ``model`` and ``pipe`` are built
-    here, by every rank together and in that order (``split`` is collective: an NCCL
-    group first split inside a block, by some ranks only, hangs);
+    ``("data", "expert", "seq")``, ``model``, ``pipe``, ``expert``, the
+    batch rows' ``("data", "expert")`` and the experts' gradient group
+    ``("data", "seq")`` are built here, by every rank together and in
+    that order (``split`` is collective: an NCCL group first split
+    inside a block, by some ranks only, hangs);
     others on first use of :meth:`comm`, which every rank must then call
     in the same order.
 
@@ -76,7 +78,8 @@ class MeshConfig:
         self.coords: Dict[str, int] = {a: coords[a] for a in _AXIS_ORDER}
         self._comms: Dict[Tuple[str, ...], object] = {}
         for axes in (("seq",), ("data",), BATCH_AXES, ("model",),
-                     ("pipe",)):
+                     ("pipe",), ("expert",), ("data", "expert"),
+                     ("data", "seq")):
             self.comm(*axes)
 
     device = property(lambda self: self.world.device)

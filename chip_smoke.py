@@ -110,10 +110,20 @@ Phases (any failure exits non-zero before the last line is printed):
     stages) at pipe=1 over 8 micro-batches of one row, each against the
     plain step (loss, gradients), its launches against the schedule's
     count, its ms a step and peak memory.  Phases 2 and 5 also hold and
-    time the kernels at such a micro-batch (B=1).
+    time the kernels at such a micro-batch (B=1);
+18. MoE at full width on one card (after phase 17): (a) the Switch
+    layer alone (16384 tokens, d_model 1024, d_ff 4096, 8 experts,
+    bf16) at top-1 and top-2, the index dispatch's slots bitwise the
+    one-hot einsums', outputs and drop counts against them, both
+    timed; (b) the flagship with ``moe=True`` (8 experts, capacity
+    factor 1.25, 1.71 B parameters) trained at top-1 and top-2: its
+    loss against plain attention's, its flash launches a step against
+    the dense step's, the drops a layer, ms a step, tokens/s and peak
+    memory; (c) an expert=4 grouping simulated on the card against the
+    unsharded layer at ample capacity.
 
-Phases 3, 6, 13, 15 (a) and (c), 16 (a) and (c) and 17 are the main
-paths of the kernels:
+Phases 3, 6, 13, 15 (a) and (c), 16 (a) and (c), 17 and 18 (b) are the
+main paths of the kernels:
 each starts with every launch count at 0 and reads the counts when it
 ends; phases 7 to 12 run no hand-written kernel, and hold their counts
 at 0.  It prints the card's name and power limit, a
@@ -122,6 +132,7 @@ at 0.  It prints the card's name and power limit, a
 ``{"lm_data_parallel": {...}}`` of phase 13's, ``{"seq_parallel":
 {...}}`` of phase 15's, ``{"tensor_parallel_one_card": {...}}`` of
 phase 16's, ``{"pipeline_one_card": {...}}`` of phase 17's,
+``{"moe_one_card": {...}}`` of phase 18's,
 ``{"drift_one_rank": {...}}`` of phase 14's, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Weights are random, from numpy seed 0.  fp32 references run with TF32
@@ -129,7 +140,8 @@ off.
 
 ``python3 chip_smoke.py --four-cards`` (four cards) runs the checks that
 exist only across cards (:func:`four_cards`, then
-:func:`four_cards_seq`, :func:`four_cards_tp` and :func:`four_cards_pp`);
+:func:`four_cards_seq`, :func:`four_cards_tp`, :func:`four_cards_pp` and
+:func:`four_cards_ep`);
 ``--four-cards seq``
 runs the sequence axis's alone: the flagship's step on 4 ranks under
 ring (contiguous, zigzag), Ulysses and data=2, seq=2 against one
@@ -139,7 +151,11 @@ sharded, the loss chunked) and model=2,seq=2 (the ring) against one
 card's, and decoding at model=4 and data=2,model=2 (the vocabulary
 sharded); ``--four-cards pp`` the pipe axis's alone: the flagship's
 step at pipe=4 under GPipe, 1F1B and interleaved and at pipe=2,data=2
-under 1F1B against one card's, and decoding at pipe=4.
+under 1F1B against one card's, and decoding at pipe=4; ``--four-cards
+ep`` the expert axis's alone: the MoE flagship's step at expert=4
+(top-1), data=2,expert=2 (top-2), expert=2,model=2 and pipe=2,expert=2
+(1F1B) against one card's simulation of the same per-rank routing, the
+layer across the four ranks, and decoding at expert=4.
 """
 
 import dataclasses
@@ -2665,7 +2681,7 @@ def phase_tensor_parallel(torch, np, root, smi):
         def layer(p, h=h, cfg=cfg):
             blk = _layer(p, 0)
             a = _attention(cfg, h, blk, loop, loop)
-            return a, _mlp(cfg, a, blk, loop)
+            return a, _mlp(cfg, a, blk, loop, loop)[0]
 
         with torch.no_grad():
             a, m = layer(params)
@@ -2677,7 +2693,7 @@ def phase_tensor_parallel(torch, np, root, smi):
                 blk = _layer(p, 0)
                 pa = _attention(cfg, h, blk, loop, loop)
                 # each member's MLP reads the all-reduced attention output
-                pm = _mlp(cfg, a, blk, loop)
+                pm = _mlp(cfg, a, blk, loop, loop)[0]
                 parts.append((pa.float() - h.float(), pm.float() - a.float()))
             torch.cuda.synchronize()
             got_counts = (fa.launches, fa.dq_launches,            # ended
@@ -2947,6 +2963,250 @@ def phase_pipeline(torch, np, root, smi):
     return counts, metrics
 
 
+# phase 18 and --four-cards ep: the flagship with a Switch mixture of 8
+# experts in every block (capacity factor 1.25), full remat, bf16
+MOE = dict(FLAGSHIP, moe=True, n_experts=8, capacity_factor=1.25,
+           remat=True)
+# phase 18 (a): the MoE layer alone at the flagship's tokens a card
+MOE_LAYER = dict(N=8 * 2048, D=1024, F=4096, E=8)
+# the index path against the one-hot einsums: the same slots (bitwise)
+# and the same expert products, so the outputs differ at most by the
+# order of a top-2 token's two fp32 terms before its bf16 rounding
+MOE_OUT_REL = 1e-2
+# (b): the step's first loss against the plain-attention loss (bf16,
+# local attention) on the same weights: attention's other roundings may
+# flip a near-tie's expert, and a flipped token moves the mean by ~1e-5
+MOE_LOSS_REL = 1e-2
+# (c) and --four-cards ep: a grouping's losses against the one-card
+# simulation of the same per-rank routing (first step, then later ones,
+# as SEQ_LOSS_REL), and its per-layer drop totals: the first layer's
+# equal, and each later one within 0.1 % of its assignments where the
+# mesh does one card's arithmetic (products over other row counts may
+# round otherwise and flip a near-tie).  Under a model axis the members'
+# partial sums round otherwise at every layer, and at initialisation
+# ~1 % of a layer's tokens sit within that rounding of a tie (up to 215
+# of 16384 at expert=2,model=2 on H100s): only its first layer is held,
+# within the same 0.1 %
+EP_LOSS_REL = (1e-3, 5e-3, 5e-3)
+EP_DROP_FRAC = 1e-3
+# --four-cards ep's decoding at expert=4 (fp32, ample capacity): the
+# logits against one card's
+EP_LOGITS_REL = 1e-4
+
+
+def moe_params(torch, cfg, dev, seed=SEED):
+    """Seeded weights of ``cfg`` drawn on the card by torch's CUDA
+    generator (the same numbers on every H100 for a seed), the whole
+    tree in the port's layout at ``init_transformer``'s scales: drawing
+    1.7 B numbers on the host would take longer than the steps."""
+    from chainermn_tpu_torch.models.convert import _block_shapes, _top_shapes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    L = cfg.n_layers
+    blocks = {name: torch.ones((L, *shape), device=dev) if fan is None
+              else normal((L, *shape), fan ** -0.5)
+              for name, (shape, fan) in _block_shapes(cfg).items()}
+    if cfg.virtual_pipe > 1:
+        blocks = {k: v.reshape(cfg.virtual_pipe, -1, *v.shape[1:])
+                  for k, v in blocks.items()}
+    params = {"embed": normal(_top_shapes(cfg)["embed"], 0.02),
+              "ln_f": torch.ones((cfg.d_model,), device=dev)}
+    if cfg.pos_embedding == "learned":
+        params["pos"] = normal((cfg.max_seq, cfg.d_model), 0.02)
+    params["blocks"] = blocks
+    return params
+
+
+def moe_expert_fn(p, tokens):
+    """The MoE layer's experts on their queues at once."""
+    import torch
+
+    return torch.relu(tokens @ p["w1"]) @ p["w2"]
+
+
+def moe_layer_inputs(torch, dev, seed=SEED):
+    """Phase 18 (a)'s seeded bf16 layer: tokens ``(N, D)`` with a
+    component they share (so the experts' loads are uneven and some
+    tokens are dropped, as in a model's hidden states), router ``(D,
+    E)`` and experts ``w1 (E, D, F)``, ``w2 (E, F, D)``."""
+    N, D, F, E = (MOE_LAYER[k] for k in "NDFE")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    x = (normal((N, D), 1.0) + normal((1, D), 0.5)).to(torch.bfloat16)
+    return (x, normal((D, E), D ** -0.5).to(torch.bfloat16),
+            {"w1": normal((E, D, F), D ** -0.5).to(torch.bfloat16),
+             "w2": normal((E, F, D), F ** -0.5).to(torch.bfloat16)})
+
+
+def moe_drops_by_layer(log, n_layers, group=1, first=0):
+    """Dropped assignments a layer (``{layer: count}``) from a routing
+    log whose calls ran layer after layer, ``n_layers`` of them from
+    layer ``first`` on, once a micro-batch; a simulated grouping logs
+    ``group`` routings a call."""
+    out = {}
+    for i, r in enumerate(log):
+        layer = first + (i // group) % n_layers
+        out[layer] = out.get(layer, 0) + int(r.dropped)
+    return out
+
+
+def phase_moe(torch, np, root, smi):
+    """18. MoE at the flagship's full width on one card (bf16): (a) the
+    layer alone (``MOE_LAYER``, 16384 tokens, 8 experts), top-1 and
+    top-2 at capacity factor 1.25: the index dispatch's slots bitwise
+    the one-hot einsum's (``_moe_dense_reference``), the outputs within
+    ``MOE_OUT_REL``, the drop counts equal, both timed; (b) the
+    flagship with ``moe=True`` (1.71 B parameters) trained through
+    ``make_train_step`` (``adamw(3e-4)``, full remat) on 8 x 2048 tokens
+    at top-1 and top-2: the first loss against the plain-attention
+    loss, the flash launches of a step (counts set to 0 just before,
+    read just after) against the dense step's (48, 24, 24), the drops a
+    layer of a forward, ms a step, tokens/s and peak GiB; (c) expert=4
+    simulated on this card (``SimulatedExpertAxis``): at ample capacity
+    (``cf = E/k``) against the unsharded layer.  Returns the launch
+    counts and the printed metrics."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_forward_fn, make_train_step)
+    from chainermn_tpu_torch.models.transformer import lm_loss
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import expert as ep
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()    # the step's peak is 51 GiB of the 80
+    dev = torch.device("cuda")
+    metrics = dict(card=smi, layer={}, step={}, simulated={})
+    counts = {}
+    x, rw, w = moe_layer_inputs(torch, dev)
+    N, E = MOE_LAYER["N"], MOE_LAYER["E"]
+    for k in (1, 2):
+        ep.expert_parallel_moe.routings = log = []
+        out, aux = ep.expert_parallel_moe(x, rw, w, moe_expert_fn,
+                                          capacity_factor=1.25, top_k=k)
+        ep.expert_parallel_moe.routings = None
+        r = log[0]
+        d_out, d_aux, d_slots = ep._moe_dense_reference(
+            x, rw, w, moe_expert_fn, capacity_factor=1.25, top_k=k)
+        slots_bitwise = bool(torch.equal(ep.dispatch(x, r), d_slots))
+        # a kept slot holds a token's row, never all zero (normal rows)
+        dense_dropped = N * k - int((d_slots.float().abs().sum(-1) > 0)
+                                    .sum())
+        del d_slots
+        row = dict(C=r.capacity, dropped=int(r.dropped),
+                   dense_dropped=dense_dropped, slots_bitwise=slots_bitwise,
+                   out_rel_l2=rel_err(out, d_out),
+                   out_bitwise=bool(torch.equal(out, d_out)),
+                   aux=aux.item(), aux_abs_diff=abs(aux.item()
+                                                    - d_aux.item()),
+                   ms=cuda_ms(lambda: ep.expert_parallel_moe(
+                       x, rw, w, moe_expert_fn, capacity_factor=1.25,
+                       top_k=k), reps=5, runs=3),
+                   dense_ms=cuda_ms(lambda: ep._moe_dense_reference(
+                       x, rw, w, moe_expert_fn, capacity_factor=1.25,
+                       top_k=k), reps=2, runs=3))
+        del d_out
+        metrics["layer"][f"top{k}"] = row
+        print(f"moe (a) top-{k}: {N} tokens, {E} experts of {r.capacity} "
+              f"slots: slots bitwise the one-hot einsum's "
+              f"{slots_bitwise}, output rel L2 {row['out_rel_l2']:.3e} "
+              f"(bar {MOE_OUT_REL}; bitwise {row['out_bitwise']}), drops "
+              f"{row['dropped']} vs {dense_dropped}, aux {row['aux']:.6f}; "
+              f"index path {row['ms']:.3f} ms, one-hot einsums "
+              f"{row['dense_ms']:.3f} ms")
+        require(slots_bitwise, f"(a) top-{k}: slots differ")
+        require(row["out_rel_l2"] < MOE_OUT_REL,
+                f"(a) top-{k}: output rel L2 {row['out_rel_l2']}")
+        require(row["dropped"] == dense_dropped,
+                f"(a) top-{k}: drops {row['dropped']} vs {dense_dropped}")
+        # (c) four virtual ranks at ample capacity: the unsharded layer's
+        cf = E / k
+        whole, whole_aux = ep.expert_parallel_moe(
+            x, rw, w, moe_expert_fn, capacity_factor=cf, top_k=k)
+        sim, sim_aux = ep.simulate_expert_parallel(
+            x, rw, w, moe_expert_fn, axis=ep.SimulatedExpertAxis(4),
+            capacity_factor=cf, top_k=k)
+        srow = dict(cf=cf, out_rel_l2=rel_err(sim, whole),
+                    out_bitwise=bool(torch.equal(sim, whole)),
+                    aux=sim_aux.item(), whole_aux=whole_aux.item())
+        metrics["simulated"][f"top{k}"] = srow
+        print(f"moe (c) top-{k}: expert=4 simulated at cf {cf:g} against "
+              f"the unsharded layer: rel L2 {srow['out_rel_l2']:.3e} "
+              f"(bitwise {srow['out_bitwise']}), aux {srow['aux']:.6f} vs "
+              f"{srow['whole_aux']:.6f}")
+        require(srow["out_rel_l2"] < MOE_OUT_REL,
+                f"(c) top-{k}: simulated off the unsharded layer")
+        del whole, sim, out
+    del x, rw, w
+
+    base = TransformerConfig(**MOE)
+    toks = np.random.RandomState(SEED).randint(
+        0, base.vocab_size, (8, base.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    xt, yt = (torch.as_tensor(a, device=dev) for a in (x, y))
+    for k in (1, 2):
+        cfg = dataclasses.replace(base, router_top_k=k)
+        # the same weights for each k: the seeded draw again
+        params = moe_params(torch, cfg, dev)
+        n_params = sum(p.numel() for p in params.values()
+                       if torch.is_tensor(p))
+        n_params += sum(p.numel() for p in params["blocks"].values())
+        metrics["params_m"] = n_params / 1e6
+        ep.expert_parallel_moe.routings = log = []
+        make_forward_fn(cfg)(params, x)
+        ep.expert_parallel_moe.routings = None
+        drops = [int(r.dropped) for r in log]
+        with torch.no_grad():
+            ref = lm_loss(dataclasses.replace(cfg, attention="local",
+                                              remat=False),
+                          params, xt, yt).item()
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        _, _, loss = step(params, state, x, y)
+        torch.cuda.synchronize()
+        got = (fa.launches, fa.dq_launches, fa.dkv_launches)  # path ended
+        counts[f"moe_top{k}"] = got
+        want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+        times, peak, resident, losses = time_steps(torch, step, params,
+                                                    state, x, y, n=3)
+        ms = statistics.median(times)
+        lrel = abs(loss.item() - ref) / abs(ref)
+        metrics["step"][f"top{k}"] = dict(
+            loss=loss.item(), plain_attention_loss=ref, loss_rel=lrel,
+            launches=got, dense_launches=want, drops_by_layer=drops,
+            assignments_a_layer=8 * cfg.max_seq * k, times_ms=times, ms=ms,
+            tokens_per_s=8 * cfg.max_seq / ms * 1e3, peak_gib=peak,
+            resident_gib=resident, losses=losses)
+        print(f"moe (b) top-{k}: {n_params / 1e6:.1f} M parameters, loss "
+              f"{loss.item():.6f} vs plain attention's {ref:.6f} (rel "
+              f"{lrel:.3e}, bar {MOE_LOSS_REL}); launches a step {got} "
+              f"(the dense step's {want}); dropped a layer {drops} of "
+              f"{8 * cfg.max_seq * k}; {ms:.2f} ms a step ({times}), "
+              f"{8 * cfg.max_seq / ms * 1e3:.0f} tokens/s, peak "
+              f"{peak:.2f} GiB, resident {resident:.2f} GiB")
+        require(got == want, f"(b) top-{k}: launches {got}, want {want}")
+        require(lrel < MOE_LOSS_REL, f"(b) top-{k}: loss rel {lrel}")
+        require(all(np.isfinite(losses)), f"(b) top-{k}: {losses}")
+        require(len(drops) == cfg.n_layers, f"(b): {len(drops)} routings")
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"moe_one_card": metrics}))
+    print(f"moe (one card): phase {metrics['seconds']:.1f} s ({smi})")
+    return counts, metrics
+
+
 def main():
     import torch
 
@@ -3117,6 +3377,9 @@ def main():
     # 17. the pipe axis's schedules on one card -------------------------
     pp_counts, _ = phase_pipeline(torch, np, root, smi)
 
+    # 18. MoE at full width on one card ---------------------------------
+    moe_counts, _ = phase_moe(torch, np, root, smi)
+
     # 14. Queue C: the large-batch example on one card against the CPU --
     phase_drift(np, root, smi)
 
@@ -3133,7 +3396,9 @@ def main():
                                    **{p: c[0] for p, c in
                                       tp_counts.items()},
                                    **{p: c[0] for p, c in
-                                      pp_counts.items()}),
+                                      pp_counts.items()},
+                                   **{p: c[0] for p, c in
+                                      moe_counts.items()}),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
@@ -3142,7 +3407,8 @@ def main():
                  lm_data_parallel=lm_counts["flash_bwd_dq"],
                  **{f"seq_{p}": c[1] for p, c in seq_counts.items()},
                  **{p: c[1] for p, c in tp_counts.items()},
-                 **{p: c[1] for p, c in pp_counts.items()}),
+                 **{p: c[1] for p, c in pp_counts.items()},
+                 **{p: c[1] for p, c in moe_counts.items()}),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
@@ -3152,7 +3418,8 @@ def main():
                  lm_data_parallel=lm_counts["flash_bwd_dkv"],
                  **{f"seq_{p}": c[2] for p, c in seq_counts.items()},
                  **{p: c[2] for p, c in tp_counts.items()},
-                 **{p: c[2] for p, c in pp_counts.items()}),
+                 **{p: c[2] for p, c in pp_counts.items()},
+                 **{p: c[2] for p, c in moe_counts.items()}),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -4110,6 +4377,365 @@ def four_cards_pp(root, smi):
     return 0
 
 
+# --four-cards ep: the MoE flagship's step on 4 ranks under each mesh
+# against the one-card simulation of the same per-rank routing (name,
+# mesh, schedule, micro-batches, top-k)
+EP_FOUR = (("expert4_top1", "expert=4", "gpipe", "1", "1"),
+           ("data2_expert2_top2", "data=2,expert=2", "gpipe", "1", "2"),
+           ("expert2_model2_top1", "expert=2,model=2", "gpipe", "1", "1"),
+           ("pipe2_expert2_1f1b", "pipe=2,expert=2", "1f1b", "2", "1"))
+
+
+def ep_config(schedule, M, k, **kw):
+    from chainermn_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(**dict(
+        MOE, pipeline_schedule=schedule, num_microbatches=int(M),
+        router_top_k=int(k), **kw))
+
+
+def ep_sim_order(B, D, X, M):
+    """The one card's row order under which the simulation routes as
+    the mesh's ranks do: the one card's micro-batch ``m`` is every rank's
+    micro-batch ``m`` in rank order (``d·X + e``)."""
+    G = D * X
+    R = B // G
+    r = R // M
+    return [g * R + m * r + j for m in range(M) for g in range(G)
+            for j in range(r)]
+
+
+def ep_batch(np, cfg):
+    toks = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq + 1))
+    return toks[:, :-1], toks[:, 1:]
+
+
+def ep_sim_child(out):
+    """One card (one rank under torchrun): for each of ``EP_FOUR`` the
+    MoE flagship's ``SEQ_STEPS`` AdamW steps with every rank of the
+    mesh's grouping simulated (``SimulatedExpertAxis`` over data x
+    expert, the batch in :func:`ep_sim_order`, the mesh's micro-batches
+    at pipe=1: the 1F1B schedule's loss is the same function), the
+    drops a layer of a first forward, ms a step and peak GiB.  Writes
+    ``out/sim.json``."""
+    import numpy as np
+    import torch
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models.transformer import (
+        lm_loss, transformer_forward)
+    from chainermn_tpu_torch.parallel import expert as ep
+
+    dev = torch.device("cuda")
+    res = {}
+    for name, mesh_spec, _, M, k in EP_FOUR:
+        axes = _mesh_axes(mesh_spec)
+        D, X = axes.get("data", 1), axes.get("expert", 1)
+        cfg = ep_config("gpipe", M, k)
+        axis = ep.SimulatedExpertAxis(X, data=D)
+        x, y = ep_batch(np, cfg)
+        order = ep_sim_order(8, D, X, int(M))
+        xt, yt = (torch.as_tensor(a[order], device=dev) for a in (x, y))
+        params = moe_params(torch, cfg, dev)
+        ep.expert_parallel_moe.routings = log = []
+        with torch.inference_mode():
+            transformer_forward(cfg, params, xt, expert=axis)
+        ep.expert_parallel_moe.routings = None
+        drops = moe_drops_by_layer(log, cfg.n_layers, group=D * X)
+        del log
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+
+        def step():
+            live = {kk: v.detach().requires_grad_() for kk, v in
+                    params.items() if kk != "blocks"}
+            live["blocks"] = {kk: v.detach().requires_grad_()
+                              for kk, v in params["blocks"].items()}
+            with torch.enable_grad():
+                loss = lm_loss(cfg, live, xt, yt, expert=axis)
+                grads = torch.autograd.grad(
+                    loss, [live[kk] for kk in params if kk != "blocks"]
+                    + list(live["blocks"].values()))
+            top = [kk for kk in params if kk != "blocks"]
+            g = dict(zip(top, grads))
+            g["blocks"] = dict(zip(params["blocks"], grads[len(top):]))
+            opt.update({kk: g[kk] for kk in params}, state, params)
+            return loss.detach()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(SEQ_STEPS):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        res[name] = dict(losses=losses, times_ms=times,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         drops_by_layer=drops,
+                         assignments_a_layer=8 * cfg.max_seq * int(k))
+        del params, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(out).mkdir(parents=True, exist_ok=True)
+    (Path(out) / "sim.json").write_text(json.dumps(res))
+    return 0
+
+
+def ep_rank(out, name, mesh_spec, schedule, M, k):
+    """One rank (under torchrun, 4 ranks) of the MoE flagship's step over
+    a mesh with an expert axis: 8 x 2048 tokens globally, bf16, full
+    remat, ``adamw(3e-4)``; the whole tree drawn on the card
+    (:func:`moe_params`), rank 0's broadcast, each rank keeping its
+    shard.  The drops a layer of a first forward (``make_forward_fn``;
+    the model axis's members route the same tokens, so member 0's
+    count); then ``SEQ_STEPS`` steps, each timed, after each the
+    leaves replicated over the batch-like group (all but the experts)
+    and the experts over ``(data, seq)`` compared bitwise; the flash
+    launches counted from 0 just before the steps to just after, beside
+    :func:`pp_predicted_launches`; the peak memory.  At ``expert=4``
+    also phase 18 (a)'s layer across the four ranks (each its quarter
+    of the tokens, its two experts, the all-to-all over the expert
+    communicator), gathered on rank 0 against the simulation of the
+    same grouping.  Rank 0 writes ``out/ep.json``."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        make_forward_fn, make_train_step, shard_params)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig
+    from chainermn_tpu_torch.parallel import expert as ep
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    comm = cmn.create_communicator()
+    dev = comm.device
+    mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
+    S, s = mesh.axis_size("pipe"), mesh.axis_index("pipe")
+    cfg = ep_config(schedule, M, k)
+    whole = moe_params(torch, cfg, dev)
+    comm.bcast_data(whole)
+    params = shard_params(mesh, cfg, whole)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    x, y = ep_batch(np, cfg)
+    mine = dict(rank=comm.rank, coords=mesh.coords)
+    ep.expert_parallel_moe.routings = log = []
+    make_forward_fn(cfg, mesh=mesh)(params, x)
+    ep.expert_parallel_moe.routings = None
+    n_local = cfg.n_layers // S
+    mine["drops_by_layer"] = moe_drops_by_layer(
+        log, n_local, first=s * n_local) \
+        if mesh.axis_index("model") == 0 else {}
+    del log
+    if name == "expert4_top1":
+        xl, rw, w = moe_layer_inputs(torch, dev)
+        e, X = mesh.axis_index("expert"), mesh.axis_size("expert")
+        got, aux = ep.expert_parallel_moe(
+            xl.chunk(X)[e], rw, {kk: v.chunk(X)[e] for kk, v in w.items()},
+            moe_expert_fn, comm=mesh.comm("expert"), capacity_factor=1.25,
+            top_k=1)
+        got = mesh.comm("expert").allgather(got.contiguous())
+        if comm.rank == 0:
+            sim, sim_aux = ep.simulate_expert_parallel(
+                xl, rw, w, moe_expert_fn, axis=ep.SimulatedExpertAxis(X),
+                capacity_factor=1.25, top_k=1)
+            got = got.reshape(sim.shape)
+            mine["layer"] = dict(rel_l2=rel_err(got, sim),
+                                 bitwise=bool(torch.equal(got, sim)),
+                                 aux=aux.item(), sim_aux=sim_aux.item())
+        del xl, rw, w, got
+    opt = training.adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    batch, data_seq = mesh.comm(*BATCH_AXES), mesh.comm("data", "seq")
+    repl = [v for kk, v in params.items() if kk != "blocks"] + [
+        v for kk, v in params["blocks"].items() if kk not in ("w1", "w2")]
+    experts = [params["blocks"]["w1"], params["blocks"]["w2"]]
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, equal = [], [], []
+    torch.cuda.synchronize()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0      # path starts
+    for _ in range(SEQ_STEPS):
+        comm.barrier()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        equal.append(replicas_bitwise(batch, repl)
+                     and replicas_bitwise(data_seq, experts))
+    torch.cuda.synchronize()
+    mine.update(                                                # ended
+        launches=(fa.launches, fa.dq_launches, fa.dkv_launches),
+        predicted=pp_predicted_launches(cfg, S, s, SEQ_STEPS),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    ranks = comm.allgather_obj(mine)
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "ep.json").write_text(json.dumps(dict(
+            name=name, mesh=mesh.shape, schedule=schedule, M=int(M),
+            top_k=int(k), world=comm.size, tokens=8 * cfg.max_seq,
+            times_ms=times, losses=losses, ranks_equal=equal,
+            ranks=ranks)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ep_decode_rank(out):
+    """One rank (under torchrun, 4 ranks) of greedy decoding over mesh
+    expert=4: the MoE flagship in fp32 at ample capacity (``cf = E``:
+    nothing dropped, so a token's experts do not depend on the rows
+    routed beside it), 8 prompts of 128 tokens, 64 new, each rank 2 rows
+    and 2 experts.  Rank 0 also decodes the whole batch alone on its
+    card and writes ``out/decode.json``: both runs' tokens, the logits'
+    relative L2 error and the ms of the mesh's run."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models import make_generate_fn, shard_params
+    from chainermn_tpu_torch.parallel import MeshConfig
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, expert=4)
+    cfg = ep_config("gpipe", 1, 1, dtype="float32", remat=False,
+                    capacity_factor=float(MOE["n_experts"]))
+    whole = moe_params(torch, cfg, comm.device)
+    comm.bcast_data(whole)
+    params = shard_params(mesh, cfg, whole)
+    P, NEW = 128, 64
+    prompts = np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (8, P))
+    gen = make_generate_fn(cfg, max_len=P + NEW, with_logits=True,
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = gen(params, prompts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    toks = torch.cat(list(comm.allgather(toks.contiguous()).unbind(0)))
+    logits = torch.cat(list(comm.allgather(logits.contiguous()).unbind(0)))
+    del params
+    if comm.rank == 0:
+        one, one_logits = make_generate_fn(
+            cfg, max_len=P + NEW, with_logits=True, device=comm.device)(
+            whole, prompts)
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "decode.json").write_text(json.dumps(dict(
+            mesh=mesh.shape, tokens=toks.cpu().numpy().tolist(),
+            one_card=one.cpu().numpy().tolist(),
+            logits_bitwise=bool(torch.equal(logits, one_logits)),
+            logits_rel_l2=rel_err(logits, one_logits), prompt=P, ms=ms)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_ep(root, smi):
+    """``--four-cards``' expert axis: the MoE flagship's step at full
+    width on the same global batch (8 x 2048 tokens) under each of
+    ``EP_FOUR`` on 4 ranks (:func:`ep_rank`) against one card's
+    simulation of the same per-rank routing (:func:`ep_sim_child`): the
+    losses within ``EP_LOSS_REL``, the drops a layer (without a model
+    axis the first layer's equal and the others within ``EP_DROP_FRAC``
+    of the layer's assignments; with one the first layer's within it),
+    the replicated leaves bitwise
+    after every step, every
+    rank's flash launches as the schedule counts; ms a step (the median
+    of steps 2-3), tokens/s a card and peak GiB a rank against the
+    simulation's; at expert=4 the layer alone across the ranks against
+    its simulation (``MOE_OUT_REL``).  Then greedy decoding at expert=4
+    (fp32, :func:`ep_decode_rank`) against one card's: every row's
+    tokens equal, the logits within ``EP_LOGITS_REL``.  Prints each
+    mesh's ``{"expert_parallel_<name>": {...}}`` before its checks, and
+    ``{"expert_parallel": {...}}``."""
+    import numpy as np
+
+    from chainermn_tpu_torch import _build
+
+    out = root / "build" / "four_cards" / "ep"
+    me = str(Path(__file__).resolve())
+    _build.build_all()          # once, before the children load them
+    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "1",
+                    me, "--ep-sim", str(out / "sim")], check=True,
+                   timeout=600)
+    sim = json.loads((out / "sim" / "sim.json").read_text())
+    res, report = {}, {}
+    for name, mesh, schedule, M, k in EP_FOUR:
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                        me, "--ep-rank", str(out / name), name, mesh,
+                        schedule, M, k], check=True, timeout=420)
+        res[name] = r = json.loads((out / name / "ep.json").read_text())
+        one = sim[name]
+        got = {q["rank"]: q["launches"] for q in r["ranks"]}
+        want = {q["rank"]: q["predicted"] for q in r["ranks"]}
+        drops = {}
+        for q in r["ranks"]:
+            for layer, n in q["drops_by_layer"].items():
+                drops[int(layer)] = drops.get(int(layer), 0) + n
+        want_drops = {int(a): n for a, n in one["drops_by_layer"].items()}
+        off = {a: drops.get(a, 0) - n for a, n in want_drops.items()}
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                   one["losses"])]
+        ms = statistics.median(r["times_ms"][1:])
+        one_ms = statistics.median(one["times_ms"][1:])
+        report[name] = dict(
+            {kk: v for kk, v in r.items() if kk != "ranks"},
+            loss_rel_diff=rel, steady_ms=ms,
+            tokens_per_s_per_card=r["tokens"] / ms * 1e3 / r["world"],
+            one_card_simulated_ms=one_ms, one_card_losses=one["losses"],
+            one_card_peak_gib=one["peak_gib"],
+            peak_gib=[q["peak_gib"] for q in r["ranks"]],
+            launches=got, drops_by_layer=[drops.get(a, 0) for a in
+                                          range(len(want_drops))],
+            drops_off_simulation=[off[a] for a in range(len(off))],
+            layer=r["ranks"][0].get("layer"))
+        print(json.dumps({f"expert_parallel_{name}": report[name]}))
+        require(got == want, f"{name}: flash launches (forward, dq, "
+                f"dk/dv) by rank {got}, the schedule predicts {want}")
+        require(all(r["ranks_equal"]) and len(r["ranks_equal"])
+                == SEQ_STEPS, f"{name}: replicas differ: {r['ranks_equal']}")
+        require(all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
+        require(all(e < bar for e, bar in zip(rel, EP_LOSS_REL)),
+                f"{name}: losses {r['losses']} against the simulation's "
+                f"{one['losses']}: relative {rel}, bars {EP_LOSS_REL}")
+        tp = r["mesh"]["model"] > 1
+        held = {0: off[0]} if tp else off
+        require((off[0] == 0 or tp) and all(
+            abs(d) <= EP_DROP_FRAC * one["assignments_a_layer"]
+            for d in held.values()), f"{name}: drops a layer off the "
+            f"simulation's by {off}")
+        if name == "expert4_top1":
+            lay = report[name]["layer"]
+            require(lay["rel_l2"] < MOE_OUT_REL,
+                    f"{name}: the layer across the ranks off its "
+                    f"simulation: {lay}")
+    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                    me, "--ep-decode", str(out / "decode")], check=True,
+                   timeout=420)
+    dec = json.loads((out / "decode" / "decode.json").read_text())
+    got, want = np.asarray(dec["tokens"]), np.asarray(dec["one_card"])
+    report["decode_expert4"] = d = dict(
+        rows_equal=int((got == want).all(axis=1).sum()), rows=len(got),
+        logits_bitwise=dec["logits_bitwise"],
+        logits_rel_l2=dec["logits_rel_l2"], ms=dec["ms"])
+    print(json.dumps({"expert_parallel": dict(report, card=smi)}))
+    require(d["rows_equal"] == d["rows"],
+            f"decode expert=4: {d['rows_equal']} of {d['rows']} rows equal "
+            "one card's")
+    require(d["logits_rel_l2"] < EP_LOGITS_REL,
+            f"decode expert=4: logits rel L2 {d['logits_rel_l2']}")
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4131,16 +4757,29 @@ if __name__ == "__main__":
         if sys.argv[2:3] == ["pp"]:
             # the pipe axis alone
             sys.exit(four_cards_pp(here, card_name()))
+        if sys.argv[2:3] == ["ep"]:
+            # the expert axis alone
+            sys.exit(four_cards_ep(here, card_name()))
         sys.exit(four_cards(here, card_name())
                  or four_cards_seq(here, card_name())
                  or four_cards_tp(here, card_name())
-                 or four_cards_pp(here, card_name()))
+                 or four_cards_pp(here, card_name())
+                 or four_cards_ep(here, card_name()))
     if sys.argv[1:2] == ["--seq-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(seq_rank(*sys.argv[2:9]))
     if sys.argv[1:2] == ["--pp-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(pp_rank(*sys.argv[2:8]))
+    if sys.argv[1:2] == ["--ep-sim"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(ep_sim_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--ep-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(ep_rank(*sys.argv[2:8]))
+    if sys.argv[1:2] == ["--ep-decode"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(ep_decode_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--pp-decode"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(pp_decode_rank(sys.argv[2]))

@@ -1,7 +1,7 @@
 """Greedy text generation with the flagship transformer on the
 PyTorch/CUDA port — ``generate.py``'s greedy KV-cache path through
-``chainermn_tpu_torch``, on one rank or over a mesh's pipe, data, seq
-and model axes.
+``chainermn_tpu_torch``, on one rank or over a mesh's pipe, data,
+expert, seq and model axes.
 It runs from ``lm_state.npz`` written by ``train_lm_torch.py
 --checkpoint`` (so train → generate is a complete loop) or from seeded
 random weights for a smoke run:
@@ -20,21 +20,27 @@ random weights for a smoke run:
     # 2 pipeline stages x 2-way data, from any checkpoint's grouping
     torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
         --mesh pipe=2,data=2 --checkpoint ck --max-len 64
+    # an MoE checkpoint's experts over 4 cards
+    torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
+        --mesh expert=4 --checkpoint ck --max-len 64
 
-``--mesh pipe=P,data=D,seq=R,model=M`` decodes on a world of
-``P·D·R·M`` ranks: each data member its rows of the batch, the seq
-members of a row each a block of the KV cache, the model members each
-its shard of the heads (and with ``--vocab-parallel`` of the
-vocabulary), the pipe stages each its layers and their cache; rank 0
+``--mesh pipe=P,data=D,expert=X,seq=R,model=M`` decodes on a world of
+``P·D·X·R·M`` ranks: each data and expert member its rows of the batch,
+the seq members of a row each a block of the KV cache, the model
+members each its shard of the heads (and with ``--vocab-parallel`` of
+the vocabulary), the expert members each its share of an MoE model's
+experts, the pipe stages each its layers and their cache; rank 0
 prints the whole batch.  A checkpoint trained at any pipe grouping (the
-file records it) is regrouped for the decode mesh.  Without an axis
+file records it) is regrouped for the decode mesh; an MoE checkpoint
+(its blocks hold a router) decodes as MoE with its own expert count,
+routed top-k as it trained (the file records it).  Without an axis
 above 1 one rank decodes.  Pass the model flags the training run used
 (``--vocab`` as the training run printed it, with a tokenizer).
-Sampling (``--temperature``, ``--top-k``, ``--top-p``) comes with the
-serving slice (ROADMAP Queue A item 12); ``--beam``, ``--speculative-k``,
-``--lookup-k``, ``--int8`` and ``--kv-int8`` with the remaining models and
-decoders (item 9); the expert axis with the rest of the parallel slice
-(item 8).  Each raises.
+Sampling
+(``--temperature``, ``--top-k``, ``--top-p``) comes with the serving
+slice (ROADMAP Queue A item 12); ``--beam``, ``--speculative-k``,
+``--lookup-k``, ``--int8`` and ``--kv-int8`` with the remaining models
+and decoders (item 9).  Each raises.
 """
 
 import argparse
@@ -66,11 +72,15 @@ _UNPORTED = (
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="pipe=P,data=D,seq=R,model=M over a world of "
-                        "P*D*R*M ranks (the layers over pipe, rows over "
-                        "data, the KV cache's length over seq, the heads "
-                        "over model); without an axis above 1 one rank "
-                        "decodes")
+                   help="pipe=P,data=D,expert=X,seq=R,model=M over a "
+                        "world of P*D*X*R*M ranks (the layers over pipe, "
+                        "rows over data and expert, the experts over "
+                        "expert, the KV cache's length over seq, the "
+                        "heads over model); without an axis above 1 one "
+                        "rank decodes")
+    p.add_argument("--moe", action="store_true",
+                   help="an MoE model of max(2 x expert axis, 2) experts, "
+                        "top-1 (an MoE checkpoint implies its own)")
     p.add_argument("--vocab", type=int, default=128)
     p.add_argument("--d-model", type=int, default=64)
     p.add_argument("--n-heads", type=int, default=4)
@@ -152,7 +162,8 @@ def main(argv=None, keep_logits=False):
         n_kv_heads=args.n_kv_heads, d_ff=args.d_ff or 4 * args.d_model,
         n_layers=args.n_layers, max_seq=args.max_len, attention="local",
         pos_embedding=args.pos_embedding, dtype=args.dtype, remat=False,
-        vocab_parallel=args.vocab_parallel)
+        vocab_parallel=args.vocab_parallel, moe=args.moe,
+        n_experts=max(2 * axes.get("expert", 1), 2))
     _check_mesh(axes, cfg)
     mesh = None
     if any(n > 1 for n in axes.values()):
@@ -186,6 +197,11 @@ def main(argv=None, keep_logits=False):
             # the position table the run trained: up to its length
             cfg = dataclasses.replace(
                 cfg, max_seq=saved["params"]["pos"].shape[0])
+        if "router" in saved["params"]["blocks"]:
+            # the MoE run's experts, however many ranks held them
+            cfg = dataclasses.replace(
+                cfg, moe=True, router_top_k=int(saved["router_top_k"]),
+                n_experts=saved["params"]["blocks"]["router"].shape[-1])
         params = params_from_jax(saved["params"], cfg, dev, mesh=mesh)
         say(f"loaded {ckpt_file}")
     else:
@@ -255,8 +271,9 @@ def main(argv=None, keep_logits=False):
         out, logits = out
     out_np = out.cpu().numpy()
     if mesh is not None:
-        # the whole batch: each data member's rows, in order
-        out_np = np.concatenate(mesh.comm("data").allgather_obj(out_np))
+        # the whole batch: each data and expert member's rows, in order
+        out_np = np.concatenate(
+            mesh.comm("data", "expert").allgather_obj(out_np))
         out = torch.as_tensor(out_np)
     if prompt_lens is not None:
         for b in range(out_np.shape[0]):

@@ -1,20 +1,23 @@
 """Flagship transformer LM training on the PyTorch/CUDA port — the pipe,
-data, sequence and model axes of ``train_lm.py`` through
+data, expert, sequence and model axes of ``train_lm.py`` through
 ``chainermn_tpu_torch``: ChainerMN's data parallelism for the language
 model, ring or Ulysses attention over a sequence axis for long
 contexts, Megatron tensor parallelism (with ``--vocab-parallel``, the
 vocabulary too) over a model axis for a model too wide for one card,
-and pipeline parallelism (GPipe, 1F1B or interleaved, ``--schedule``)
-over a pipe axis for one too deep.
+pipeline parallelism (GPipe, 1F1B or interleaved, ``--schedule``) over
+a pipe axis for one too deep, and with ``--moe`` a Switch (or, with
+``--router-top-k 2``, GShard) mixture of experts in every block whose
+experts shard over an expert axis.
 
 One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``);
-``--mesh pipe=P,data=D,model=M,seq=S`` must name the world (``data=-1``,
-the default, absorbs what the other axes leave of it).  The weights come
-from ``torch.Generator`` seed 0, ``bcast_data`` gives rank 0's to every
-rank, and each rank keeps its shard over ``pipe`` and ``model``; each
-step takes the global batch, each rank its rows over ``data`` and its
-block of the sequence over ``seq``, and the gradients are meaned in fp32
-over both (``make_train_step(mesh=...)``):
+``--mesh pipe=P,data=D,expert=X,model=M,seq=S`` must name the world
+(``data=-1``, the default, absorbs what the other axes leave of it).
+The weights come from ``torch.Generator`` seed 0, ``bcast_data`` gives
+rank 0's to every rank, and each rank keeps its shard over ``pipe``,
+``model`` and ``expert``; each step takes the global batch, each rank
+its rows over ``data`` and ``expert`` and its block of the sequence over
+``seq``, and the gradients are meaned in fp32 over them
+(``make_train_step(mesh=...)``):
 
     torchrun --nproc_per_node 8 examples/transformer/train_lm_torch.py \\
         --mesh data=8 --attention flash --dtype bfloat16 --remat
@@ -35,6 +38,10 @@ over both (``make_train_step(mesh=...)``):
     torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
         --mesh pipe=2,data=2 --schedule 1f1b --attention flash \\
         --dtype bfloat16
+    # 4-way expert parallelism: 8 experts, 2 a card, top-2 routing
+    torchrun --nproc_per_node 4 examples/transformer/train_lm_torch.py \\
+        --mesh expert=4 --moe --router-top-k 2 --attention flash \\
+        --dtype bfloat16 --remat
     # the CPU over gloo, with a BPE vocabulary over a text file
     torchrun --nproc_per_node 2 examples/transformer/train_lm_torch.py \\
         --device cpu --mesh data=2 --text-file SURVEY.md \\
@@ -61,9 +68,11 @@ grouped for the run's pipe axis and virtual stages, which it records,
 the optimizer's state, the step) at the end and resumes from it, each
 rank taking its shard (``reshard_train_state``): a run saved at
 ``model=2`` resumes at ``model=1``, one saved at ``pipe=2`` at
-``pipe=1``, and the reverse.  The expert axis, ``--moe`` and ``--fsdp``
-come with the rest of the parallel slice (ROADMAP Queue A item 8) and
-raise.
+``pipe=1``, one saved at ``expert=2`` at ``expert=1``, and the
+reverse.  Under ``--moe`` a new run has ``train_lm.py``'s
+``max(2·expert, 2)`` experts, and a resumed one its checkpoint's.
+``--fsdp`` comes with the rest
+of the parallel slice (ROADMAP Queue A item 8) and raises.
 """
 
 import argparse
@@ -205,10 +214,9 @@ def make_batches(vocab, batch, seq, steps, seed=0):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mesh", default="data=-1",
-                   help="comma list of axis sizes; the pipe, data, seq "
-                        "and model axes are ported, and they must make "
-                        "up the world (data=-1 absorbs what the others "
-                        "leave)")
+                   help="comma list of axis sizes over pipe, data, "
+                        "expert, seq and model; they must make up the "
+                        "world (data=-1 absorbs what the others leave)")
     p.add_argument("--attention", default="local",
                    choices=["local", "flash", "ring", "ulysses"])
     p.add_argument("--schedule", default="gpipe",
@@ -234,6 +242,8 @@ def parse_args(argv=None):
                    help="shard the embedding's rows over the model axis "
                         "(the vocab-parallel lookup and cross-entropy)")
     p.add_argument("--moe", action="store_true")
+    p.add_argument("--router-top-k", type=int, default=1,
+                   help="experts per token (1=Switch, 2=GShard top-2)")
     p.add_argument("--seq-layout", default="contiguous",
                    choices=["contiguous", "zigzag"])
     p.add_argument("--fsdp", action="store_true")
@@ -289,7 +299,10 @@ def config(args):
         n_layers=args.n_layers, max_seq=args.seq,
         attention=args.attention, attention_window=args.window,
         pos_embedding=args.pos_embedding, seq_layout=args.seq_layout,
-        moe=args.moe, loss_chunk=args.loss_chunk,
+        moe=args.moe,
+        n_experts=max(2 * axes.get("expert", 1), 2),
+        router_top_k=args.router_top_k if args.moe else 1,
+        loss_chunk=args.loss_chunk,
         vocab_parallel=args.vocab_parallel,
         # train_lm.py's schedule settings
         num_microbatches=2 if pipe > 1 else 1,
@@ -343,9 +356,10 @@ def build(args, init=None, quiet=False):
                 "padded up to a 128-multiple)")
             args.vocab = vocab
             cfg = dataclasses.replace(cfg, vocab_size=vocab)
-    if args.batchsize % axes["data"]:
+    rows = axes["data"] * axes.get("expert", 1)
+    if args.batchsize % rows:
         raise SystemExit(f"--batchsize {args.batchsize} does not divide "
-                         f"over the data axis ({axes['data']} ranks)")
+                         f"over the data and expert axes ({rows} ranks)")
 
     opt = training.adamw(args.lr)
     ckpt_file = (os.path.join(args.checkpoint, "lm_state.npz")
@@ -353,6 +367,10 @@ def build(args, init=None, quiet=False):
     saved = (load_state(ckpt_file)
              if ckpt_file and os.path.exists(ckpt_file) else None)
     start = 0
+    if saved is not None and "router" in saved["params"]["blocks"]:
+        # an MoE run keeps its experts at any expert grouping
+        cfg = dataclasses.replace(
+            cfg, n_experts=saved["params"]["blocks"]["router"].shape[-1])
     if saved is not None:
         saved_pipe = int(saved.get("pipe", 1))
         saved_v = int(saved.get("virtual_pipe", 1))
@@ -481,7 +499,8 @@ def save(run):
     """Rank 0 writes ``lm_state.npz``: params and the optimizer's moments
     in the JAX package's layout (gathered over the pipe and model axes by
     every rank, the blocks grouped for the run's pipe axis), the
-    optimizer's state, the step and the pipe grouping."""
+    optimizer's state, the step, the pipe grouping and the router's
+    top-k."""
     from chainermn_tpu_torch.models import params_to_numpy
     from chainermn_tpu_torch.training import (
         map_state_moments, optimizer_state_tree)
@@ -498,6 +517,7 @@ def save(run):
             "step": run.args.steps,
             "pipe": run.axes.get("pipe", 1),
             "virtual_pipe": run.cfg.virtual_pipe,
+            "router_top_k": run.cfg.router_top_k,
         })
         run.say(f"saved {run.ckpt_file}")
     run.comm.barrier()

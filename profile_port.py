@@ -11,6 +11,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 profile_port.py resnet
     python3 profile_port.py ring
     python3 profile_port.py remat
+    python3 profile_port.py moe
+    torchrun --nproc_per_node 4 profile_port.py moe
     python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
     python3 profile_port.py variants bwd NAME=SOURCE.cu [NAME=SOURCE.cu ...]
 
@@ -45,6 +47,17 @@ kernels' device time per launched pair.
 ``remat_policy="full"``, ``"dots"`` (a selective checkpoint whose
 dispatch mode sees every op of a block) and no remat, each after one
 warm-up step.
+
+``moe`` traces one block of ``chip_smoke.py``'s MoE flagship instead
+(phase 18: attention, then the Switch MLP of 8 experts at capacity
+factor 1.25, bf16, 8 x 2048 tokens), forward and forward + backward,
+the block and its MoE MLP alone; for each, beside the time by kind, the
+all-to-all's time (the NCCL kernels) and the products' (cuBLAS; in the
+MLP alone, the router's and the experts').  On one card the expert axis
+has one rank and no exchange, and the whole MoE flagship's training
+step (top-1, AdamW, full remat) is traced after them; under
+``torchrun --nproc_per_node X`` the mesh is ``expert=X``, each rank
+with ``8/X`` rows and ``8/X`` experts, and rank 0 prints.
 
 ``variants`` times versions of the forward kernel side by side instead:
 each SOURCE has the C entry point of ``csrc/flash_fwd.cu`` (the same
@@ -406,6 +419,86 @@ def profile_ring(torch):
                   f"kernels {dev_ms / n:.4f} ms")
 
 
+def profile_moe(torch):
+    """Trace one MoE block (and its MLP alone) of the MoE flagship,
+    forward and forward + backward, on one card or over the mesh
+    ``expert=WORLD_SIZE`` under torchrun."""
+    import os
+
+    from chip_smoke import MOE, moe_params
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+    from chainermn_tpu_torch.models import TransformerConfig, shard_params
+    from chainermn_tpu_torch.models.transformer import _block, _layer, _mlp
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(**dict(MOE, n_layers=1))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = None
+    if world > 1:
+        import chainermn_tpu_torch as cmn
+        from chainermn_tpu_torch.parallel import MeshConfig
+
+        comm = cmn.create_communicator()
+        mesh = MeshConfig(comm, expert=world)
+        dev = comm.device
+    params = moe_params(torch, cfg, dev)
+    loop = LoopbackCommunicator(device=dev)
+    expert, rows, lead = loop, 8, True
+    if mesh is not None:
+        params = shard_params(mesh, cfg, params)
+        expert, rows, lead = mesh.comm("expert"), 8 // world, comm.rank == 0
+    blk = {k: v.detach().requires_grad_()
+           for k, v in _layer(params, 0).items()}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h = torch.randn((rows, cfg.max_seq, cfg.d_model), generator=g,
+                    device=dev).to(cfg.compute_dtype)
+
+    def block(x):
+        return _block(cfg, x, blk, loop, loop, expert)
+
+    def mlp(x):
+        return _mlp(cfg, x, blk, loop, expert)
+
+    def backward(fn):
+        x = h.detach().requires_grad_()
+        out, aux = fn(x)
+        (out.float().mean() + aux).backward()
+
+    for label, fn, grad in (("MoE block forward", block, False),
+                            ("MoE block forward+backward", block, True),
+                            ("MoE MLP forward", mlp, False),
+                            ("MoE MLP forward+backward", mlp, True)):
+        run = (lambda fn=fn: backward(fn)) if grad else (lambda fn=fn: fn(h))
+        with torch.set_grad_enabled(grad):
+            got = trace(torch, run, f"{label}, expert={world}, {rows} x "
+                        f"{cfg.max_seq} tokens a rank, bf16", show=lead)
+        if lead:
+            a2a = got["by_kind"].get("NCCL collectives", [0.0, 0])
+            mm = got["by_kind"].get("matmul (cuBLAS)", [0.0, 0])
+            print(f"  all-to-all {a2a[0]:.3f} ms ({a2a[1]} kernels), "
+                  f"products {mm[0]:.3f} ms ({mm[1]} kernels)")
+    if world > 1:
+        return
+    # one card: the whole MoE flagship's training step (top-1, AdamW)
+    import numpy as np
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import make_train_step
+
+    del params, blk
+    cfg = TransformerConfig(**MOE)
+    params = moe_params(torch, cfg, dev)
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    opt = training.adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    trace(torch, lambda: step(params, state, x, y),
+          f"MoE flagship training step, 8x{cfg.max_seq} tokens, top-1, "
+          "remat, AdamW")
+
+
 def profile_resnet(torch):
     """Trace one data-parallel ResNet-50 step and its exchange alone."""
     import itertools
@@ -470,6 +563,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["ring"]:
         profile_ring(torch)
+        return 0
+    if sys.argv[1:2] == ["moe"]:
+        profile_moe(torch)
         return 0
     if sys.argv[1:3] == ["variants", "bwd"]:
         variants_bwd(torch, [a.split("=", 1) for a in sys.argv[3:]])

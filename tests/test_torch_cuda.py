@@ -360,6 +360,86 @@ def test_cuda_remat_dots_launches_the_forward_once_a_layer(cuda):
                                out["full"][1]["embed"], rtol=0, atol=0)
 
 
+def _moe_expert_fn(p, tokens):
+    return torch.relu(tokens @ p["w1"]) @ p["w2"]
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_cuda_moe_index_path_matches_dense_reference(cuda, top_k):
+    # the index dispatch and combine against the one-hot einsums on the
+    # card, bf16, at clipping capacity: the slots the same bits (a
+    # one-hot product only selects), the drops the same, the outputs
+    # within 1e-2 relative L2 (only a top-2 token's two fp32 terms may
+    # sum in another order before the bf16 rounding), the gradients of
+    # (out² + aux) within 2e-2 relative L2
+    from chainermn_tpu_torch.parallel import expert as ep
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    N, D, F, E = 2048, 128, 256, 8
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std) \
+            .to(torch.bfloat16)
+
+    x, rw = normal(N, D), normal(D, E, std=D ** -0.5)
+    w = {"w1": normal(E, D, F, std=D ** -0.5),
+         "w2": normal(E, F, D, std=F ** -0.5)}
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in
+                  (x, rw, w["w1"], w["w2"])]
+        out, aux, *rest = fn(leaves[0], leaves[1],
+                             {"w1": leaves[2], "w2": leaves[3]},
+                             _moe_expert_fn, capacity_factor=0.75,
+                             top_k=top_k)
+        ((out.float() ** 2).mean() + aux).backward()
+        return out, aux, [t.grad for t in leaves], rest
+
+    ep.expert_parallel_moe.routings = log = []
+    out, aux, grads, _ = run(ep.expert_parallel_moe)
+    ep.expert_parallel_moe.routings = None
+    d_out, d_aux, d_grads, (d_slots,) = run(ep._moe_dense_reference)
+    r = log[0]
+    assert torch.equal(ep.dispatch(x, r), d_slots)
+    assert int(r.dropped) > 0
+    assert int(r.dropped) == N * top_k - int(
+        (d_slots.float().abs().sum(-1) > 0).sum())
+    assert bool((out[~r.keep.any(1)] == 0).all())
+    rel = ((out.float() - d_out.float()).norm() / d_out.float().norm())
+    assert rel.item() < 1e-2
+    assert abs(aux.item() - d_aux.item()) < 1e-5
+    for a, b in zip(grads, d_grads):
+        rel = (a.float() - b.float()).norm() / b.float().norm()
+        assert rel.item() < 2e-2
+
+
+def test_cuda_moe_step_launches_the_dense_steps_kernels(cuda):
+    # an MoE flagship step at a small width: the flash kernels launch as
+    # the dense step's (forward twice under remat, dq and dk/dv once a
+    # layer); its loss against the plain-attention loss
+    from chainermn_tpu_torch.models.transformer import lm_loss
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4,
+                            n_kv_heads=2, d_head=32, d_ff=256, n_layers=4,
+                            max_seq=128, attention="flash", remat=True,
+                            dtype="bfloat16", moe=True, n_experts=4,
+                            router_top_k=2)
+    toks = np.random.RandomState(2).randint(0, 256, (8, 129))
+    x, y = toks[:, :-1], toks[:, 1:]
+    params = params_from_jax(init_numpy_params(cfg, 0), cfg)
+    with torch.no_grad():
+        want = lm_loss(dataclasses.replace(cfg, attention="local"), params,
+                       torch.as_tensor(x, device="cuda"),
+                       torch.as_tensor(y, device="cuda")).item()
+    flash_attention.launches = flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = 0
+    loss, _ = make_value_and_grad_fn(cfg)(params, x, y)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert _launch_counts() == (2 * L, L, L)
+    assert abs(loss.item() - want) < 1e-2 * abs(want)
+
+
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])
 def test_cuda_pipeline_schedules_match_the_plain_step(cuda, schedule):
     # the pipe axis's schedules at pipe=1 over 4 micro-batches of two

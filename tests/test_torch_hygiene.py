@@ -71,9 +71,12 @@ SEQ_PATH = [PORT / "parallel" / "mesh.py",
 TP_PATH = [PORT / "parallel" / "tensor.py", PORT / "models" / "convert.py"]
 # the pipe axis: the schedules
 PP_PATH = [PORT / "parallel" / "pipeline.py"]
+# the expert axis: the MoE layer and its exchange
+EP_PATH = [PORT / "parallel" / "expert.py"]
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py",
-                 ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH + PP_PATH
+                 ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH + PP_PATH \
+    + EP_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
@@ -85,7 +88,7 @@ DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
     PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + PP_PATH \
-    + EXAMPLES
+    + EP_PATH + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,

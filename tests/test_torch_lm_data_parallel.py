@@ -253,32 +253,31 @@ def test_check_mesh_raises_as_jax(axes, kw):
 
 @pytest.mark.parametrize("axis", ["pipe", "model", "seq", "expert"])
 def test_check_mesh_wide_axes_are_a8(axis):
+    # every axis of item 8's mesh is ported: each beside data, beside the
+    # expert axis and beside the others, as JAX takes them
     cfg = TransformerConfig(**BASE)
     jax_check_mesh(_mesh(**{axis: 2}), JaxConfig(**BASE))   # JAX takes it
-    if axis in ("pipe", "seq", "model"):
-        # ported beside data (and each other); an expert axis beside it
-        # is not
-        _check_mesh({axis: 2, "data": 2}, cfg)
-        _check_mesh({"seq": 2, "model": 2, "pipe": 2}, cfg)
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            _check_mesh({axis: 2, "expert": 2}, cfg)
-    else:
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            _check_mesh({axis: 2, "data": 2}, cfg)
+    _check_mesh({axis: 2, "data": 2}, cfg)
+    _check_mesh({axis: 2, "expert": 2}, cfg)
+    _check_mesh({"seq": 2, "model": 2, "pipe": 2, "expert": 2}, cfg)
+    with pytest.raises(ValueError, match="not in"):
+        _check_mesh({axis: 2, "replica": 2}, cfg)
     _check_mesh({"data": 8, axis: 1}, cfg)
 
 
 @pytest.mark.parametrize("kw", [
     # vocab_parallel is ported (test_torch_tensor_parallel.py): its place
-    # holds dots under Ulysses, which still raises
-    dict(moe=True), dict(fsdp=True),
+    # holds dots under Ulysses, which still raises; MoE is ported
+    # (test_torch_expert_parallel.py): its places hold it beside FSDP
+    dict(moe=True, fsdp=True), dict(fsdp=True),
     dict(attention="ulysses", remat=True, remat_policy="dots"),
     # micro-batches and the pipeline schedules are ported
-    # (test_torch_pipeline.py): their places hold them beside MoE or
-    # FSDP, which still raise
-    dict(num_microbatches=2, moe=True),
+    # (test_torch_pipeline.py): their places hold them beside FSDP,
+    # which still raises
+    dict(num_microbatches=2, moe=True, fsdp=True),
     dict(pipeline_schedule="1f1b", fsdp=True),
-    dict(pipeline_schedule="interleaved", virtual_pipe=2, moe=True),
+    dict(pipeline_schedule="interleaved", virtual_pipe=2, moe=True,
+         fsdp=True),
     dict(attention="ring", remat=True, remat_policy="dots"),
 ])
 def test_unported_training_options_are_a8(kw):

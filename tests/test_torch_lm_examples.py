@@ -121,12 +121,18 @@ def test_init_transformer_matches_jax_layout_and_scales(kw):
 
 
 def test_init_transformer_refuses():
-    # blocks grouped for a pipe axis are ported (test_torch_pipeline.py):
-    # MoE blocks still raise, and the layers must divide over the stages
+    # blocks grouped for a pipe axis and MoE blocks are ported
+    # (test_torch_pipeline.py, test_torch_expert_parallel.py): MoE blocks
+    # come out in the JAX tree's shapes; the layers must divide over the
+    # stages
     cfg = TransformerConfig(**LM_CFG)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        init_transformer(torch.Generator(),
-                         dataclasses.replace(cfg, moe=True), device="cpu")
+    moe = init_transformer(torch.Generator(),
+                           dataclasses.replace(cfg, moe=True, n_experts=4),
+                           device="cpu")
+    assert {k: tuple(v.shape) for k, v in moe["blocks"].items()
+            if k in ("router", "w1", "w2")} == {
+        "router": (4, 64, 4), "w1": (4, 4, 64, 256),
+        "w2": (4, 4, 256, 64)}
     with pytest.raises(ValueError, match="not divisible by pipe"):
         init_transformer(torch.Generator(), cfg, pipe_size=3, device="cpu")
     with pytest.raises(TypeError, match="torch.Generator"):
@@ -204,16 +210,17 @@ def test_train_save_resume_generate(port):
             == gen["tokens"][:, -gen["logits"].shape[1]:]).all()
 
 
-# --vocab-parallel, the model and pipe axes and the schedules are ported
-# (the config checks below, test_torch_tensor_parallel.py,
-# test_torch_pipeline.py): their places hold a vocab-parallel MoE, the
-# schedules beside MoE or FSDP and an expert axis beside the pipe or
-# model axis, which still raise
-TRAIN_UNPORTED = [["--moe"], ["--fsdp"], ["--vocab-parallel", "--moe"],
-                  ["--schedule", "1f1b", "--moe"],
+# --vocab-parallel, the model, pipe and expert axes, the schedules and
+# --moe are ported (the config checks below, test_torch_tensor_parallel.py,
+# test_torch_pipeline.py, test_torch_expert_parallel.py): their places
+# hold them beside --fsdp, which still raises
+TRAIN_UNPORTED = [["--moe", "--fsdp"], ["--fsdp"],
+                  ["--vocab-parallel", "--moe", "--fsdp"],
+                  ["--schedule", "1f1b", "--moe", "--fsdp"],
                   ["--schedule", "interleaved", "--fsdp"],
-                  ["--mesh", "expert=2,model=2"],
-                  ["--mesh", "pipe=2,expert=2"], ["--mesh", "expert=2"]]
+                  ["--mesh", "expert=2,model=2", "--fsdp"],
+                  ["--mesh", "pipe=2,expert=2", "--fsdp"],
+                  ["--mesh", "expert=2", "--fsdp"]]
 
 
 @pytest.mark.parametrize("flags", TRAIN_UNPORTED,
@@ -240,7 +247,16 @@ TRAIN_SEQ = [(["--attention", "ring", "--seq-layout", "zigzag"], None),
              (["--mesh", "pipe=2", "--schedule", "interleaved"], None),
              (["--mesh", "pipe=3", "--schedule", "1f1b"],
               "4 layers not divisible by pipe"),
-             (["--mesh", "pipe=2,model=2"], "needs 4 ranks")]
+             (["--mesh", "pipe=2,model=2"], "needs 4 ranks"),
+             # the expert axis and --moe (ported), which the places above
+             # held
+             (["--moe"], None), (["--vocab-parallel", "--moe"], None),
+             (["--schedule", "1f1b", "--moe"], None),
+             (["--mesh", "expert=2,model=2", "--moe"], "needs 4 ranks"),
+             (["--mesh", "pipe=2,expert=2", "--moe", "--schedule", "1f1b"],
+              "needs 4 ranks"),
+             (["--mesh", "expert=2", "--moe", "--router-top-k", "2"],
+              "needs 2 ranks")]
 
 
 @pytest.mark.parametrize("flags,error", TRAIN_SEQ,
@@ -261,6 +277,10 @@ def test_train_lm_torch_seq_flags(flags, error):
         assert cfg.attention == args.attention
         assert cfg.seq_layout == args.seq_layout
         assert cfg.vocab_parallel == args.vocab_parallel
+        # train_lm.py's experts: max(2 x expert, 2)
+        expert = ex.parse_mesh(args.mesh).get("expert", 1)
+        assert cfg.moe == args.moe
+        assert cfg.n_experts == max(2 * expert, 2)
         # train_lm.py's schedule settings under a pipe axis
         pipe = ex.parse_mesh(args.mesh).get("pipe", 1)
         assert cfg.num_microbatches == (2 if pipe > 1 else 1)
@@ -272,12 +292,12 @@ GEN_UNPORTED = [(["--temperature", "0.7"], 12), (["--top-k", "5"], 12),
                 (["--top-p", "0.9"], 12), (["--beam", "4"], 9),
                 (["--speculative-k", "3"], 9), (["--lookup-k", "2"], 9),
                 (["--int8"], 9), (["--kv-int8"], 9),
-                # --vocab-parallel and the model and pipe axes are
-                # ported (test_torch_tensor_parallel.py,
-                # test_torch_pipeline.py): the expert axis still raises,
-                # beside the pipe axis too
-                (["--mesh", "pipe=2,expert=2"], 8),
-                (["--mesh", "expert=2"], 8)]
+                # --vocab-parallel and the model, pipe and expert axes
+                # are ported (test_torch_tensor_parallel.py,
+                # test_torch_pipeline.py, test_torch_expert_parallel.py):
+                # the expert axis's places hold it beside int8 weights
+                (["--mesh", "pipe=2,expert=2", "--int8"], 9),
+                (["--mesh", "expert=2", "--kv-int8"], 9)]
 
 
 @pytest.mark.parametrize("flags,item", GEN_UNPORTED,
@@ -286,3 +306,16 @@ def test_generate_torch_unported_flags_raise(flags, item):
     ex = load("examples/transformer/generate_torch.py", "generate_torch")
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         ex.main(["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("pos", ["learned", "rope"])
+def test_generate_torch_moe_runs(pos):
+    # an MoE model decodes on one rank from seeded weights: train_lm.py's
+    # max(2 x expert, 2) experts, top-1
+    ex = load("examples/transformer/generate_torch.py", "generate_torch")
+    res = ex.main(["--device", "cpu", "--max-len", "16", "--batchsize",
+                   "2", "--moe", "--pos-embedding", pos])
+    assert res.tokens.shape == (2, 16)
+    assert res.cfg.moe and res.cfg.n_experts == 2
+    assert res.cfg.router_top_k == 1
+    assert res.params["blocks"]["router"].shape[-1] == res.cfg.n_experts

@@ -244,24 +244,49 @@ def test_optimizer_refuses_other_params():
         step(b, state, x, y)
 
 
+# remat_policy="dots", the ring, Ulysses, the zigzag layout,
+# vocab_parallel, micro-batches, the pipeline schedules and MoE are
+# ported (test_torch_lm_data_parallel.py, test_torch_sequence_parallel.py,
+# test_torch_tensor_parallel.py, test_torch_pipeline.py,
+# test_torch_expert_parallel.py); their places here hold options that
+# still raise (FSDP beside them)
+MOE_TRAINING = [dict(virtual_pipe=2, pipeline_schedule="interleaved",
+                     moe=True),
+                dict(pipeline_schedule="interleaved", moe=True),
+                dict(moe=True), dict(num_microbatches=2, moe=True)]
+
+
 @pytest.mark.parametrize("kw", [
-    # remat_policy="dots", the ring, Ulysses, the zigzag layout,
-    # vocab_parallel, micro-batches and the pipeline schedules are ported
-    # (test_torch_lm_data_parallel.py, test_torch_sequence_parallel.py,
-    # test_torch_tensor_parallel.py, test_torch_pipeline.py); their
-    # places here hold options that still raise (MoE or FSDP beside them)
-    dict(virtual_pipe=2, pipeline_schedule="interleaved", moe=True),
+    dict(virtual_pipe=2, pipeline_schedule="interleaved", moe=True,
+         fsdp=True),
     dict(pipeline_schedule="1f1b", fsdp=True),
-    dict(pipeline_schedule="interleaved", moe=True),
-    dict(moe=True), dict(fsdp=True),
+    dict(pipeline_schedule="interleaved", moe=True, fsdp=True),
+    dict(moe=True, fsdp=True), dict(fsdp=True),
     dict(vocab_parallel=True, num_microbatches=2, fsdp=True),
     dict(attention="ring", remat=True, remat_policy="dots"),
-    dict(num_microbatches=2, moe=True),
+    dict(num_microbatches=2, moe=True, fsdp=True),
 ])
 def test_unported_training_options_raise(kw):
     _, cfg = configs(**kw)
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(cfg, training.sgd(0.1), device="cpu")
+
+
+@pytest.mark.parametrize("kw", MOE_TRAINING)
+def test_moe_training_options_now_run(kw):
+    # the options that raised beside MoE: a step on one device, whose
+    # loss (the schedule's, the balancing loss in it) is lm_loss's
+    jcfg, cfg = configs(**dict(dict(attention="local"), **kw))
+    params = params_from_jax(jax_tree(jcfg), cfg, device="cpu")
+    x, y = batch()
+    want = lm_loss(cfg, params, torch.as_tensor(x), torch.as_tensor(y))
+    opt = training.adamw(1e-3)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device="cpu")
+    _, _, loss = step(params, state, x, y)
+    torch.testing.assert_close(loss, want.detach(), rtol=1e-6, atol=0)
+    _, _, after = step(params, state, x, y)
+    assert torch.isfinite(after) and float(after) != float(loss)
 
 
 def test_unported_optimizer_options_raise():

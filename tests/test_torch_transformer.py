@@ -130,18 +130,37 @@ def test_params_from_jax_rejects_wrong_shapes():
         params_from_jax(tree, mha, device="cpu")
 
 
+# vocab_parallel, micro-batches, the virtual stages and MoE are ported
+# (test_torch_tensor_parallel.py, test_torch_pipeline.py,
+# test_torch_expert_parallel.py): their places hold FSDP beside them,
+# which still raises
+MOE_FORWARD = [dict(moe=True),
+               dict(attention="ring", num_microbatches=2, moe=True),
+               dict(virtual_pipe=2, pipeline_schedule="interleaved",
+                    moe=True)]
+
+
 @pytest.mark.parametrize("kw", [
-    # vocab_parallel, micro-batches and the virtual stages are ported
-    # (test_torch_tensor_parallel.py, test_torch_pipeline.py): their
-    # places hold MoE or FSDP beside them, which still raise
-    dict(moe=True), dict(fsdp=True), dict(vocab_parallel=True, fsdp=True),
-    dict(attention="ring", num_microbatches=2, moe=True),
+    dict(moe=True, fsdp=True), dict(fsdp=True),
+    dict(vocab_parallel=True, fsdp=True),
+    dict(attention="ring", num_microbatches=2, moe=True, fsdp=True),
     dict(attention="ulysses", fsdp=True),
     dict(num_microbatches=2, fsdp=True),
-    dict(virtual_pipe=2, pipeline_schedule="interleaved", moe=True),
+    dict(virtual_pipe=2, pipeline_schedule="interleaved", moe=True,
+         fsdp=True),
 ])
 def test_unported_options_raise(kw):
     _, cfg = configs(**kw)
     with pytest.raises(NotImplementedError, match="parallel slice"):
         make_forward_fn(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", MOE_FORWARD)
+def test_moe_options_now_run(kw):
+    # the options that raised beside MoE: the MoE forward on one device
+    # against the JAX one (plain attention, the flash path's parity is
+    # above)
+    jcfg, cfg = configs(**dict(dict(attention="local"), **kw))
+    out, ref = both_logits(jcfg, cfg, tokens())
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
 

@@ -1502,6 +1502,125 @@ def battery_pipeline(comm, p):
     return out
 
 
+def moe_expert_fn(p, tokens):
+    """The MoE tests' expert FFN on a rank's local experts at once."""
+    return torch.relu(tokens @ p["w1"]) @ p["w2"]
+
+
+def battery_expert_parallel(comm, p):
+    """The mesh's expert axis in a 4-rank world, every case of the
+    parity tests in ``test_torch_expert_parallel.py``: the MoE layer at
+    each expert grouping (its routing, slots against the dense
+    reference's, output and aux), the flagship's forward, its loss,
+    gradients and one AdamW step (whether its leaves replicated over
+    the expert group come out the same bits on every member), MoE
+    decoding, and ``train_lm_torch.py``/``generate_torch.py`` with
+    ``--moe`` over ``data=2,expert=2``.  Returns every case's result on
+    this rank."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_forward_fn, make_generate_fn,
+        make_train_step, make_value_and_grad_fn, params_from_jax,
+        params_to_numpy)
+    from chainermn_tpu_torch.parallel import MeshConfig
+    from chainermn_tpu_torch.parallel import expert as ep
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    out = {"rank": comm.rank, "layer": {}}
+    # the layer: mesh data=4/S, expert=S; this rank's block of the
+    # tokens (row-major over data, expert) and of the experts
+    for name, case in p["layer_cases"].items():
+        S = case["S"]
+        mesh = MeshConfig(comm, data=4 // S, expert=S)
+        e = mesh.axis_index("expert")
+        i = mesh.axis_index("data") * S + e
+        x = torch.as_tensor(case["x"]).chunk(4)[i]
+        rw = torch.as_tensor(case["router"])
+        E = rw.shape[1]
+        local = {k: torch.as_tensor(case[k]).chunk(S)[e]
+                 for k in ("w1", "w2")}
+        ep.expert_parallel_moe.routings = log = []
+        y, aux = ep.expert_parallel_moe(
+            x, rw, local, moe_expert_fn, comm=mesh.comm("expert"),
+            capacity_factor=case["cf"], top_k=case["k"])
+        ep.expert_parallel_moe.routings = None
+        r = log[0]
+        whole = {k: torch.as_tensor(case[k]) for k in ("w1", "w2")}
+        _, _, dense_slots = ep._moe_dense_reference(
+            x, rw, whole, moe_expert_fn, capacity_factor=case["cf"],
+            top_k=case["k"])
+        out["layer"][name] = dict(
+            out=y.numpy(), aux=float(aux), top_i=r.top_i.numpy(),
+            keep=r.keep.numpy(), pos=r.pos.numpy(),
+            slot_token=r.slot_token.numpy(), dropped=int(r.dropped),
+            slots=ep.dispatch(x, r).numpy(), dense_slots=dense_slots.numpy(),
+            E=E)
+
+    # the flagship's forward
+    out["fwd"] = {}
+    for name, (axes, fields) in p["fwd_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        out["fwd"][name] = make_forward_fn(cfg, mesh=mesh)(
+            params, p["x"]).numpy()
+
+    # loss, gradients and one AdamW step; the replicated leaves' bits
+    # across the expert group; the drops of the step's first forward
+    out["step"] = {}
+    x, y = p["x"], p["y"]
+    for name, (axes, fields) in p["step_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        ep.expert_parallel_moe.routings = log = []
+        loss, grads = make_value_and_grad_fn(cfg, mesh=mesh)(params, x, y)
+        ep.expert_parallel_moe.routings = None
+        g_np = params_to_numpy(grads, cfg, mesh=mesh)
+        opt = training.adamw(p["lr"])
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        params, state, step_loss = step(params, state, x, y)
+        repl = [v for k, v in params.items() if k != "blocks"] + [
+            v for k, v in params["blocks"].items() if k not in ("w1", "w2")]
+        out["step"][name] = dict(
+            loss=float(loss), step_loss=float(step_loss), grads=g_np,
+            params=params_to_numpy(params, cfg, mesh=mesh),
+            dropped=[int(r.dropped) for r in log],
+            expert_bitwise=replicas_bitwise(mesh.comm("expert"), repl))
+
+    # greedy decoding
+    out["gen"] = {}
+    for name, (axes, fields) in p["gen_cases"].items():
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        params = params_from_jax(p["gen_tree"][name], cfg, "cpu", mesh=mesh)
+        out["gen"][name] = make_generate_fn(
+            cfg, max_len=p["gen_max_len"], mesh=mesh)(
+            params, p["gen_prompt"]).numpy()
+
+    # the examples: --moe over data=2,expert=2 from the JAX weights, its
+    # checkpoint resumed at data=4 with as many experts; generate_torch.py
+    # on the checkpoint over data=2,expert=2 and over data=4
+    ex = _load_example("examples/transformer/train_lm_torch.py",
+                       "train_lm_torch")
+    gen = _load_example("examples/transformer/generate_torch.py",
+                        "generate_torch")
+    buf = io.StringIO()
+    ck = p["example_ck"]
+    with contextlib.redirect_stdout(buf):
+        run = ex.main(p["example_argv"] + ["--checkpoint", ck],
+                      init=p["example_tree"])
+        printed = buf.getvalue()
+        again = ex.main(p["resume_argv"] + ["--checkpoint", ck])
+        toks = {name: gen.main(argv + ["--checkpoint", ck]).tokens.numpy()
+                for name, argv in p["generate_runs"].items()}
+    out["example"] = dict(printed=printed, losses=run.losses,
+                          resumed=again.losses, start=again.start,
+                          generate=toks)
+    return out
+
+
 # --------------------------------------------------------------------- #
 # the harness's own tests
 # --------------------------------------------------------------------- #
