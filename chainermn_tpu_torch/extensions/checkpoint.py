@@ -51,6 +51,7 @@ from chainermn_tpu_torch.training._resume import (
     updater_state,
 )
 from chainermn_tpu_torch.training.elastic import (
+    _sharding_mode,
     same_topology,
     topology_signature,
 )
@@ -197,9 +198,18 @@ class MultiNodeCheckpointer:
     def __call__(self, trainer) -> None:
         self.save(trainer.updater, trainer)
 
+    def _topology(self, updater) -> dict:
+        """The signature a save is stamped with and a resume compares
+        against: the world and the updater's sharding mode (ZeRO-1/2:
+        each rank's file holds its own shard state)."""
+        return topology_signature(
+            self.comm, params=getattr(updater, "params", None),
+            opt_state=getattr(updater, "opt_state", None),
+            sharding=getattr(updater, "sharding", None))
+
     def save(self, updater, trainer=None) -> None:
         it = int(updater.iteration)
-        topology = topology_signature(self.comm)
+        topology = self._topology(updater)
         # the signature rides __meta__, not the tree
         state = updater_state(updater, trainer)
         path = os.path.join(self.path,
@@ -378,7 +388,14 @@ class MultiNodeCheckpointer:
                 "file on at least one rank; restoring iteration %d "
                 "instead (bad files quarantined as *.corrupt)",
                 skipped, it)
-        cur_topo = topology_signature(self.comm)
+        cur_topo = self._topology(updater)
+        if saved_topo is not None and _sharding_mode(saved_topo) \
+                != _sharding_mode(cur_topo):
+            raise RuntimeError(
+                f"snapshot at iteration {it} was saved with optimizer "
+                f"sharding {_sharding_mode(saved_topo)!r}, but this job "
+                f"runs {_sharding_mode(cur_topo)!r}: the saved state's "
+                "layout does not fit the optimizer")
         if saved_topo is not None and not same_topology(saved_topo,
                                                         cur_topo):
             raise RuntimeError(

@@ -305,8 +305,10 @@ def make_generate_fn(cfg: TransformerConfig, *, max_len: int = 0,
     _check_ported(cfg, decoding=True)
     if cfg.fsdp:
         raise ValueError(
-            "fsdp is a training-path layout; decode with "
-            "dataclasses.replace(cfg, fsdp=False, fsdp_wire_dtype='')")
+            "fsdp is a training-path layout (per-layer just-in-time "
+            "weight gathers would land a collective on every generated "
+            "token); decode with dataclasses.replace(cfg, fsdp=False, "
+            "fsdp_wire_dtype='') and re-place the params")
     pipe = LoopbackCommunicator(device=dev) if mesh is None \
         else mesh.comm("pipe")
     if pipe.size > 1 and cfg.virtual_pipe > 1:

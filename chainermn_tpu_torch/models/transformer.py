@@ -81,8 +81,23 @@ experts' ranks and back.  An expert's gradient already holds the
 contributions of every rank of its expert group (the all-to-all's
 backward brings them), so ``w1``/``w2`` are summed over ``(data, seq)``
 only and divided by the batch-like group's size; every other leaf is
-meaned over ``(data, expert, seq)``.  FSDP comes with the rest of the
-parallel slice and raises here.
+meaned over ``(data, expert, seq)``.
+
+``fsdp=True`` (ZeRO-3, the JAX ``fsdp``) keeps every block matrix's
+d_model dim sharded over ``data`` at rest (:func:`_fsdp_dims`, cut last
+by :func:`shard_params`; the norm scales, ``embed`` and ``pos`` stay
+whole).  Each block all-gathers its weights over the data communicator
+just before use (:func:`_fsdp_gather`, in ``fsdp_wire_dtype`` when
+set), so the flash kernels see the full weights and launch as often as
+without FSDP, and the gathers' backward reduce-scatters the gradients:
+a sharded leaf's gradient leaves the backward summed over ``data`` at
+shard width, is then summed over ``(expert, seq)`` (the experts'
+``w1``/``w2`` over ``seq``) and divided by ``D·X·S``.  Gradients and
+the optimizer's moments stay at shard width.  Under remat the block's
+recompute gathers again and the gathered weights do not outlive the
+block; without remat autograd keeps every block's gathered weights for
+the backward, as XLA does in the JAX package.  Decoding refuses an
+``fsdp`` config, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -107,6 +122,7 @@ from chainermn_tpu_torch.ops.flash_attention import (
     flash_attention_supported,
 )
 from chainermn_tpu_torch.parallel.expert import expert_parallel_moe
+from chainermn_tpu_torch.parallel.fsdp import fsdp_gather
 from chainermn_tpu_torch.parallel.mesh import BATCH_AXES, MeshConfig
 from chainermn_tpu_torch.parallel.pipeline import (
     pipeline_apply,
@@ -263,8 +279,6 @@ def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
         unported.append(
             ('kv_cache_dtype="int8"', cfg.kv_cache_dtype == "int8",
              "the quantization slice (ROADMAP Queue A item 9)"))
-    else:
-        unported.append(("fsdp", cfg.fsdp, _PARALLEL_SLICE))
     if training:
         if cfg.pipeline_schedule not in ("gpipe", "1f1b", "interleaved"):
             raise ValueError(
@@ -679,8 +693,40 @@ def _mlp(cfg: TransformerConfig, h, blk, model, expert):
     return h + out.reshape(B, T, D), aux
 
 
-def _block(cfg: TransformerConfig, h, blk, seq, model, expert):
-    """One block: ``(h, aux)``, aux None for a dense MLP."""
+def _fsdp_dims(cfg: TransformerConfig) -> dict:
+    """The dim of each block leaf's base shape (after the ``(L, ...)``
+    or ``(V, L/V, ...)`` prefix) that FSDP shards over ``data``: the
+    JAX ``_fsdp_dims``, the d_model dim of every matrix, which neither
+    the model axis (heads, d_ff) nor the expert axis (experts) claims.
+    The norm scales are left out."""
+    dims = {"wo": 2}
+    if cfg.kv_heads == cfg.n_heads:
+        dims["wqkv"] = 0
+    else:
+        dims.update(wq=0, wkv=0)
+    if cfg.moe:
+        dims.update(router=0, w1=1, w2=2)
+    else:
+        dims.update(w1=0, w2=1)
+    return dims
+
+
+def _fsdp_gather(cfg: TransformerConfig, blk, data):
+    """One layer's FSDP-sharded leaves all-gathered over ``data`` (the
+    data communicator), inside the block: once a layer a use, and again
+    in remat's recompute.  The gathers' backward reduce-scatters the
+    gradients (:func:`~chainermn_tpu_torch.parallel.fsdp.fsdp_gather`),
+    in ``cfg.fsdp_wire_dtype`` when it is set."""
+    dims = _fsdp_dims(cfg)
+    return fsdp_gather(blk, {k: dims.get(k) for k in blk}, data,
+                       cfg.fsdp_wire_dtype or None)
+
+
+def _block(cfg: TransformerConfig, h, blk, seq, model, expert, data):
+    """One block: ``(h, aux)``, aux None for a dense MLP.  Under
+    ``fsdp`` its weights are gathered over ``data`` first."""
+    if cfg.fsdp:
+        blk = _fsdp_gather(cfg, blk, data)
     return _mlp(cfg, _attention(cfg, h, blk, seq, model), blk, model,
                 expert)
 
@@ -706,12 +752,12 @@ def _layers(cfg: TransformerConfig, blocks) -> list:
     return [{k: v[i] for k, v in blocks.items()} for i in range(n)]
 
 
-def _stage(cfg: TransformerConfig, layers, h, seq, model, expert):
+def _stage(cfg: TransformerConfig, layers, h, seq, model, expert, data):
     """One pipeline stage (or chunk): its blocks in order.  Under MoE
     ``(h, aux)``, the aux summed over the blocks (the JAX ``_stage``)."""
     aux = None
     for blk in layers:
-        h, a = _block(cfg, h, blk, seq, model, expert)
+        h, a = _block(cfg, h, blk, seq, model, expert, data)
         aux = _add_aux(aux, a)
     return (h, aux) if cfg.moe else h
 
@@ -759,12 +805,12 @@ def _loopbacks(dev, *comms):
 
 
 def _backbone(cfg: TransformerConfig, params, tokens, seq, model, pipe,
-              expert):
+              expert, data):
     """:func:`transformer_backbone` and the MoE balancing loss summed
     over the layers: ``(h, aux)``, aux None for a dense model (the JAX
     ``transformer_backbone``'s pair)."""
-    seq, model, pipe, expert = _loopbacks(tokens.device, seq, model, pipe,
-                                          expert)
+    seq, model, pipe, expert, data = _loopbacks(
+        tokens.device, seq, model, pipe, expert, data)
     h = _embed(cfg, params, tokens, seq, model)
     layers = _layers(cfg, params["blocks"])
     remat = cfg.remat and torch.is_grad_enabled()
@@ -786,7 +832,7 @@ def _backbone(cfg: TransformerConfig, params, tokens, seq, model, pipe,
             # chunk c of every stage as one GPipe pass: virtual stage
             # order c·S + s; the chunks' aux added (the JAX loop's)
             out = pipeline_apply(
-                lambda p, mb: _stage(cfg, p, mb, seq, model, expert),
+                lambda p, mb: _stage(cfg, p, mb, seq, model, expert, data),
                 layers[c * n:(c + 1) * n], h, comm=pipe,
                 num_microbatches=cfg.num_microbatches, **kw)
             h, a = out if cfg.moe else (out, None)
@@ -799,17 +845,17 @@ def _backbone(cfg: TransformerConfig, params, tokens, seq, model, pipe,
             # the blocks draw no random numbers: no RNG state to replay
             with set_checkpoint_early_stop(early_stop):
                 h, a = checkpoint(_block, cfg, h, blk, seq, model, expert,
-                                  use_reentrant=False,
+                                  data, use_reentrant=False,
                                   preserve_rng_state=False,
                                   context_fn=context_fn)
         else:
-            h, a = _block(cfg, h, blk, seq, model, expert)
+            h, a = _block(cfg, h, blk, seq, model, expert, data)
         aux = _add_aux(aux, a)
     return _rms_norm(h, params["ln_f"]), aux
 
 
 def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
-                         model=None, pipe=None, expert=None):
+                         model=None, pipe=None, expert=None, data=None):
     """Embedding → block stack → final norm: the normed
     ``(B, T, d_model)`` hidden states in the compute dtype.  ``tokens``
     is this rank's block of the sequence when ``seq`` (the seq
@@ -818,7 +864,9 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
     ``params`` are this rank's shard over ``model`` (the model
     communicator; None: one rank), ``pipe`` (the pipe communicator) and
     ``expert`` (the expert communicator, which under MoE exchanges the
-    tokens with the other ranks' experts), see :func:`shard_params`.
+    tokens with the other ranks' experts) and, under ``fsdp``, ``data``
+    (the data communicator, over which each block gathers its weights),
+    see :func:`shard_params`.
     With ``cfg.remat`` and gradients enabled each block runs under
     ``torch.utils.checkpoint``.  ``remat_policy="full"`` keeps only its
     input, and its forward (the flash kernel and the ring's transfers
@@ -832,18 +880,20 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
     the other under ``virtual_pipe``), every stage receiving the
     output; remat is then a stage application's (the stage's input
     kept, the stage recomputed in the backward)."""
-    return _backbone(cfg, params, tokens, seq, model, pipe, expert)[0]
+    return _backbone(cfg, params, tokens, seq, model, pipe, expert,
+                     data)[0]
 
 
 def transformer_forward(cfg: TransformerConfig, params, tokens, seq=None,
-                        model=None, pipe=None, expert=None):
+                        model=None, pipe=None, expert=None, data=None):
     """``(B, T, vocab)`` fp32 logits through the weight-tied head.  Under
     ``vocab_parallel`` each member of ``model`` computes its vocab
     slice and the slices are all-gathered: the full logits, the same
     bits on every member (and on every stage of ``pipe``)."""
     if model is None:
         model = LoopbackCommunicator(device=tokens.device)
-    h = transformer_backbone(cfg, params, tokens, seq, model, pipe, expert)
+    h = transformer_backbone(cfg, params, tokens, seq, model, pipe, expert,
+                             data)
     if cfg.vocab_parallel:
         logits = _lm_head(cfg.compute_dtype, h, params["embed"], model)
         if model.size == 1:
@@ -871,7 +921,7 @@ def _shard_nll_sum(cfg: TransformerConfig, h, embed, targets, model):
 
 
 def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None,
-            model=None, pipe=None, expert=None):
+            model=None, pipe=None, expert=None, data=None):
     """Mean next-token cross-entropy of ``(B, T)`` ``inputs`` against
     ``targets`` (this rank's block under a sharded ``seq``; ``params``
     this rank's shard over ``model``, ``pipe`` and ``expert``), plus
@@ -881,14 +931,14 @@ def lm_loss(cfg: TransformerConfig, params, inputs, targets, seq=None,
     if model is None:
         model = LoopbackCommunicator(device=inputs.device)
     targets = targets.long()
-    h, aux = _backbone(cfg, params, inputs, seq, model, pipe, expert)
+    h, aux = _backbone(cfg, params, inputs, seq, model, pipe, expert, data)
     loss = _shard_nll_sum(cfg, h, params["embed"], targets,
                           model) / targets.numel()
     return loss if aux is None else loss + _AUX_WEIGHT * aux
 
 
 def _grad_1f1b(cfg: TransformerConfig, params, inputs, targets, seq, model,
-               pipe, expert):
+               pipe, expert, data):
     """The JAX ``_make_1f1b_grad``'s body on this rank: the embedding
     outside the schedule (its backward takes the schedule's ``dx``), the
     block stack as the 1F1B (or interleaved) stages, the final norm, the
@@ -905,7 +955,7 @@ def _grad_1f1b(cfg: TransformerConfig, params, inputs, targets, seq, model,
         h = _embed(cfg, params, inputs, seq, model)
 
     def stage_fn(layers, mb):
-        return _stage(cfg, layers, mb, seq, model, expert)
+        return _stage(cfg, layers, mb, seq, model, expert, data)
 
     def loss_fn(lp, y, tgt):
         hN = _rms_norm(y, lp["ln_f"])
@@ -994,12 +1044,12 @@ def _check_layers(S: int, cfg: TransformerConfig):
 
 
 def _axes(mesh, dev):
-    """The seq, model, pipe and expert communicators of ``mesh``
+    """The seq, model, pipe, expert and data communicators of ``mesh``
     (loopback ones without a mesh)."""
     if mesh is None:
-        return _loopbacks(dev, None, None, None, None)
+        return _loopbacks(dev, None, None, None, None, None)
     return (mesh.comm("seq"), mesh.comm("model"), mesh.comm("pipe"),
-            mesh.comm("expert"))
+            mesh.comm("expert"), mesh.comm("data"))
 
 
 def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
@@ -1021,13 +1071,13 @@ def make_forward_fn(cfg: TransformerConfig, device=None, comm=None,
         _check_mesh(mesh, cfg)
     _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, decoding=False)
-    seq, model, pipe, expert = _axes(mesh, dev)
+    seq, model, pipe, expert, data = _axes(mesh, dev)
 
     def forward(params, tokens):
         tokens = _shard(mesh, tokens, dev)
         with torch.inference_mode():
             return transformer_forward(cfg, params, tokens, seq, model,
-                                       pipe, expert)
+                                       pipe, expert, data)
 
     return forward
 
@@ -1064,7 +1114,7 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
         _check_mesh(mesh, cfg)
     _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, training=True)
-    seq, model, pipe, expert = _axes(mesh, dev)
+    seq, model, pipe, expert, data = _axes(mesh, dev)
     if cfg.remat and cfg.remat_policy == "dots" and expert.size > 1:
         # the selective checkpoint's recompute would replay the
         # all-to-alls of some ranks' blocks only
@@ -1078,6 +1128,13 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
     # members' contributions
     split_experts = cfg.moe and expert.size > 1
     data_seq = mesh.comm("data", "seq") if split_experts else None
+    # under fsdp (data > 1) the gathers' backward has already summed each
+    # sharded leaf over data and cut it to this rank's slice: it is
+    # summed over (expert, seq) only, the experts' w1/w2 over seq only,
+    # and each divided by the batch-like group's size D·X·S
+    D = data.size
+    fsdp_leaves = set(_fsdp_dims(cfg)) if cfg.fsdp and D > 1 else set()
+    expert_seq = mesh.comm("expert", "seq") if fsdp_leaves else None
 
     def value_and_grad(params, inputs, targets):
         inputs = _shard(mesh, inputs, dev)
@@ -1093,11 +1150,11 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
         live["blocks"] = layers
         if cfg.pipeline_schedule in ("1f1b", "interleaved"):
             loss, out, g_layers = _grad_1f1b(cfg, live, inputs, targets,
-                                             seq, model, pipe, expert)
+                                             seq, model, pipe, expert, data)
         else:
             with torch.enable_grad():
                 loss = lm_loss(cfg, live, inputs, targets, seq, model, pipe,
-                               expert)
+                               expert, data)
                 grads = torch.autograd.grad(
                     loss, [live[k] for k in top]
                     + [x for blk in layers for x in blk.values()])
@@ -1114,15 +1171,25 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
             own = ("w1", "w2") if split_experts else ()
             blocks = grads["blocks"]
             grads = group.multi_node_mean_grad(dict(grads, blocks={
-                k: g for k, g in blocks.items() if k not in own}),
-                torch.float32)
+                k: g for k, g in blocks.items()
+                if k not in own and k not in fsdp_leaves}), torch.float32)
+            done = dict(grads["blocks"])
             if own:
-                # Σ over (data, seq) / (D·X·S): the (data, seq) mean / X
-                mean = data_seq.multi_node_mean_grad(
+                # Σ over (data, seq) / (D·X·S): the (data, seq) mean / X,
+                # or under fsdp the seq mean / (D·X)
+                over, div = (seq, D * expert.size) if fsdp_leaves \
+                    else (data_seq, expert.size)
+                mean = over.multi_node_mean_grad(
                     {k: blocks[k] for k in own}, torch.float32)
-                grads["blocks"] = {
-                    k: mean[k] / expert.size if k in own
-                    else grads["blocks"][k] for k in blocks}
+                done.update({k: mean[k] / div for k in own})
+            rest = [k for k in blocks if k in fsdp_leaves and k not in own]
+            if rest:
+                # Σ over (data, expert, seq) / (D·X·S): the scatter's
+                # data sum, the (expert, seq) mean / D
+                mean = expert_seq.multi_node_mean_grad(
+                    {k: blocks[k] for k in rest}, torch.float32)
+                done.update({k: mean[k] / D for k in rest})
+            grads["blocks"] = {k: done[k] for k in blocks}
             loss = group.allreduce(loss, "mean")
         return loss, grads
 
@@ -1161,15 +1228,21 @@ def make_train_step(cfg: TransformerConfig, optimizer, device=None,
 
 
 def _shard_dims(cfg: TransformerConfig, axis: str = "model") -> dict:
-    """The dim each leaf shards over ``axis`` (``"model"`` or
-    ``"expert"``) in the port's layout (blocks ``(L, ...)``, or ``(V,
+    """The dim each leaf shards over ``axis`` (``"model"``, ``"expert"``
+    or ``"data"``) in the port's layout (blocks ``(L, ...)``, or ``(V,
     L/V, ...)`` under ``virtual_pipe``), None for a leaf replicated over
-    it: the JAX ``param_specs``' model, vocab and expert entries with
-    the pipe axis squeezed.  Under MoE ``w1 (L, E, D, F)`` and ``w2 (L,
-    E, F, D)`` shard their experts over ``expert`` and ``F`` over
-    ``model``; the router is replicated."""
+    it: the JAX ``param_specs``' model, vocab, expert and FSDP entries
+    with the pipe axis squeezed.  Under MoE ``w1 (L, E, D, F)`` and
+    ``w2 (L, E, F, D)`` shard their experts over ``expert`` and ``F``
+    over ``model``; the router is replicated over both.  Under ``fsdp``
+    every matrix shards its d_model dim over ``data``
+    (:func:`_fsdp_dims` past the prefix)."""
     if axis == "expert":
         blocks = {"w1": 1, "w2": 1} if cfg.moe else {}
+        top = {}
+    elif axis == "data":
+        blocks = {k: d + 1 for k, d in _fsdp_dims(cfg).items()} \
+            if cfg.fsdp else {}
         top = {}
     else:
         blocks = {"wo": 1, "w1": 3, "w2": 2} if cfg.moe \
@@ -1274,23 +1347,26 @@ def shard_params(mesh, cfg: TransformerConfig, params) -> dict:
     columns and ``w2``'s rows, and under ``vocab_parallel`` of
     ``embed``'s rows; expert coordinate ``e`` of ``X`` keeps block ``e``
     of the experts of ``w1``/``w2`` under MoE; the other leaves are kept
-    whole.  The shards are tensors of their own.  At pipe, model and
-    expert size 1 the tree is returned as it is."""
+    whole; under ``fsdp`` data coordinate ``d`` of ``D`` keeps block
+    ``d`` of every matrix's d_model dim (the JAX ``param_specs``' FSDP
+    entries), cut last.  The shards are tensors of their own.  At pipe,
+    model, expert and (under ``fsdp``) data size 1 the tree is returned
+    as it is."""
     _check_mesh(mesh, cfg)
     S = mesh.axis_size("pipe")
     if S > 1:
         params = dict(params, blocks=_stage_blocks(
             cfg, params["blocks"], S, mesh.axis_index("pipe")))
-    params = _shard_tree(cfg, params, mesh.axis_size("model"),
-                         mesh.axis_index("model"))
-    return _shard_tree(cfg, params, mesh.axis_size("expert"),
-                       mesh.axis_index("expert"), axis="expert")
+    for axis in ("model", "expert", "data"):
+        params = _shard_tree(cfg, params, mesh.axis_size(axis),
+                             mesh.axis_index(axis), axis=axis)
+    return params
 
 
 def _shard_tree(cfg: TransformerConfig, params, M: int, m: int,
                 axis: str = "model") -> dict:
-    """Member ``m``'s shard of ``params`` over a model (or expert) axis
-    of ``M`` members (:func:`shard_params`' model or expert part,
+    """Member ``m``'s shard of ``params`` over a model (expert, data)
+    axis of ``M`` members (:func:`shard_params`' part of that axis,
     without a mesh)."""
     if M == 1:
         return params
@@ -1302,11 +1378,12 @@ def gather_params(mesh, cfg: TransformerConfig, params) -> dict:
     """The inverse of :func:`shard_params`: the whole tree from every
     rank's shard (parameters, or a tree of their structure such as
     gradients or an optimizer's moments), by all-gathers over ``mesh``'s
-    model communicator, its expert communicator, then its pipe
-    communicator; every rank gets it.  At pipe, model and expert size 1
-    the tree is returned as it is."""
+    data communicator (under ``fsdp``), its model communicator, its
+    expert communicator, then its pipe communicator; every rank gets it.
+    At pipe, model, expert and data size 1 the tree is returned as it
+    is."""
     pipe = mesh.comm("pipe")
-    for axis in ("model", "expert"):
+    for axis in ("data", "model", "expert"):
         group = mesh.comm(axis)
         if group.size > 1:
             params = _map_sharded(cfg, params, lambda t, d: torch.cat(
@@ -1333,12 +1410,11 @@ def reshard_train_state(mesh, cfg: TransformerConfig, optimizer, params,
     ``cfg.virtual_pipe`` (:func:`regroup_blocks`), and each rank keeps
     its shard (:func:`.convert.params_from_jax`).  Returns ``(params,
     opt_state)`` on the mesh's device: this rank's parameters and
-    ``optimizer.init`` of them with the moments loaded.  FSDP's
-    shard-width moments come with the parallel slice and raise."""
-    if cfg.fsdp:
-        raise NotImplementedError(
-            "reshard_train_state with fsdp is not ported to "
-            f"chainermn_tpu_torch yet; it comes with {_PARALLEL_SLICE}")
+    ``optimizer.init`` of them with the moments loaded.  The saved tree
+    is the whole one whatever its run's layout, so ``cfg.fsdp`` takes
+    FSDP on or off in either direction (the JAX "fsdp on/off"): under
+    it the matrices and their moments are cut to this rank's d_model
+    block and stay at that width."""
     from chainermn_tpu_torch.training import (
         load_optimizer_state_tree,
         map_state_moments,

@@ -38,10 +38,11 @@ class MeshConfig:
     world (``data`` does by default).  Every axis of size 1 still exists.
     The sub-communicators of ``seq``, ``data``, the batch-like group
     ``("data", "expert", "seq")``, ``model``, ``pipe``, ``expert``, the
-    batch rows' ``("data", "expert")`` and the experts' gradient group
-    ``("data", "seq")`` are built here, by every rank together and in
-    that order (``split`` is collective: an NCCL group first split
-    inside a block, by some ranks only, hangs);
+    batch rows' ``("data", "expert")``, the experts' gradient group
+    ``("data", "seq")`` and FSDP's ``("expert", "seq")`` are built here,
+    by every rank together and in that order (``split`` is collective:
+    an NCCL group first split inside a block, by some ranks only,
+    hangs);
     others on first use of :meth:`comm`, which every rank must then call
     in the same order.
 
@@ -79,7 +80,7 @@ class MeshConfig:
         self._comms: Dict[Tuple[str, ...], object] = {}
         for axes in (("seq",), ("data",), BATCH_AXES, ("model",),
                      ("pipe",), ("expert",), ("data", "expert"),
-                     ("data", "seq")):
+                     ("data", "seq"), ("expert", "seq")):
             self.comm(*axes)
 
     device = property(lambda self: self.world.device)

@@ -8,6 +8,8 @@ from .evaluators import (
 )
 from .optimizers import (
     MultiNodeState,
+    Zero1Transformation,
+    Zero2Transformation,
     adamw,
     create_multi_node_optimizer,
     cross_replica_mean,
@@ -17,6 +19,8 @@ from .optimizers import (
     map_state_moments,
     optimizer_state_tree,
     sgd,
+    shard_opt_state,
+    zero1_init,
 )
 from .schedules import (
     cosine_decay_schedule,
@@ -36,6 +40,8 @@ __all__ = [
     "PrintReport",
     "StandardUpdater",
     "Trainer",
+    "Zero1Transformation",
+    "Zero2Transformation",
     "adamw",
     "cosine_decay_schedule",
     "create_multi_node_evaluator",
@@ -52,4 +58,6 @@ __all__ = [
     "map_state_moments",
     "optimizer_state_tree",
     "sgd",
+    "shard_opt_state",
+    "zero1_init",
 ]

@@ -29,6 +29,7 @@ gradient accumulation and ChainerMN's double buffering around it.
 from __future__ import annotations
 
 import contextlib
+import warnings
 
 import numpy as np
 import torch
@@ -36,10 +37,11 @@ import torch.utils._pytree as pytree
 
 from chainermn_tpu_torch.ops import fused as _fused
 
-__all__ = ["MultiNodeState", "OptaxRule", "adamw",
-           "create_multi_node_optimizer", "cross_replica_mean", "lamb",
-           "lars", "load_optimizer_state_tree", "map_state_moments",
-           "optimizer_state_tree", "sgd"]
+__all__ = ["MultiNodeState", "OptaxRule", "Zero1Transformation",
+           "Zero2Transformation", "adamw", "create_multi_node_optimizer",
+           "cross_replica_mean", "lamb", "lars",
+           "load_optimizer_state_tree", "map_state_moments",
+           "optimizer_state_tree", "sgd", "shard_opt_state", "zero1_init"]
 
 
 def tree_leaves(tree) -> list:
@@ -207,7 +209,11 @@ class OptaxRule(torch.optim.Optimizer):
         return {}
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def updates(self) -> list:
+        """Optax's ``update``: each parameter's update ``u`` from its
+        ``.grad``, the state moved, in the parameters' order (those with
+        a gradient); the parameters are not touched."""
+        out = []
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -216,10 +222,18 @@ class OptaxRule(torch.optim.Optimizer):
             count = states[0]["count"]
             lr = group["lr"]
             lr = lr(count) if callable(lr) else lr
-            updates = self._rule(group, params, [p.grad for p in params],
-                                 states, count, lr)
-            torch._foreach_add_(params, updates)
+            out += self._rule(group, params, [p.grad for p in params],
+                              states, count, lr)
             torch._foreach_add_([st["count"] for st in states], 1)
+        return out
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        params = [p for group in self.param_groups
+                  for p in group["params"] if p.grad is not None]
+        updates = self.updates()
+        if params:
+            torch._foreach_add_(params, updates)
 
     def _scaled(self, updates, lr):
         # optax's scale_by_learning_rate: u ← (−lr)·u, one rounding
@@ -502,7 +516,7 @@ class _MultiNodeOptimizer:
                  double_buffering=False):
         self.mean, self.inner = mean, inner
         self.every, self.double_buffering = every, double_buffering
-        self.overlap = mean.overlap
+        self.overlap = mean is not None and mean.overlap
         self._stream = None
 
     def init(self, params):
@@ -574,13 +588,12 @@ class _MultiNodeOptimizer:
                     t.record_stream(here)
             if st is not None:
                 st.event = None
-            self.inner.update(pytree.tree_unflatten(list(g), treedef),
-                              st.inner if st is not None else opt_state,
-                              params)
+            self._step(pytree.tree_unflatten(list(g), treedef),
+                       st.inner if st is not None else opt_state, params)
             return
         st.join()                   # the previous update's stash is in
-        self.inner.update(pytree.tree_unflatten(list(st.prev), treedef),
-                          st.inner, params)
+        self._step(pytree.tree_unflatten(list(st.prev), treedef),
+                   st.inner, params)
         if stream is None:
             torch._foreach_copy_(st.prev, g)
             return
@@ -590,6 +603,10 @@ class _MultiNodeOptimizer:
         with torch.cuda.stream(stream):
             torch._foreach_copy_(st.prev, g)
         st.event = self._record(stream)
+
+    def _step(self, grads, inner_state, params):
+        """The inner optimizer's step with the exchanged gradients."""
+        self.inner.update(grads, inner_state, params)
 
     @staticmethod
     def _on(stream):
@@ -610,6 +627,251 @@ def _not_ported(what, item):
     return NotImplementedError(
         f"create_multi_node_optimizer({what}) is not ported to "
         f"chainermn_tpu_torch yet (ROADMAP Queue A item {item})")
+
+
+# --------------------------------------------------------------------- #
+# ZeRO-1 and ZeRO-2: the optimizer state sharded over the data group
+# --------------------------------------------------------------------- #
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _padded(leaf, n: int):
+    """``leaf`` flattened and zero-padded to ``n·s`` elements, ``s =
+    ceil(numel/n)``, as an ``(n, s)`` matrix: row ``r`` is rank ``r``'s
+    shard."""
+    flat = leaf.reshape(-1)
+    s = _ceil_div(flat.numel(), n)
+    if s * n != flat.numel():
+        flat = torch.cat([flat, flat.new_zeros(s * n - flat.numel())])
+    return flat.reshape(n, s)
+
+
+def _leaf_shard(leaf, idx: int, n: int):
+    """Rank ``idx``'s 1-D shard of ``leaf`` (zero-padded to ``n·s``)."""
+    return _padded(leaf, n)[idx]
+
+
+def _zero2_buckets(leaves, n: int, bucket_bytes):
+    """Exchange buckets over ``leaves`` in tree order: grouped by dtype
+    (first seen first), split so one bucket's per-rank shard stays under
+    ``bucket_bytes`` (``None``: one bucket a dtype).  The same on every
+    rank, from the tree alone."""
+    by_dtype: dict = {}
+    for i, leaf in enumerate(leaves):
+        by_dtype.setdefault(leaf.dtype, []).append(i)
+    buckets = []
+    for dt, idxs in by_dtype.items():
+        cur, cur_b = [], 0
+        for i in idxs:
+            b = _ceil_div(leaves[i].numel(), n) * leaves[i].element_size()
+            if cur and bucket_bytes is not None \
+                    and cur_b + b > bucket_bytes:
+                buckets.append((dt, cur))
+                cur, cur_b = [], 0
+            cur.append(i)
+            cur_b += b
+        if cur:
+            buckets.append((dt, cur))
+    return buckets
+
+
+class _ZeroExchange:
+    """The overlap form of a ZeRO exchange: :meth:`put` takes each
+    gradient as the backward makes it and reduce-scatters it (ZeRO-1:
+    at once; ZeRO-2: when its bucket is whole); :meth:`result` is the
+    shards in leaf order."""
+
+    def __init__(self, opt, leaves):
+        self.opt, self.n_leaves = opt, len(leaves)
+        self.grads = [None] * len(leaves)
+        self.shards = [None] * len(leaves)
+        self.buckets = opt._buckets(leaves)
+        self.bucket_of = {i: b for b, (_, idxs) in enumerate(self.buckets)
+                          for i in idxs}
+        self.waiting = [len(idxs) for _, idxs in self.buckets]
+
+    def put(self, i: int, grad) -> None:
+        self.grads[i] = grad
+        b = self.bucket_of[i]
+        self.waiting[b] -= 1
+        if not self.waiting[b]:
+            idxs = self.buckets[b][1]
+            for j, shard in zip(idxs, self.opt._scatter(
+                    [self.grads[j] for j in idxs])):
+                self.shards[j] = shard
+                self.grads[j] = None
+
+    def result(self) -> list:
+        if any(s is None for s in self.shards):
+            raise RuntimeError("a ZeRO overlap exchange was read before "
+                               "every gradient was put")
+        return self.shards
+
+
+class Zero1Transformation(_MultiNodeOptimizer):
+    """ZeRO-1 (the JAX ``zero1_optimizer``): the inner optimizer's state
+    sharded over ``comm``'s ranks.  Its type marks the layout, which
+    :class:`~chainermn_tpu_torch.training.StandardUpdater` detects
+    (``sharding``, ``zero1``).
+
+    Per update and per leaf: the gradient flattened, zero-padded to
+    ``n·s`` and reduce-scattered as a mean (in the wire dtype, divided
+    there, cast back), so rank ``r`` holds shard ``r`` of the mean; the
+    inner rule runs on that shard with its shard-width state, given a
+    shard-width scratch parameter holding this rank's shard of the
+    parameter (the port's rules update in place; the JAX rule takes
+    ``params`` as an argument); its update ``u`` (not the updated
+    parameter: a bf16 wire would round the parameters themselves) is
+    all-gathered and ``p + u`` applied on every rank, so the parameters
+    stay replicated.  Padding lanes run through the rule and are dropped
+    at the gather.  The rule must be elementwise: LARS's and LAMB's
+    trust ratio sees the norms of the shard only, as in the JAX package.
+
+    ``init`` returns the inner rule over the scratch shards, or a
+    :class:`MultiNodeState` around it whose accumulator and double
+    buffer are shard-width too (accumulation and double buffering sit
+    inside ZeRO, as the JAX package composes them).  Rank ``r``'s state
+    is the JAX world-stacked state's ``[r]``."""
+
+    sharding = "zero1"
+
+    def __init__(self, comm, inner, wire_dtype=None, every=1,
+                 double_buffering=False, overlap=False,
+                 bucket_bytes=None):
+        # the base's exchange is replaced by update / overlapped below
+        super().__init__(None, inner, every, double_buffering)
+        self.overlap = bool(overlap)
+        self.comm, self.wire_dtype = comm, wire_dtype
+        self.bucket_bytes = bucket_bytes
+
+    def init(self, params):
+        n, r = self.comm.size, self.comm.rank
+        leaves, spec = pytree.tree_flatten(params)
+        scratch = pytree.tree_unflatten(
+            [_leaf_shard(p.detach(), r, n).clone() for p in leaves], spec)
+        inner = self.inner.init(scratch)
+        if self.every > 1 or self.double_buffering:
+            return MultiNodeState(inner, scratch, self.every,
+                                  self.double_buffering)
+        return inner
+
+    def _buckets(self, leaves):
+        """ZeRO-1 reduces leaf by leaf."""
+        return [(leaf.dtype, [i]) for i, leaf in enumerate(leaves)]
+
+    def _wire(self, dtype):
+        return _fused._wire_dtype_for(dtype, self.wire_dtype)
+
+    def _scatter(self, grads) -> list:
+        """One reduce-scatter mean over ``grads`` (a bucket): each
+        padded to ``(n, s_i)``, the bucket ``(n, Σ s_i)``; returns the
+        shards.  The reduce-scatter is an all-to-all (rank ``j`` gets
+        every rank's row ``j``) and the rows' sum in rank order, so each
+        element meets the same additions in the same order however the
+        leaves are bucketed: ZeRO-2 is ZeRO-1's bits at any
+        ``bucket_bytes``, on NCCL and gloo alike (their own
+        reduce-scatters order the sum by the element's place in the
+        buffer)."""
+        n = self.comm.size
+        dt = grads[0].dtype
+        mats = [_padded(g, n) for g in grads]
+        buf = mats[0] if len(mats) == 1 else torch.cat(mats, dim=1)
+        rows = self.comm.alltoall(buf.to(self._wire(dt)))
+        red = rows[0].clone()
+        for j in range(1, n):
+            red += rows[j]
+        red = (red / n).to(dt)
+        return list(red.split([m.shape[1] for m in mats]))
+
+    def _gather(self, updates, leaves) -> list:
+        """The updates' shards all-gathered (in the wire dtype) back to
+        the leaves' shapes, a bucket at a time."""
+        n = self.comm.size
+        out = [None] * len(leaves)
+        for _, idxs in self._buckets(leaves):
+            cat = torch.cat([updates[i] for i in idxs]) if len(idxs) > 1 \
+                else updates[idxs[0]]
+            wire = self._wire(cat.dtype)
+            full = self.comm.allgather(cat.to(wire)).to(cat.dtype)
+            off = 0
+            for i in idxs:
+                w = updates[i].numel()
+                out[i] = full[:, off:off + w].reshape(-1)[
+                    :leaves[i].numel()].reshape(leaves[i].shape)
+                off += w
+        return out
+
+    def exchange(self, grads) -> list:
+        """The gradient tree's reduce-scattered mean: this rank's shard
+        of every leaf, in leaf order."""
+        leaves = pytree.tree_leaves(grads)
+        shards = [None] * len(leaves)
+        for _, idxs in self._buckets(leaves):
+            for i, shard in zip(idxs, self._scatter([leaves[i]
+                                                     for i in idxs])):
+                shards[i] = shard
+        return shards
+
+    def overlapped(self, params):
+        """The exchange fed a gradient at a time (``overlap=True``)."""
+        return _ZeroExchange(self, pytree.tree_leaves(params))
+
+    def update(self, grads, opt_state, params):
+        with self.on_comm_stream(pytree.tree_leaves(grads)):
+            shards = self.exchange(grads)
+        self.apply(pytree.tree_unflatten(
+            shards, pytree.tree_structure(grads)), opt_state, params)
+
+    def _step(self, grads, inner_state, params):
+        n, r = self.comm.size, self.comm.rank
+        leaves = pytree.tree_leaves(params)
+        scratch = [p for g in inner_state.param_groups for p in g["params"]]
+        with torch.no_grad():
+            for s, p, g in zip(scratch, leaves, pytree.tree_leaves(grads)):
+                s.copy_(_leaf_shard(p, r, n))
+                s.grad = g
+            updates = inner_state.updates()
+            for s in scratch:
+                s.grad = None
+            torch._foreach_add_(leaves, self._gather(updates, leaves))
+
+
+class Zero2Transformation(Zero1Transformation):
+    """ZeRO-2 (the JAX ``zero2_optimizer``): ZeRO-1's state layout with
+    the exchange bucketed — the leaves packed rank-major into
+    dtype-grouped buckets (each leaf padded to ``(n, s)``, the bucket
+    their concatenation along the shard axis), one reduce-scatter and
+    one all-gather a bucket.  ``bucket_bytes`` caps a bucket's per-rank
+    shard (``None``: one bucket a dtype)."""
+
+    sharding = "zero2"
+
+    def _buckets(self, leaves):
+        return _zero2_buckets(leaves, self.comm.size, self.bucket_bytes)
+
+
+def shard_opt_state(optimizer, params):
+    """``optimizer.init(params)`` over this rank's parameters as they
+    lie: under FSDP the shards, so the elementwise moments are made at
+    shard width (the JAX ``shard_opt_state`` pins shardings for the same
+    end; a rank holds only its own)."""
+    return optimizer.init(params)
+
+
+def zero1_init(tx, params):
+    """A :class:`Zero1Transformation`'s (or ZeRO-2's) state on this rank:
+    the JAX ``zero1_init``'s world-stacked state's row ``comm.rank``."""
+    if not isinstance(tx, Zero1Transformation):
+        raise TypeError(f"zero1_init takes a ZeRO optimizer, got "
+                        f"{type(tx).__name__}")
+    return tx.init(params)
+
+
+# one warning a process for plan= under ZeRO
+_ZERO1_PLAN_WARNED = False
 
 
 def create_multi_node_optimizer(
@@ -652,11 +914,22 @@ def create_multi_node_optimizer(
       ``bucket_bytes`` and the wire dtype); ``StandardUpdater`` then
       exchanges each bucket from gradient hooks as the backward of a
       window's last microbatch produces it.
+    - ``zero1``: the optimizer state sharded over ``comm``
+      (:class:`Zero1Transformation`: a reduce-scatter mean a leaf, the
+      rule on the shard, an all-gather of the updates); accumulation and
+      double buffering sit inside it at shard width; ``fused`` and
+      ``inter_axis_name`` are ignored, and ``overlap`` makes
+      ``StandardUpdater`` feed the reduce-scatters from the backward's
+      gradient hooks.
+    - ``zero2``: the same state layout, the exchange bucketed
+      (:class:`Zero2Transformation`; ``bucket_bytes`` caps a bucket's
+      shard, ``None`` one bucket a dtype).  Exclusive with ``zero1``.
+      Under either, ``plan`` is ignored with a one-time warning.
 
     Not ported yet, each raising: a string ``overlap`` and ``plan`` (the
-    measured autotuner, Queue A item 10), ``zero1`` and ``zero2`` (item
-    8), and ``axis_name`` (the port reduces over a communicator, not a
-    mesh axis)."""
+    measured autotuner, Queue A item 10) without ZeRO, and
+    ``axis_name`` (the port reduces over a communicator, not a mesh
+    axis)."""
     if comm is None:
         raise ValueError("create_multi_node_optimizer needs comm")
     if axis_name is not None:
@@ -664,9 +937,27 @@ def create_multi_node_optimizer(
                          "mesh axis of the JAX package")
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} must be >= 1")
-    for what, on, item in (("zero1=True", zero1, 8),
-                           ("zero2=True", zero2, 8),
-                           ("overlap='auto'", isinstance(overlap, str), 10),
+    if zero1 and zero2:
+        raise ValueError(
+            "zero1=True and zero2=True are mutually exclusive — "
+            "ZeRO-2 subsumes ZeRO-1's state sharding; pick one")
+    if zero1 or zero2:
+        if plan is not None:
+            global _ZERO1_PLAN_WARNED
+            if not _ZERO1_PLAN_WARNED:
+                _ZERO1_PLAN_WARNED = True
+                warnings.warn(
+                    "create_multi_node_optimizer: plan= is ignored under "
+                    "zero1/zero2 — ZeRO exchanges gradients through its "
+                    "own reduce-scatter/all-gather pair, so the analytic "
+                    "path is used instead of the tuned plan (warning "
+                    "shown once per process)", RuntimeWarning,
+                    stacklevel=2)
+        cls = Zero2Transformation if zero2 else Zero1Transformation
+        return cls(comm, actual_optimizer, allreduce_grad_dtype,
+                   accum_steps, double_buffering, overlap=bool(overlap),
+                   bucket_bytes=bucket_bytes)
+    for what, on, item in (("overlap='auto'", isinstance(overlap, str), 10),
                            ("plan=...", plan is not None, 10)):
         if on:
             raise _not_ported(what, item)

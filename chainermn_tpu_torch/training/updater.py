@@ -59,7 +59,11 @@ from chainermn_tpu_torch.iterators import (
     put_window,
 )
 
-from .optimizers import MultiNodeState
+from .optimizers import (
+    MultiNodeState,
+    Zero1Transformation,
+    Zero2Transformation,
+)
 
 __all__ = ["StandardUpdater", "fuse_steps"]
 
@@ -198,7 +202,12 @@ class StandardUpdater:
         ``scatter_dataset`` shard, with the local batch size).
       optimizer: normally ``create_multi_node_optimizer(...)``; its
         ``update(grads, opt_state, params)`` exchanges the gradients and
-        updates ``params`` in place.
+        updates ``params`` in place.  A ZeRO-1 or ZeRO-2 one
+        (``zero1=True``/``zero2=True``) is detected by its type:
+        ``sharding`` is ``"zero1"``/``"zero2"``, ``zero1`` is true, and
+        ``opt_state`` is this rank's shard state; under ``overlap=True``
+        its reduce-scatters are fed from the gradient hooks of a
+        window's last microbatch.
       loss_fn: ``loss_fn(params, *batch) -> scalar`` on this rank's
         batch; with ``state``, ``loss_fn(params, state, *batch) ->
         (scalar, new_state)`` (BN running statistics).  ``new_state``
@@ -319,6 +328,14 @@ class StandardUpdater:
         for leaf in pytree.tree_leaves(self.params):
             leaf.requires_grad_(True)
         self.state = None if state is None else comm.bcast_data(state)
+        # the sharding mode from the optimizer's type: ZeRO-1 and ZeRO-2
+        # carry this rank's shard state alike (zero1 is the switch for
+        # both, as in the JAX updater)
+        self.sharding = (
+            "zero2" if isinstance(optimizer, Zero2Transformation)
+            else "zero1" if isinstance(optimizer, Zero1Transformation)
+            else None)
+        self.zero1 = self.sharding in ("zero1", "zero2")
         self.opt_state = optimizer.init(self.params)
         # on the card a window of several updates is one CUDA graph
         self.graphs = self.device.type == "cuda" and steps_per_execution > 1
@@ -347,11 +364,13 @@ class StandardUpdater:
         return getattr(self.iterator, "epoch", 0)
 
     def status(self) -> dict:
-        """Where the loop is: iteration, epoch and world size."""
+        """Where the loop is: iteration, epoch, world size and the
+        optimizer state's sharding."""
         return {"iteration": int(self.iteration), "epoch": int(self.epoch),
                 "world_size": int(self.comm.size),
                 "steps_per_execution": int(self.steps_per_execution),
-                "inflight_windows": len(self._inflight)}
+                "inflight_windows": len(self._inflight),
+                "zero1": bool(self.zero1), "sharding": self.sharding}
 
     def mark_steady(self) -> None:
         raise _not_ported("mark_steady (the program ledger)", 10)

@@ -120,10 +120,18 @@ Phases (any failure exits non-zero before the last line is printed):
     loss against plain attention's, its flash launches a step against
     the dense step's, the drops a layer, ms a step, tokens/s and peak
     memory; (c) an expert=4 grouping simulated on the card against the
-    unsharded layer at ample capacity.
+    unsharded layer at ample capacity;
+19. ZeRO-1/2 and FSDP on one card (after phase 16, in its NCCL world):
+    (a) the flagship at full width with ``fsdp=True`` over the mesh's
+    data group of one, bitwise the plain step, its launches (48, 24, 24)
+    a step; (b) ``fsdp_gather``'s bf16 wire over that group: the weights
+    and the gradient bf16-rounded element by element; (c) ResNet-50
+    under ``StandardUpdater`` with ZeRO-1 and ZeRO-2, bitwise the
+    replicated exchange, each one's ms an update, peak and resident
+    bytes.
 
-Phases 3, 6, 13, 15 (a) and (c), 16 (a) and (c), 17 and 18 (b) are the
-main paths of the kernels:
+Phases 3, 6, 13, 15 (a) and (c), 16 (a) and (c), 17, 18 (b) and 19 (a)
+are the main paths of the kernels:
 each starts with every launch count at 0 and reads the counts when it
 ends; phases 7 to 12 run no hand-written kernel, and hold their counts
 at 0.  It prints the card's name and power limit, a
@@ -133,6 +141,7 @@ at 0.  It prints the card's name and power limit, a
 {...}}`` of phase 15's, ``{"tensor_parallel_one_card": {...}}`` of
 phase 16's, ``{"pipeline_one_card": {...}}`` of phase 17's,
 ``{"moe_one_card": {...}}`` of phase 18's,
+``{"zero_one_card": {...}}`` of phase 19's,
 ``{"drift_one_rank": {...}}`` of phase 14's, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Weights are random, from numpy seed 0.  fp32 references run with TF32
@@ -155,7 +164,12 @@ under 1F1B against one card's, and decoding at pipe=4; ``--four-cards
 ep`` the expert axis's alone: the MoE flagship's step at expert=4
 (top-1), data=2,expert=2 (top-2), expert=2,model=2 and pipe=2,expert=2
 (1F1B) against one card's simulation of the same per-rank routing, the
-layer across the four ranks, and decoding at expert=4.
+layer across the four ranks, and decoding at expert=4; ``--four-cards
+zero`` the data axis's sharding alone: the flagship at data=4 with FSDP
+(fp32 and bf16 wires), the MoE flagship at data=2,expert=2 (top-2) and
+pipe=2,data=2 under 1F1B with FSDP, each against the same mesh without
+it, and ResNet-50 under ``StandardUpdater`` at data=4 with ZeRO-1 and
+ZeRO-2 against the replicated exchange.
 """
 
 import dataclasses
@@ -3372,6 +3386,11 @@ def main():
 
     # 16. the mesh's model axis on one card -----------------------------
     tp_counts, _ = phase_tensor_parallel(torch, np, root, smi)
+
+    # 19. ZeRO-1/2 and FSDP on one card, in the same NCCL world ---------
+    from chainermn_tpu_torch.communicators import create_communicator
+
+    zero_counts, _ = phase_zero(torch, np, root, smi, create_communicator())
     torch.distributed.destroy_process_group()
 
     # 17. the pipe axis's schedules on one card -------------------------
@@ -3398,7 +3417,9 @@ def main():
                                    **{p: c[0] for p, c in
                                       pp_counts.items()},
                                    **{p: c[0] for p, c in
-                                      moe_counts.items()}),
+                                      moe_counts.items()},
+                                   **{p: c[0] for p, c in
+                                      zero_counts.items()}),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
@@ -3408,7 +3429,8 @@ def main():
                  **{f"seq_{p}": c[1] for p, c in seq_counts.items()},
                  **{p: c[1] for p, c in tp_counts.items()},
                  **{p: c[1] for p, c in pp_counts.items()},
-                 **{p: c[1] for p, c in moe_counts.items()}),
+                 **{p: c[1] for p, c in moe_counts.items()},
+                 **{p: c[1] for p, c in zero_counts.items()}),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
@@ -3419,7 +3441,8 @@ def main():
                  **{f"seq_{p}": c[2] for p, c in seq_counts.items()},
                  **{p: c[2] for p, c in tp_counts.items()},
                  **{p: c[2] for p, c in pp_counts.items()},
-                 **{p: c[2] for p, c in moe_counts.items()}),
+                 **{p: c[2] for p, c in moe_counts.items()},
+                 **{p: c[2] for p, c in zero_counts.items()}),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -4736,6 +4759,479 @@ def four_cards_ep(root, smi):
     return 0
 
 
+# --------------------------------------------------------------------- #
+# 19 and --four-cards zero: ZeRO-1/2 and FSDP over the data axis
+# --------------------------------------------------------------------- #
+
+# --four-cards zero: (name, mesh, schedule, micro-batches, MoE, top-k);
+# each mesh runs without FSDP, with it, and (data=4) with the bf16 wire
+ZERO_FOUR = (("data4", "data=4", "gpipe", "1", "0", "1"),
+             ("data2_expert2_moe_top2", "data=2,expert=2", "gpipe", "1",
+              "1", "2"),
+             ("pipe2_data2_1f1b", "pipe=2,data=2", "1f1b", "4", "0", "1"))
+# FSDP's losses against the same mesh's without it: the first bitwise
+# (the gathered weights are the whole fp32 ones, or their bf16 rounding,
+# which the bf16 compute rounds to the same bits), the later ones within
+# the sequence axis's bars (the gradients' sums run in other orders)
+ZERO_LOSS_REL = (0.0, 1e-3, 5e-3)
+ZERO_PARAMS_REL = 1e-2
+# phase 19 (a): the steps of each run, the first a warm-up for the time
+ZERO_ONE_CARD_STEPS = 4
+# phase 19 (c) and --four-cards zero (e): ResNet-50, 32 images a rank,
+# the first update a warm-up for the time (cuDNN's autotuning)
+ZERO_RESNET_B = 32
+ZERO_RESNET_UPDATES = 4
+
+
+def tree_bytes(torch, tree):
+    """Bytes of every tensor of ``tree``."""
+    import torch.utils._pytree as pytree
+
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if torch.is_tensor(t))
+
+
+def resident_bytes(torch, params, opt_state):
+    """Parameter and optimizer-state bytes a rank, counted from the
+    tensors (a ZeRO state's scratch shards included)."""
+    from chainermn_tpu_torch.training import optimizer_state_tree
+
+    import torch.utils._pytree as pytree
+
+    inner = getattr(opt_state, "inner", opt_state)
+    mine = {id(t) for t in pytree.tree_leaves(params)}
+    return tree_bytes(torch, params) + tree_bytes(
+        torch, optimizer_state_tree(opt_state)) + sum(
+        p.numel() * p.element_size() for g in inner.param_groups
+        for p in g["params"] if id(p) not in mine)
+
+
+def zero_resnet_runs(torch, np, comm, smi):
+    """ResNet-50 (sync BN, 224 px, bf16 compute, ``sgd(0.1,
+    momentum=0.9)``, fp32 wire) under ``StandardUpdater`` on
+    ``ZERO_RESNET_B`` seeded images a rank, ``ZERO_RESNET_UPDATES``
+    updates with the replicated exchange, ZeRO-1 and ZeRO-2 from the same
+    weights: each mode's losses, ms an update, peak and resident bytes,
+    its sharding as the updater reports it, whether the ranks' parameters
+    are the same bits after every update, and rank 0's parameters."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        ResNetConfig, init_resnet_numpy, resnet_apply,
+        resnet_params_from_jax, softmax_cross_entropy)
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    cfg = ResNetConfig()
+    tree, st = init_resnet_numpy(cfg, SEED)
+    rng = np.random.default_rng(SEED + 1 + comm.rank)
+    data = [(rng.standard_normal((224, 224, 3), dtype=np.float32),
+             np.int32(rng.integers(0, 1000)))
+            for _ in range(ZERO_RESNET_B)]
+
+    def loss_fn(prm, state, x, y):
+        logits, new = resnet_apply(cfg, prm, state, x, train=True,
+                                   comm=comm)
+        return softmax_cross_entropy(logits, y), new
+
+    runs = {}
+    for mode, kw in (("replicated", {}), ("zero1", dict(zero1=True)),
+                     ("zero2", dict(zero2=True))):
+        params, state = resnet_params_from_jax(tree, st, cfg,
+                                               device=comm.device)
+        opt = training.create_multi_node_optimizer(
+            training.sgd(0.1, momentum=0.9), comm, **kw)
+        it = SerialIterator(data, ZERO_RESNET_B, shuffle=False)
+        up = training.StandardUpdater(it, opt, loss_fn, params, comm,
+                                      state=state)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, equal = [], [], []
+        for _ in range(ZERO_RESNET_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            up.update()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(up.observation["main/loss"]))
+            equal.append(replicas_bitwise(comm, up.params))
+        runs[mode] = dict(
+            losses=losses, times_ms=times, equal=equal,
+            sharding=up.status()["sharding"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            resident_mb=resident_bytes(torch, up.params, up.opt_state)
+            / 1e6,
+            params=[t.detach().float().cpu().numpy()
+                    for t in pytree.tree_leaves(up.params)])
+        del up, opt, params, state
+    flat = {m: np.concatenate([a.ravel() for a in r.pop("params")])
+            for m, r in runs.items()}
+    ref = flat["replicated"]
+    for m in ("zero1", "zero2"):
+        runs[m]["params_bitwise_replicated"] = bool(
+            np.array_equal(flat[m], ref))
+        runs[m]["params_rel_l2_replicated"] = float(
+            np.linalg.norm(flat[m] - ref) / np.linalg.norm(ref))
+    runs["zero2"]["params_bitwise_zero1"] = bool(
+        np.array_equal(flat["zero2"], flat["zero1"]))
+    return dict(world=comm.size, images_per_rank=ZERO_RESNET_B,
+                card=smi, runs=runs)
+
+
+def phase_zero(torch, np, root, smi, comm):
+    """19. ZeRO-1/2 and FSDP on one card, in the one-rank NCCL world
+    (after phase 16): (a) the flagship at full width with ``fsdp=True``
+    over the mesh's data group of one, ``ZERO_ONE_CARD_STEPS`` steps
+    against the plain step (bitwise: each block's gather over one member
+    is the weights themselves), its flash launches a step (48, 24, 24),
+    ms a step (the median after the first); (b)
+    ``fsdp_gather`` with the bf16 wire over that group on a block's
+    ``w1``: the weights come back bf16-rounded and the gradient is
+    bf16-rounded, element by element; (c) ResNet-50 under
+    ``StandardUpdater`` with ZeRO-1 and ZeRO-2 (:func:`zero_resnet_runs`)
+    against the replicated exchange, bitwise.  Returns the launch
+    counts of (a) and the metrics."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        params_from_jax)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig, fsdp_gather
+
+    t_phase = time.perf_counter()
+    dev = comm.device
+    mesh = MeshConfig(comm, data=1)
+    cfg = TransformerConfig(**dict(FLAGSHIP, remat=True))
+    fcfg = dataclasses.replace(cfg, fsdp=True)
+    tree = init_numpy_params(cfg, SEED)
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    counts, steps, metrics = {}, {}, {"card": smi}
+    n = ZERO_ONE_CARD_STEPS
+    for name, c, m in (("plain", cfg, None), ("fsdp", fcfg, mesh)):
+        params = params_from_jax(tree, c, dev, mesh=m)
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(c, opt, device=dev, mesh=m)
+        torch.cuda.synchronize()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        losses, times = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(step(params, state, x, y)[2])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if name == "fsdp":                                # path ended
+            counts["fsdp_one_card"] = (fa.launches, fa.dq_launches,
+                                       fa.dkv_launches)
+        # the first step warms up (cuBLAS, the allocator): steps 2-n
+        metrics[f"{name}_ms_a_step"] = statistics.median(times[1:])
+        metrics[f"{name}_times_ms"] = times
+        steps[name] = (losses, params)
+        del state
+    L = cfg.n_layers
+    require(counts["fsdp_one_card"] == (2 * L * n, L * n, L * n),
+            f"19 (a) launches over {n} steps {counts['fsdp_one_card']}, "
+            f"want {(2 * L, L, L)} a step")
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(
+        steps["fsdp"][0], steps["plain"][0])) and trees_equal(
+        torch, steps["fsdp"][1], steps["plain"][1])
+    metrics.update(fsdp_step_bitwise=bitwise,
+                   fsdp_losses=[v.item() for v in steps["fsdp"][0]],
+                   launches=counts["fsdp_one_card"])
+    print(f"zero (a): the flagship's step with fsdp over a data group of "
+          f"one against the plain step, {n} steps: losses "
+          f"{metrics['fsdp_losses']} vs "
+          f"{[v.item() for v in steps['plain'][0]]}, bitwise {bitwise}; "
+          f"launches {counts['fsdp_one_card']}; "
+          f"{metrics['fsdp_ms_a_step']:.2f} ms a step (plain "
+          f"{metrics['plain_ms_a_step']:.2f}; the median of steps 2-{n})")
+    require(bitwise, "19 (a) the fsdp step is not the plain step")
+
+    # (b) the bf16 wire over the group of one, on a block's w1
+    w = steps["fsdp"][1]["blocks"]["w1"][0].detach().clone() \
+        .requires_grad_()
+    del steps
+    got = fsdp_gather({"w1": w}, {"w1": 0}, mesh.comm("data"),
+                      "bfloat16")["w1"]
+    g = torch.randn(w.shape, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    (got * g).sum().backward()
+    wb = bool(torch.equal(got, w.detach().to(torch.bfloat16).float()))
+    gb = bool(torch.equal(w.grad, g.to(torch.bfloat16).float()))
+    exact = int((got == w.detach()).sum())
+    metrics.update(bf16_wire_weights=wb, bf16_wire_grad=gb)
+    print(f"zero (b): fsdp_gather with the bf16 wire over one member, "
+          f"w1 {tuple(w.shape)}: weights bf16-rounded element by element "
+          f"{wb} ({exact} of {w.numel()} already bf16 values), gradient "
+          f"bf16-rounded {gb}")
+    require(wb and gb, "19 (b) the bf16 wire's rounding")
+    del w, got, g
+
+    # (c) ResNet-50 under StandardUpdater: ZeRO-1 and ZeRO-2 at world 1
+    res = zero_resnet_runs(torch, np, comm, smi)
+    metrics["resnet_world1"] = res
+    for mode, r in res["runs"].items():
+        print(f"zero (c): resnet50 {mode}: losses {r['losses']}, "
+              f"{statistics.median(r['times_ms'][1:]):.2f} ms an update "
+              f"({ZERO_RESNET_B} images), peak {r['peak_gib']:.2f} GiB, "
+              f"resident {r['resident_mb']:.1f} MB, sharding "
+              f"{r['sharding']}")
+    z1, z2 = res["runs"]["zero1"], res["runs"]["zero2"]
+    require(z1["sharding"] == "zero1" and z2["sharding"] == "zero2",
+            "19 (c) the updater's sharding")
+    require(z1["params_bitwise_replicated"]
+            and z2["params_bitwise_replicated"]
+            and z1["losses"] == res["runs"]["replicated"]["losses"],
+            f"19 (c) ZeRO at world 1 is not the replicated exchange: rel "
+            f"L2 {z1['params_rel_l2_replicated']}, "
+            f"{z2['params_rel_l2_replicated']}")
+    metrics["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"zero_one_card": metrics}))
+    print(f"zero: phase {metrics['seconds']:.1f} s ({smi})")
+    return counts, metrics
+
+
+def zero_rank(out, name, mesh_spec, schedule, M, moe, k):
+    """One rank (under torchrun, 4 ranks) of ``--four-cards zero``'s
+    flagship over a mesh with a data axis: 8 x 2048 tokens globally,
+    bf16, full remat, ``adamw(3e-4)``, the same weights (the dense
+    flagship from numpy seed 0; the MoE one drawn on the card,
+    :func:`moe_params`; drawn again for each run) without FSDP, with
+    it, and at ``data=4`` with the bf16 wire.  For each: ``SEQ_STEPS``
+    steps, each timed, after
+    each the leaves replicated over the data group (and over the
+    batch-like group) compared bitwise across its members; the flash
+    launches counted from 0 just before the steps to just after beside
+    :func:`pp_predicted_launches`; the gathers; the peak memory; the
+    parameter and optimizer-state bytes a rank; the parameters after the
+    steps, gathered, held by rank 0 against the run without FSDP.  Rank
+    0 writes ``out/zero.json``."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        params_from_jax, params_to_numpy, shard_params)
+    from chainermn_tpu_torch.models.transformer import _fsdp_dims
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig, fsdp_gather
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    comm = cmn.create_communicator()
+    dev = comm.device
+    mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
+    S, s = mesh.axis_size("pipe"), mesh.axis_index("pipe")
+    if moe == "1":
+        cfg = ep_config(schedule, M, k)
+    else:
+        cfg = TransformerConfig(**dict(
+            FLAGSHIP, remat=True, pipeline_schedule=schedule,
+            num_microbatches=int(M)))
+        tree = init_numpy_params(cfg, SEED)
+
+    def whole():
+        """The whole tree on the card, drawn again for each run and
+        dropped once cut, so no run's peak holds it."""
+        if moe != "1":
+            return params_from_jax(tree, cfg, dev)
+        w = moe_params(torch, cfg, dev)
+        comm.bcast_data(w)
+        return w
+
+    x, y = ep_batch(np, cfg)
+    variants = ("dense", "fsdp", "fsdp_bf16") if name == "data4" \
+        else ("dense", "fsdp")
+    data, batch = mesh.comm("data"), mesh.comm(*BATCH_AXES)
+    experts = ("w1", "w2") if cfg.moe and mesh.axis_size("expert") > 1 \
+        else ()
+    runs, gathered = {}, {}
+    for variant in variants:
+        c = dataclasses.replace(
+            cfg, fsdp=variant != "dense",
+            fsdp_wire_dtype="bfloat16" if variant == "fsdp_bf16" else "")
+        params = shard_params(mesh, c, whole())
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(c, opt, mesh=mesh)
+        sharded = set(_fsdp_dims(c)) if c.fsdp else set()
+        over_data = [v for kk, v in params.items() if kk != "blocks"] + [
+            v for kk, v in params["blocks"].items() if kk not in sharded]
+        over_batch = [v for kk, v in params.items() if kk != "blocks"] + [
+            v for kk, v in params["blocks"].items()
+            if kk not in sharded and kk not in experts]
+        resident = resident_bytes(torch, params, state)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, equal = [], [], []
+        torch.cuda.synchronize()
+        fsdp_gather.gathers = 0
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        for _ in range(SEQ_STEPS):
+            comm.barrier()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            equal.append(replicas_bitwise(data, over_data)
+                         and replicas_bitwise(batch, over_batch))
+        torch.cuda.synchronize()
+        runs[variant] = dict(                                   # ended
+            launches=(fa.launches, fa.dq_launches, fa.dkv_launches),
+            predicted=pp_predicted_launches(c, S, s, SEQ_STEPS),
+            gathers=fsdp_gather.gathers, times_ms=times, losses=losses,
+            ranks_equal=equal, resident_gb=resident / 1e9,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        flat = params_to_numpy(params, c, mesh=mesh)
+        if comm.rank == 0:
+            gathered[variant] = np.concatenate([
+                a.ravel() for a in torch.utils._pytree.tree_leaves(flat)])
+        del params, state, step, opt, flat, over_data, over_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    if comm.rank == 0:
+        ref = gathered["dense"]
+        for variant in variants[1:]:
+            runs[variant]["params_rel_l2_dense"] = float(
+                np.linalg.norm(gathered[variant] - ref) / np.linalg.norm(ref))
+    ranks = comm.allgather_obj(dict(rank=comm.rank, coords=mesh.coords,
+                                    runs=runs))
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "zero.json").write_text(json.dumps(dict(
+            name=name, mesh=mesh.shape, schedule=schedule, M=int(M),
+            moe=moe == "1", top_k=int(k), world=comm.size,
+            tokens=8 * cfg.max_seq, ranks=ranks)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def zero_resnet_rank(out):
+    """``--four-cards zero`` (e): :func:`zero_resnet_runs` on 4 NCCL
+    ranks; rank 0 writes ``out/resnet.json``."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+
+    comm = cmn.create_communicator()
+    torch.backends.cudnn.benchmark = True
+    res = zero_resnet_runs(torch, np, comm, card_name())
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "resnet.json").write_text(json.dumps(res))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_zero(root, smi):
+    """``--four-cards``' data-axis sharding: each of ``ZERO_FOUR`` on 4
+    ranks (:func:`zero_rank`): (a) the flagship at data=4 with FSDP
+    against the same mesh without it, (b) with the bf16 wire, (c) the
+    MoE flagship at data=2,expert=2, top-2, (d) pipe=2,data=2 under
+    1F1B, M=4; on each the first loss bitwise the run without FSDP and
+    the later ones within ``ZERO_LOSS_REL``, the gathered parameters
+    within ``ZERO_PARAMS_REL``, the replicated leaves bitwise after every
+    step, every rank's flash launches those of the same mesh without
+    FSDP (:func:`pp_predicted_launches`), the gathers the same on every
+    rank; ms a step (the median of steps 2-3), peak GiB and resident
+    parameter-plus-moment GB a rank.  Then (e) ResNet-50 under
+    ``StandardUpdater`` at data=4 with ZeRO-1 and ZeRO-2 against the
+    replicated exchange (:func:`zero_resnet_rank`).  Prints
+    ``{"zero": {...}}``."""
+    import numpy as np
+
+    from chainermn_tpu_torch import _build
+
+    out = root / "build" / "four_cards" / "zero"
+    me = str(Path(__file__).resolve())
+    _build.build_all()          # once, before the children load them
+    report = {}
+    for name, mesh, schedule, M, moe, k in ZERO_FOUR:
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                        me, "--zero-rank", str(out / name), name, mesh,
+                        schedule, M, moe, k], check=True, timeout=600)
+        r = json.loads((out / name / "zero.json").read_text())
+        lead = r["ranks"][0]["runs"]
+        rep = {}
+        for variant, v in lead.items():
+            rep[variant] = dict(
+                {kk: vv for kk, vv in v.items() if kk not in (
+                    "launches", "predicted", "gathers", "peak_gib",
+                    "resident_gb")},
+                steady_ms=statistics.median(v["times_ms"][1:]),
+                tokens_per_s_per_card=r["tokens"]
+                / statistics.median(v["times_ms"][1:]) * 1e3 / r["world"],
+                launches={q["rank"]: q["runs"][variant]["launches"]
+                          for q in r["ranks"]},
+                gathers={q["rank"]: q["runs"][variant]["gathers"]
+                         for q in r["ranks"]},
+                peak_gib=[q["runs"][variant]["peak_gib"]
+                          for q in r["ranks"]],
+                resident_gb=[q["runs"][variant]["resident_gb"]
+                             for q in r["ranks"]])
+        report[name] = rep
+        dense = lead["dense"]
+        for variant in lead:
+            for q in r["ranks"]:
+                v = q["runs"][variant]
+                require(tuple(v["launches"]) == tuple(v["predicted"])
+                        == tuple(q["runs"]["dense"]["launches"]),
+                        f"{name} {variant} rank {q['rank']}: launches "
+                        f"{v['launches']}, without fsdp "
+                        f"{q['runs']['dense']['launches']}, predicted "
+                        f"{v['predicted']}")
+                require(all(v["ranks_equal"]),
+                        f"{name} {variant}: replicas differ "
+                        f"{v['ranks_equal']}")
+                require(all(np.isfinite(v["losses"])),
+                        f"{name} {variant}: {v['losses']}")
+            if variant == "dense":
+                continue
+            require(len({q["runs"][variant]["gathers"]
+                         for q in r["ranks"]}) == 1,
+                    f"{name} {variant}: gathers differ by rank")
+            rel = [abs(a - b) / abs(b) for a, b in zip(
+                lead[variant]["losses"], dense["losses"])]
+            rep[variant]["loss_rel_dense"] = rel
+            require(all(e <= bar for e, bar in zip(rel, ZERO_LOSS_REL)),
+                    f"{name} {variant}: losses {lead[variant]['losses']} "
+                    f"against {dense['losses']}: relative {rel}, bars "
+                    f"{ZERO_LOSS_REL}")
+            require(lead[variant]["params_rel_l2_dense"] < ZERO_PARAMS_REL,
+                    f"{name} {variant}: parameters rel L2 "
+                    f"{lead[variant]['params_rel_l2_dense']}")
+    subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                    me, "--zero-resnet", str(out / "resnet")], check=True,
+                   timeout=600)
+    res = json.loads((out / "resnet" / "resnet.json").read_text())
+    report["resnet50_data4"] = res
+    print(json.dumps({"zero": dict(report, card=smi)}))
+    z1, z2 = res["runs"]["zero1"], res["runs"]["zero2"]
+    for mode, v in res["runs"].items():
+        require(all(v["equal"]), f"resnet {mode}: replicas differ")
+        require(all(np.isfinite(v["losses"])), f"resnet {mode}: losses")
+    require(z1["sharding"] == "zero1" and z2["sharding"] == "zero2",
+            "resnet: the updater's sharding")
+    require(z1["params_rel_l2_replicated"] < ZERO_PARAMS_REL
+            and z2["params_rel_l2_replicated"] < ZERO_PARAMS_REL,
+            f"resnet: ZeRO against the replicated exchange: rel L2 "
+            f"{z1['params_rel_l2_replicated']}, "
+            f"{z2['params_rel_l2_replicated']}")
+    require(z2["params_bitwise_zero1"], "resnet: ZeRO-2 is not ZeRO-1")
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4760,11 +5256,21 @@ if __name__ == "__main__":
         if sys.argv[2:3] == ["ep"]:
             # the expert axis alone
             sys.exit(four_cards_ep(here, card_name()))
+        if sys.argv[2:3] == ["zero"]:
+            # ZeRO-1/2 and FSDP over the data axis alone
+            sys.exit(four_cards_zero(here, card_name()))
         sys.exit(four_cards(here, card_name())
                  or four_cards_seq(here, card_name())
                  or four_cards_tp(here, card_name())
                  or four_cards_pp(here, card_name())
-                 or four_cards_ep(here, card_name()))
+                 or four_cards_ep(here, card_name())
+                 or four_cards_zero(here, card_name()))
+    if sys.argv[1:2] == ["--zero-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(zero_rank(*sys.argv[2:9]))
+    if sys.argv[1:2] == ["--zero-resnet"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(zero_resnet_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--seq-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(seq_rank(*sys.argv[2:9]))

@@ -71,8 +71,12 @@ rank taking its shard (``reshard_train_state``): a run saved at
 ``pipe=1``, one saved at ``expert=2`` at ``expert=1``, and the
 reverse.  Under ``--moe`` a new run has ``train_lm.py``'s
 ``max(2·expert, 2)`` experts, and a resumed one its checkpoint's.
-``--fsdp`` comes with the rest
-of the parallel slice (ROADMAP Queue A item 8) and raises.
+``--fsdp`` (ZeRO-3) keeps every block matrix's d_model dim sharded
+over the data axis, its gradient and its AdamW moments too; each block
+gathers its weights just before use and the gathers' backward
+reduce-scatters the gradients.  It composes with every ``--mesh`` axis,
+``--moe`` and ``--schedule``, and the checkpoint, in the JAX layout,
+resumes with ``--fsdp`` on or off.
 """
 
 import argparse
@@ -246,7 +250,9 @@ def parse_args(argv=None):
                    help="experts per token (1=Switch, 2=GShard top-2)")
     p.add_argument("--seq-layout", default="contiguous",
                    choices=["contiguous", "zigzag"])
-    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard the block matrices, their gradients and "
+                        "moments over the data axis (ZeRO-3)")
     p.add_argument("--vocab", type=int, default=128)
     p.add_argument("--d-model", type=int, default=64)
     p.add_argument("--n-heads", type=int, default=4)

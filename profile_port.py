@@ -13,6 +13,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 profile_port.py remat
     python3 profile_port.py moe
     torchrun --nproc_per_node 4 profile_port.py moe
+    torchrun --nproc_per_node 4 profile_port.py fsdp
     python3 profile_port.py variants NAME=SOURCE.cu [NAME=SOURCE.cu ...]
     python3 profile_port.py variants bwd NAME=SOURCE.cu [NAME=SOURCE.cu ...]
 
@@ -58,6 +59,12 @@ has one rank and no exchange, and the whole MoE flagship's training
 step (top-1, AdamW, full remat) is traced after them; under
 ``torchrun --nproc_per_node X`` the mesh is ``expert=X``, each rank
 with ``8/X`` rows and ``8/X`` experts, and rank 0 prints.
+
+``fsdp`` traces one training step of the flagship over the mesh
+``data=WORLD_SIZE`` (under torchrun; 8 x 2048 tokens globally) with
+``fsdp=True`` and then without it: rank 0 prints each, with the NCCL
+kernels (FSDP's per-block gathers and gradient reduce-scatters, the
+replicated leaves' all-reduce) beside the compute, and the idle share.
 
 ``variants`` times versions of the forward kernel side by side instead:
 each SOURCE has the C entry point of ``csrc/flash_fwd.cu`` (the same
@@ -454,7 +461,7 @@ def profile_moe(torch):
                     device=dev).to(cfg.compute_dtype)
 
     def block(x):
-        return _block(cfg, x, blk, loop, loop, expert)
+        return _block(cfg, x, blk, loop, loop, expert, loop)
 
     def mlp(x):
         return _mlp(cfg, x, blk, loop, expert)
@@ -497,6 +504,50 @@ def profile_moe(torch):
     trace(torch, lambda: step(params, state, x, y),
           f"MoE flagship training step, 8x{cfg.max_seq} tokens, top-1, "
           "remat, AdamW")
+
+
+def profile_fsdp(torch):
+    """Trace one training step of the flagship (8 x 2048 tokens
+    globally, bf16, full remat, ``adamw(3e-4)``) over the mesh
+    ``data=WORLD_SIZE`` under torchrun, with ``fsdp=True`` and without:
+    rank 0 prints each step's wall time, busy time, idle share and time
+    by kind, the NCCL kernels (FSDP's gathers and reduce-scatters, the
+    gradient all-reduce) beside the compute.  On one card the data axis
+    has one member and FSDP gathers nothing."""
+    import os
+
+    import numpy as np
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        params_from_jax)
+    from chainermn_tpu_torch.parallel import MeshConfig
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, data=world)
+    cfg = TransformerConfig(**dict(FLAGSHIP, remat=True))
+    tree = init_numpy_params(cfg, SEED)
+    toks = np.random.RandomState(SEED).randint(0, cfg.vocab_size,
+                                               (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    for fsdp in (True, False):
+        c = dataclasses.replace(cfg, fsdp=fsdp)
+        params = params_from_jax(tree, c, comm.device, mesh=mesh)
+        opt = training.adamw(3e-4)
+        state = opt.init(params)
+        step = make_train_step(c, opt, mesh=mesh)
+        got = trace(torch, lambda: step(params, state, x, y),
+                    f"training step, data={world}, fsdp {fsdp}, "
+                    f"{8 // world} x {cfg.max_seq} tokens a rank",
+                    show=comm.rank == 0)
+        if comm.rank == 0:
+            nccl = got["by_kind"].get("NCCL collectives", [0.0, 0])
+            print(f"  NCCL {nccl[0]:.3f} ms ({nccl[1]} kernels) of "
+                  f"{got['busy_ms']:.3f} ms busy")
+        del params, state, step
 
 
 def profile_resnet(torch):
@@ -566,6 +617,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["moe"]:
         profile_moe(torch)
+        return 0
+    if sys.argv[1:2] == ["fsdp"]:
+        profile_fsdp(torch)
         return 0
     if sys.argv[1:3] == ["variants", "bwd"]:
         variants_bwd(torch, [a.split("=", 1) for a in sys.argv[3:]])

@@ -560,9 +560,27 @@ def test_mlp_updater_steps_match_jax(world):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        training.create_multi_node_optimizer(training.sgd(0.1), object(),
-                                             zero1=True)
+    # ZeRO-1 is ported (test_torch_zero.py): over one rank its update is
+    # the replicated exchange's, bit for bit
+    from chainermn_tpu_torch.communicators import LoopbackCommunicator
+
+    loop = LoopbackCommunicator(device="cpu")
+    rng = np.random.RandomState(0)
+    tree = {"w": rng.randn(5, 3), "b": rng.randn(7)}
+    got = []
+    for zero1 in (True, False):
+        opt = training.create_multi_node_optimizer(
+            training.adamw(1e-2), loop, zero1=zero1)
+        assert isinstance(opt, training.Zero1Transformation) == zero1
+        params = {k: torch.tensor(v, dtype=torch.float32)
+                  for k, v in tree.items()}
+        state = opt.init(params)
+        for _ in range(2):
+            opt.update({k: torch.ones_like(v) for k, v in params.items()},
+                       state, params)
+        got.append(params)
+    for k in tree:
+        assert torch.equal(got[0][k], got[1][k])
     for kw in (dict(plan="auto"), dict(overlap="auto")):
         with pytest.raises(NotImplementedError, match="Queue A item 10"):
             training.create_multi_node_optimizer(training.sgd(0.1),

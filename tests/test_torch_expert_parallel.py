@@ -63,7 +63,8 @@ from chainermn_tpu_torch.models import (
 from chainermn_tpu_torch.models.transformer import lm_loss
 from chainermn_tpu_torch.parallel import expert as ep
 
-from test_torch_world import moe_expert_fn, run_world
+from test_torch_world import (fsdp_step_matches_dense, moe_expert_fn,
+                              run_world)
 
 N, B, T, VOCAB, LR = 4, 8, 32, 128, 1e-3
 ATOL = 1e-5
@@ -435,7 +436,7 @@ def test_simulated_expert_axis_matches_the_world(world, name):
 
 def test_unported_moe_options_raise():
     # the collective-plan IR is item 10; "dots" remat with an expert axis
-    # and FSDP are item 8
+    # is item 8
     from chainermn_tpu_torch.communicators import LoopbackCommunicator
 
     loop = LoopbackCommunicator(device=torch.device("cpu"))
@@ -445,9 +446,11 @@ def test_unported_moe_options_raise():
     cfg = TransformerConfig(**dict(BASE, remat=True, remat_policy="dots"))
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         make_value_and_grad_fn(cfg, mesh=_FakeMesh())
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        make_value_and_grad_fn(TransformerConfig(**dict(BASE, fsdp=True)),
-                               device="cpu")
+    # FSDP is ported (test_torch_fsdp.py): the MoE flagship at one data
+    # member is the same config's without it, bit for bit
+    losses, dense, same = fsdp_step_matches_dense(
+        TransformerConfig(**dict(BASE, fsdp=True)))
+    assert losses == dense and same
 
 
 class _FakeMesh:

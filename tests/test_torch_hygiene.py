@@ -73,10 +73,13 @@ TP_PATH = [PORT / "parallel" / "tensor.py", PORT / "models" / "convert.py"]
 PP_PATH = [PORT / "parallel" / "pipeline.py"]
 # the expert axis: the MoE layer and its exchange
 EP_PATH = [PORT / "parallel" / "expert.py"]
+# the data axis's sharding: FSDP's gathers and the sharded-state layer
+FSDP_PATH = [PORT / "parallel" / "fsdp.py",
+             PORT / "parallel" / "sharded_state.py"]
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py",
                  ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH + PP_PATH \
-    + EP_PATH
+    + EP_PATH + FSDP_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
@@ -88,7 +91,7 @@ DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
     PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + PP_PATH \
-    + EP_PATH + EXAMPLES
+    + EP_PATH + FSDP_PATH + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,

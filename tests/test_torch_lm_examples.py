@@ -32,7 +32,7 @@ from chainermn_tpu_torch.models import (
     params_to_numpy,
 )
 
-from test_torch_world import run_world
+from test_torch_world import one_thread, run_world
 
 ROOT = Path(__file__).resolve().parent.parent
 SURVEY = ROOT / "SURVEY.md"
@@ -210,10 +210,11 @@ def test_train_save_resume_generate(port):
             == gen["tokens"][:, -gen["logits"].shape[1]:]).all()
 
 
-# --vocab-parallel, the model, pipe and expert axes, the schedules and
-# --moe are ported (the config checks below, test_torch_tensor_parallel.py,
-# test_torch_pipeline.py, test_torch_expert_parallel.py): their places
-# hold them beside --fsdp, which still raises
+# --vocab-parallel, the model, pipe and expert axes, the schedules,
+# --moe and --fsdp are ported (the config checks below,
+# test_torch_tensor_parallel.py, test_torch_pipeline.py,
+# test_torch_expert_parallel.py, test_torch_fsdp.py): their places hold
+# them beside --fsdp
 TRAIN_UNPORTED = [["--moe", "--fsdp"], ["--fsdp"],
                   ["--vocab-parallel", "--moe", "--fsdp"],
                   ["--schedule", "1f1b", "--moe", "--fsdp"],
@@ -226,9 +227,34 @@ TRAIN_UNPORTED = [["--moe", "--fsdp"], ["--fsdp"],
 @pytest.mark.parametrize("flags", TRAIN_UNPORTED,
                          ids=[" ".join(f) for f in TRAIN_UNPORTED])
 def test_train_lm_torch_unported_flags_raise(flags):
+    # --fsdp builds the config without it plus fsdp; on one rank (no
+    # --mesh) two steps are the run's without --fsdp, bit for bit
     ex = load("examples/transformer/train_lm_torch.py", "train_lm_torch")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        ex.build(ex.parse_args(["--device", "cpu"] + flags))
+    dense = [f for f in flags if f != "--fsdp"]
+    cfg = ex.config(ex.parse_args(["--device", "cpu"] + flags))
+    assert cfg.fsdp and dataclasses.replace(cfg, fsdp=False) == ex.config(
+        ex.parse_args(["--device", "cpu"] + dense))
+    if "--mesh" in flags:
+        return
+
+    def steps(f):
+        run = ex.build(ex.parse_args(["--device", "cpu", "--steps", "2"]
+                                     + f), quiet=True)
+        return ex.train(run), run.params
+
+    # the builds start a one-rank world in this process: end it after,
+    # so no later test finds a process group
+    started = not torch.distributed.is_initialized()
+    try:
+        (lf, pf), (ld, pd) = (one_thread(lambda f=f: steps(f))
+                              for f in (flags, dense))
+    finally:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert lf == ld
+    for a, b in zip(torch.utils._pytree.tree_leaves(pf),
+                    torch.utils._pytree.tree_leaves(pd)):
+        assert torch.equal(a, b)
 
 
 # the sequence and model axes (ported): the config builds before any

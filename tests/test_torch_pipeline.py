@@ -61,6 +61,8 @@ from chainermn_tpu.parallel.pipeline import (
 from chainermn_tpu_torch.models import (
     TransformerConfig,
     init_numpy_params,
+    params_from_jax,
+    params_to_numpy,
     regroup_blocks,
 )
 from chainermn_tpu_torch.parallel.pipeline import _interleaved_tables
@@ -377,20 +379,38 @@ def test_stack_stage_params_matches_jax():
 
 def test_unported_pipeline_options_raise():
     # the collective-plan IR's edge lowering is item 10; FSDP's
-    # shard-width moments are item 8
+    # shard-width moments are ported (test_torch_fsdp.py): at one data
+    # member reshard_train_state lays out the config's tree without
+    # FSDP, bit for bit
     import torch
 
+    from chainermn_tpu_torch import training
     from chainermn_tpu_torch.communicators import LoopbackCommunicator
     from chainermn_tpu_torch.models import reshard_train_state
-    from chainermn_tpu_torch.parallel import pipeline_apply
+    from chainermn_tpu_torch.parallel import MeshConfig, pipeline_apply
 
     loop = LoopbackCommunicator(device=torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
         pipeline_apply(lambda p, x: x, {}, torch.zeros(2, 3), comm=loop,
                        num_microbatches=1, edge_plan=object())
     cfg = TransformerConfig(**dict(BASE, fsdp=True))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        reshard_train_state(None, cfg, None, {}, {})
+    tree = init_numpy_params(cfg, seed=0)
+    opt = training.adamw(1e-3)
+    params = params_from_jax(tree, cfg, "cpu")
+    state = training.optimizer_state_tree(opt.init(params))
+    for t in state["state"]:
+        t["mu"] = t["mu"] + 1.0
+    # the moments in the JAX layout, as a checkpoint keeps them
+    state = training.map_state_moments(
+        state, params, lambda t: params_to_numpy(t, cfg))
+    mesh = MeshConfig(loop)
+    got = [reshard_train_state(mesh, c, opt, tree, state)
+           for c in (cfg, TransformerConfig(**BASE))]
+    leaves = torch.utils._pytree.tree_leaves
+    (p1, s1), (p2, s2) = got
+    m1, m2 = (training.optimizer_state_tree(s)["state"] for s in (s1, s2))
+    for a, b in zip(leaves(p1) + leaves(m1), leaves(p2) + leaves(m2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("S,V,M", [(1, 1, 3), (2, 1, 4), (2, 2, 2),

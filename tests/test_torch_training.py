@@ -45,6 +45,7 @@ from chainermn_tpu_torch.models import (
     params_from_jax,
     params_to_numpy,
 )
+from test_torch_world import fsdp_step_matches_dense
 
 VOCAB, BATCH, T = 64, 4, 16
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -245,11 +246,11 @@ def test_optimizer_refuses_other_params():
 
 
 # remat_policy="dots", the ring, Ulysses, the zigzag layout,
-# vocab_parallel, micro-batches, the pipeline schedules and MoE are
+# vocab_parallel, micro-batches, the pipeline schedules, MoE and FSDP are
 # ported (test_torch_lm_data_parallel.py, test_torch_sequence_parallel.py,
 # test_torch_tensor_parallel.py, test_torch_pipeline.py,
-# test_torch_expert_parallel.py); their places here hold options that
-# still raise (FSDP beside them)
+# test_torch_expert_parallel.py, test_torch_fsdp.py); their places here
+# hold FSDP beside them, and "dots" under the ring, which still raises
 MOE_TRAINING = [dict(virtual_pipe=2, pipeline_schedule="interleaved",
                      moe=True),
                 dict(pipeline_schedule="interleaved", moe=True),
@@ -267,7 +268,12 @@ MOE_TRAINING = [dict(virtual_pipe=2, pipeline_schedule="interleaved",
     dict(num_microbatches=2, moe=True, fsdp=True),
 ])
 def test_unported_training_options_raise(kw):
+    # FSDP at one data member: the same config's steps, bit for bit
     _, cfg = configs(**kw)
+    if cfg.fsdp:
+        losses, dense, same = fsdp_step_matches_dense(cfg)
+        assert losses == dense and same
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(cfg, training.sgd(0.1), device="cpu")
 

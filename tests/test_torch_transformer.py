@@ -27,6 +27,7 @@ from chainermn_tpu_torch.models import (
     make_forward_fn,
     params_from_jax,
 )
+from test_torch_world import one_thread
 
 VOCAB, BATCH, T = 128, 2, 32
 
@@ -130,10 +131,10 @@ def test_params_from_jax_rejects_wrong_shapes():
         params_from_jax(tree, mha, device="cpu")
 
 
-# vocab_parallel, micro-batches, the virtual stages and MoE are ported
-# (test_torch_tensor_parallel.py, test_torch_pipeline.py,
-# test_torch_expert_parallel.py): their places hold FSDP beside them,
-# which still raises
+# vocab_parallel, micro-batches, the virtual stages, MoE and FSDP are
+# ported (test_torch_tensor_parallel.py, test_torch_pipeline.py,
+# test_torch_expert_parallel.py, test_torch_fsdp.py): their places hold
+# FSDP beside them
 MOE_FORWARD = [dict(moe=True),
                dict(attention="ring", num_microbatches=2, moe=True),
                dict(virtual_pipe=2, pipeline_schedule="interleaved",
@@ -150,9 +151,14 @@ MOE_FORWARD = [dict(moe=True),
          fsdp=True),
 ])
 def test_unported_options_raise(kw):
+    # scoring under FSDP over one data member: the logits without it,
+    # bit for bit (each block's gather is the weights themselves)
     _, cfg = configs(**kw)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        make_forward_fn(cfg, device="cpu")
+    dense = dataclasses.replace(cfg, fsdp=False)
+    params = params_from_jax(init_numpy_params(cfg, 0), cfg, device="cpu")
+    got, want = (one_thread(lambda c=c: make_forward_fn(c, device="cpu")(
+        params, tokens())) for c in (cfg, dense))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kw", MOE_FORWARD)

@@ -113,6 +113,58 @@ def np_tree(tree):
         if torch.is_tensor(t) else t, tree)
 
 
+def one_thread(fn):
+    """``fn()`` with torch on one CPU thread: a product's or a
+    reduction's threads split its sums otherwise from run to run, and
+    a bitwise comparison of two runs would see that."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(n)
+
+
+def fsdp_step_matches_dense(cfg, steps=2, seed=0):
+    """``cfg`` (with ``fsdp=True``) trained on one CPU rank, where the
+    data group has one member, against the same config without FSDP
+    from the same seeded weights: ``(losses, dense losses, params
+    bitwise)``.  Each block's gathers are then identities, so the two
+    runs must agree bit for bit (on one thread, :func:`one_thread`)."""
+    return one_thread(lambda: _fsdp_against_dense(cfg, steps, seed))
+
+
+def _fsdp_against_dense(cfg, steps, seed):
+    import dataclasses
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        init_numpy_params, make_train_step, params_from_jax)
+
+    B = 2 * max(cfg.num_microbatches, 1)
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (B, cfg.max_seq + 1)).astype(np.int32)
+    runs = []
+    for c in (cfg, dataclasses.replace(cfg, fsdp=False,
+                                       fsdp_wire_dtype="")):
+        params = params_from_jax(init_numpy_params(c, seed), c, "cpu")
+        opt = training.adamw(1e-3)
+        state = opt.init(params)
+        step = make_train_step(c, opt, device="cpu")
+        losses = []
+        for _ in range(steps):
+            params, state, loss = step(params, state, toks[:, :-1],
+                                       toks[:, 1:])
+            losses.append(float(loss))
+        runs.append((losses, params))
+    (lf, pf), (ld, pd) = runs
+    import torch.utils._pytree as pytree
+
+    same = all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(pf),
+                                                 pytree.tree_leaves(pd)))
+    return lf, ld, same
+
+
 # --------------------------------------------------------------------- #
 # batteries (run on every rank)
 # --------------------------------------------------------------------- #
@@ -564,11 +616,12 @@ def linear_loss(params, x, y):
 
 
 def linear_job(comm, root, seed=5, async_write=False, history=1,
-               ckpt_every=3, epochs=6, data=None):
-    """The resume drills' job: ``sgd(0.05)`` on a linear model, batch 16
-    of 64 examples (4 iterations an epoch), a ``LogReport`` an epoch and
-    a checkpoint every ``ckpt_every`` iterations (3: not aligned with
-    the epoch, so a resume lands mid-epoch and mid-shuffle).  Returns
+               ckpt_every=3, epochs=6, data=None, inner=None, **opt_kw):
+    """The resume drills' job: ``sgd(0.05)`` (or the optimizer
+    ``inner``, wrapped with ``opt_kw``) on a linear model, batch 16 of
+    64 examples (4 iterations an epoch), a ``LogReport`` an epoch and a
+    checkpoint every ``ckpt_every`` iterations (3: not aligned with the
+    epoch, so a resume lands mid-epoch and mid-shuffle).  Returns
     ``(trainer, updater, checkpointer, log)``."""
     from chainermn_tpu_torch import training
     from chainermn_tpu_torch.extensions import (
@@ -579,7 +632,8 @@ def linear_job(comm, root, seed=5, async_write=False, history=1,
     root = Path(root)
     it = SerialIterator(data or linear_dataset(), batch_size=16,
                         shuffle=True, seed=seed)
-    opt = training.create_multi_node_optimizer(training.sgd(0.05), comm)
+    opt = training.create_multi_node_optimizer(
+        inner or training.sgd(0.05), comm, **opt_kw)
     params = {"w": torch.zeros(4), "b": torch.zeros(())}
     up = training.StandardUpdater(it, opt, linear_loss, params, comm)
     trainer = training.Trainer(up, stop_trigger=(epochs, "epoch"),
@@ -1618,6 +1672,262 @@ def battery_expert_parallel(comm, p):
     out["example"] = dict(printed=printed, losses=run.losses,
                           resumed=again.losses, start=again.start,
                           generate=toks)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# ZeRO-1/2 and FSDP
+# --------------------------------------------------------------------- #
+
+
+def zero_inner(name):
+    """The inner optimizers of the ZeRO cases (optax's ``sgd`` with
+    momentum, ``adam`` as ``adamw`` without decay)."""
+    from chainermn_tpu_torch import training
+
+    return {"sgd": lambda: training.sgd(0.1, momentum=0.9),
+            "adam": lambda: training.adamw(1e-2, weight_decay=0.0)}[name]()
+
+
+def battery_zero(comm, p):
+    """ZeRO-1 and ZeRO-2 in a 4-rank world, every case of
+    ``test_torch_zero.py``: ``create_multi_node_optimizer`` updates on
+    per-rank gradients (the parameters and each rank's state), the
+    optimizers under ``StandardUpdater`` (fused windows, the overlap
+    hooks), and a ZeRO-1 trainer's checkpoint resumed exactly and
+    refused under ZeRO-2."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.training.elastic import topology_signature
+
+    r = comm.rank
+    out = {"rank": r, "runs": {}, "updater": {}}
+    for name, case in p["runs"].items():
+        kw = dict(case)
+        opt = training.create_multi_node_optimizer(
+            zero_inner(kw.pop("inner")), comm, **kw)
+        params = {k: torch.tensor(v) for k, v in p["params"].items()}
+        state = opt.init(params)
+        for _ in range(p["steps"]):
+            opt.update({k: torch.tensor(v) for k, v in
+                        p["grads"][r].items()}, state, params)
+        out["runs"][name] = dict(
+            params=np_tree(params),
+            state=np_tree(training.optimizer_state_tree(state)),
+            signature=topology_signature(
+                comm, params, state,
+                sharding=getattr(opt, "sharding", None)))
+
+    # the updater: its mode, fused windows of two updates, the overlap
+    # hooks of a window's last microbatch
+    data = linear_dataset()
+    for name, case in p["updater"].items():
+        kw = dict(case)
+        up_kw = {k: kw.pop(k) for k in ("steps_per_execution",
+                                        "accum_steps") if k in kw}
+        it = SerialIterator(data[r::comm.size], batch_size=4,
+                            shuffle=False)
+        opt = training.create_multi_node_optimizer(
+            zero_inner(kw.pop("inner")), comm, **kw)
+        up = training.StandardUpdater(
+            it, opt, linear_loss,
+            {"w": torch.zeros(4), "b": torch.zeros(())}, comm, **up_kw)
+        losses = []
+        for _ in range(3):
+            up.update()
+            losses.append(float(up.observation["main/loss"]))
+        out["updater"][name] = dict(status=up.status(), losses=losses,
+                                    params=np_tree(up.params))
+
+    # a ZeRO-1 trainer (adam: state of its own) resumed at the same world
+    root = Path(p["root"])
+    adam = lambda: zero_inner("adam")  # noqa: E731
+    trainer, up, _, _ = linear_job(comm, root / "straight", ckpt_every=None,
+                                   inner=adam(), zero1=True)
+    trainer.run()
+    stopped, _, _, _ = linear_job(comm, root / "resume", epochs=3,
+                                  inner=adam(), zero1=True)
+    stopped.run()
+    t2, up2, cp2, _ = linear_job(comm, root / "resume", inner=adam(),
+                                 zero1=True)
+    resumed = cp2.maybe_load(up2, t2)
+    t2.run()
+    out["resume"] = dict(
+        at=resumed, straight=np_tree(up.params), again=np_tree(up2.params),
+        straight_state=np_tree(training.optimizer_state_tree(up.opt_state)),
+        again_state=np_tree(training.optimizer_state_tree(up2.opt_state)))
+    _, up3, cp3, _ = linear_job(comm, root / "resume", inner=adam(),
+                                zero2=True)
+    try:
+        cp3.maybe_load(up3)
+        out["resume"]["other_mode"] = None
+    except RuntimeError as e:
+        out["resume"]["other_mode"] = str(e)
+    return out
+
+
+def _mlp_fsdp(comm, p, wire=None):
+    """The generic FSDP MLP of ``test_fsdp_generic.py`` at data=4:
+    ``ShardedState`` places every leaf, the step gathers the tree, the
+    gradients of the sharded leaves leave the gathers' backward summed
+    over the ranks (divided by the ranks here), a whole leaf's are
+    meaned; adam on the shards.  Returns the losses, this rank's
+    parameters and moments' shapes, and the whole parameters."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.parallel import ShardedState, fsdp_gather
+
+    n, r = comm.size, comm.rank
+    full = {k: torch.tensor(v) for k, v in p["mlp"].items()}
+    sharded = ShardedState(full, comm, wire_dtype=wire)
+    local = sharded.place(full)
+    state = sharded.init_opt_state(training.adamw(1e-2, weight_decay=0.0))
+    x = torch.tensor(p["mlp_x"]).chunk(n)[r]
+    y = torch.tensor(p["mlp_y"]).chunk(n)[r]
+    dims = sharded.dims
+    opt = training.adamw(1e-2, weight_decay=0.0)
+    losses = []
+    for _ in range(p["mlp_steps"]):
+        leaves = {k: v.requires_grad_() for k, v in local.items()}
+        w = sharded.gather(leaves)
+        h = torch.relu(x @ w["w1"] + w["b1"])
+        loss = torch.mean((h @ w["w2"] - y) ** 2)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        grads = {k: g / n if dims[k] is not None
+                 else comm.allreduce(g, "mean") for k, g in grads.items()}
+        opt.update(grads, state, local)
+        losses.append(float(comm.allreduce(loss.detach(), "mean")))
+    whole = fsdp_gather({k: v.detach() for k, v in local.items()}, dims,
+                        comm)
+    mu = [tuple(state.state[t]["mu"].shape) for t in local.values()]
+    return dict(losses=losses, whole=np_tree(whole), dims=dict(dims),
+                local={k: tuple(v.shape) for k, v in local.items()}, mu=mu)
+
+
+def battery_fsdp(comm, p):
+    """FSDP in a 4-rank world, every case of ``test_torch_fsdp.py``: the
+    generic MLP, the layer stream's forward and its window, and the
+    flagship under ``fsdp`` on each mesh (3 steps with and without it:
+    losses, parameters, the moments' widths, each rank's gathers, the
+    leaves replicated over data), the bf16 wire, the moments re-laid
+    with FSDP on and off, and ``train_lm_torch.py --fsdp``."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_train_step, params_from_jax,
+        params_to_numpy, reshard_train_state)
+    from chainermn_tpu_torch.models.transformer import _fsdp_dims
+    from chainermn_tpu_torch.parallel import MeshConfig, ShardedState
+    from chainermn_tpu_torch.parallel.fsdp import fsdp_gather
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    r = comm.rank
+    out = {"rank": r, "mlp": _mlp_fsdp(comm, p),
+           "mlp_bf16": _mlp_fsdp(comm, p, torch.bfloat16)["losses"]}
+
+    # the layer stream: its forward on this rank's rows, the layers alive
+    layers = {k: {n: torch.tensor(v) for n, v in layer.items()}
+              for k, layer in p["stream_params"].items()}
+    sharded = ShardedState(layers, comm)
+    local = sharded.place(layers)
+    x = torch.tensor(p["stream_x"]).chunk(comm.size)[r]
+    out["stream"] = {}
+    for window in (1, 2):
+        stream = sharded.gather_stream(local, window=window)
+        h, live = x, []
+        for i in range(len(stream)):
+            w = stream.layer(i)
+            live.append(len(stream.live))
+            h = h @ w["w"] + w["b"]
+            if i + 1 < len(stream):
+                h = torch.relu(h)
+            h = stream.retire(i, h)
+        out["stream"][window] = dict(out=h.numpy(), live=live,
+                                     issued=list(stream.issued),
+                                     names=stream.names)
+
+    # the flagship on each mesh, with and without FSDP
+    xs, ys = p["x"], p["y"]
+    out["step"] = {}
+    for name, (axes, fields) in p["cases"].items():
+        for fsdp in (True, False):
+            cfg = TransformerConfig(**dict(fields, fsdp=fsdp))
+            mesh = MeshConfig(comm, **axes)
+            params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+            opt = training.adamw(p["lr"], weight_decay=0.0)
+            state = opt.init(params)
+            step = make_train_step(cfg, opt, mesh=mesh)
+            fsdp_gather.gathers = 0
+            losses = []
+            for _ in range(p["steps"]):
+                params, state, loss = step(params, state, xs, ys)
+                losses.append(float(loss))
+            gathers = fsdp_gather.gathers
+            fs = set(_fsdp_dims(cfg)) if fsdp else set()
+            repl = [v for k, v in params.items() if k != "blocks"] + [
+                v for k, v in params["blocks"].items() if k not in fs]
+            out["step"][(name, fsdp)] = dict(
+                losses=losses, gathers=gathers,
+                params=params_to_numpy(params, cfg, mesh=mesh),
+                shapes={k: tuple(v.shape)
+                        for k, v in params["blocks"].items()},
+                mu={k: tuple(state.state[v]["mu"].shape)
+                    for k, v in params["blocks"].items()},
+                data_bitwise=replicas_bitwise(mesh.comm("data"), repl))
+
+    # the bf16 wire at data=4
+    cfg = TransformerConfig(**dict(p["cases"]["data4"][1], fsdp=True,
+                                   fsdp_wire_dtype="bfloat16"))
+    mesh = MeshConfig(comm, data=4)
+    params = params_from_jax(p["tree"]["data4"], cfg, "cpu", mesh=mesh)
+    opt = training.adamw(p["lr"], weight_decay=0.0)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    out["bf16"] = [float(step(params, state, xs, ys)[2])
+                   for _ in range(p["steps"])]
+
+    # the moments re-laid with FSDP on and off (either direction): the
+    # next step's loss after 3 steps of either run
+    out["reshard"] = {}
+    for fsdp in (True, False):
+        cfg = TransformerConfig(**dict(p["cases"]["data4"][1], fsdp=fsdp))
+        params = params_from_jax(p["tree"]["data4"], cfg, "cpu", mesh=mesh)
+        opt = training.adamw(p["lr"], weight_decay=0.0)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        for _ in range(p["steps"]):
+            step(params, state, xs, ys)
+        saved = params_to_numpy(params, cfg, mesh=mesh)
+        moments = training.map_state_moments(
+            training.optimizer_state_tree(state), params,
+            lambda t, cfg=cfg: params_to_numpy(t, cfg, mesh=mesh))
+        for to in (True, False):
+            c2 = dataclasses.replace(cfg, fsdp=to)
+            p2, s2 = reshard_train_state(mesh, c2, opt, saved, moments)
+            loss = make_train_step(c2, opt, mesh=mesh)(p2, s2, xs, ys)[2]
+            out["reshard"][(fsdp, to)] = dict(
+                loss=float(loss), w1=tuple(p2["blocks"]["w1"].shape),
+                mu=tuple(s2.state[p2["blocks"]["w1"]]["mu"].shape))
+
+    # train_lm_torch.py --fsdp over data=4, resumed with --fsdp on and off
+    ex = _load_example("examples/transformer/train_lm_torch.py",
+                       "train_lm_torch")
+    ck = Path(p["example_ck"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        first = ex.main(p["example_argv"] + ["--fsdp", "--checkpoint",
+                                             str(ck / "a")]).losses
+        if r == 0:
+            shutil.copytree(ck / "a", ck / "b")
+        comm.barrier()
+        on = ex.main(p["resume_argv"] + ["--fsdp", "--checkpoint",
+                                         str(ck / "a")])
+        off = ex.main(p["resume_argv"] + ["--checkpoint", str(ck / "b")])
+    out["example"] = dict(first=first, on=on.losses, off=off.losses,
+                          start=(on.start, off.start))
     return out
 
 
