@@ -1,5 +1,6 @@
-"""The flagship transformer (scoring, generation, training) and the
-data-parallel models: ResNet with synchronised BN, and the MNIST MLP."""
+"""The flagship transformer (scoring, training, and decoding: greedy,
+speculative, prompt lookup and beam search, with int8 weights and an
+int8 KV cache as options) and the data-parallel models: ResNet with synchronised BN, and the MNIST MLP."""
 
 from .convert import (
     chain_params_from_jax,
@@ -15,7 +16,13 @@ from .convert import (
 )
 from .mlp import MLP, accuracy, mlp_apply, softmax_cross_entropy
 from .resnet import ResNet, ResNetConfig, resnet_apply
-from .decoding import make_generate_fn
+from .decoding import (
+    make_beam_search_fn,
+    make_generate_fn,
+    make_lookup_generate_fn,
+    make_speculative_generate_fn,
+)
+from .quantization import quantize_params_int8
 from .transformer import (
     TransformerConfig,
     apply_rope,
@@ -51,12 +58,16 @@ __all__ = [
     "init_numpy_params",
     "init_transformer",
     "lm_loss",
+    "make_beam_search_fn",
     "make_forward_fn",
     "make_generate_fn",
+    "make_lookup_generate_fn",
+    "make_speculative_generate_fn",
     "make_train_step",
     "make_value_and_grad_fn",
     "params_from_jax",
     "params_to_numpy",
+    "quantize_params_int8",
     "regroup_blocks",
     "reshard_train_state",
     "shard_params",

@@ -86,12 +86,36 @@ def _block_shapes(cfg: TransformerConfig) -> dict:
     return shapes
 
 
-def _top_shapes(cfg: TransformerConfig) -> dict:
+def _top_shapes(cfg: TransformerConfig, quantized: bool = False) -> dict:
     shapes = {"embed": (cfg.vocab_size, cfg.d_model),
               "ln_f": (cfg.d_model,)}
     if cfg.pos_embedding == "learned":
         shapes["pos"] = (cfg.max_seq, cfg.d_model)
+    if quantized:
+        shapes["embed_scale"] = (cfg.vocab_size,)
     return shapes
+
+
+def _leaf_kinds(cfg: TransformerConfig, quantized: bool):
+    """``(top, blocks)``: each leaf's per-layer shape and dtype (blocks'
+    without the stack), for a plain tree or an int8 one
+    (:func:`~.quantization.quantize_params_int8`: its weights int8, a
+    ``<name>_scale`` fp32 leaf each, the weight's shape without the
+    contraction axes, and ``embed_scale``)."""
+    f32, i8 = torch.float32, torch.int8
+    top = {k: (v, f32) for k, v in _top_shapes(cfg, quantized).items()}
+    blocks = {k: (v, f32) for k, (v, _) in _block_shapes(cfg).items()}
+    if quantized:
+        from .quantization import base_layout
+
+        top["embed"] = (top["embed"][0], i8)
+        for name, (_, axes) in base_layout(cfg.moe).items():
+            if name in blocks:
+                shape = blocks[name][0]
+                blocks[name] = (shape, i8)
+                blocks[name + "_scale"] = (tuple(
+                    n for i, n in enumerate(shape) if i not in axes), f32)
+    return top, blocks
 
 
 def _grouping(cfg: TransformerConfig, mesh) -> tuple:
@@ -115,69 +139,72 @@ def params_from_jax(tree, cfg: TransformerConfig, device=None,
                     mesh=None) -> dict:
     """The JAX package's parameter tree (numpy leaves, blocks grouped
     for the mesh's pipe axis: ``(pipe, L/pipe, ...)``, pipe 1 without a
-    mesh) as fp32 tensors on ``device`` (CUDA unless ``"cpu"`` is
-    named).  With a ``mesh``, every rank converts the whole tree and
+    mesh) as tensors on ``device`` (CUDA unless ``"cpu"`` is named):
+    fp32, or for an int8 tree (``quantize_params_int8``'s, detected by
+    its ``embed_scale``) the int8 weights as int8 beside their fp32
+    scales.  With a ``mesh``, every rank converts the whole tree and
     keeps its shard over the pipe, model and expert axes
-    (:func:`~.transformer.shard_params`)."""
+    (:func:`~.transformer.shard_params`, which cuts a scale leaf as its
+    weight without the contraction axes)."""
     dev = resolve_device(device)
     lead = _grouping(cfg, mesh)
+    want_top, want_blocks = _leaf_kinds(cfg, "embed_scale" in tree)
 
-    def leaf(name, a, shape):
+    def leaf(name, a, shape, dtype):
         a = np.asarray(a)
         if a.shape != shape:
             raise ValueError(
                 f"param {name!r} has shape {a.shape}, config wants {shape}")
-        return torch.tensor(a, dtype=torch.float32, device=dev)
+        return torch.tensor(a, dtype=dtype, device=dev)
 
-    want_top = _top_shapes(cfg)
-    want_blocks = _block_shapes(cfg)
     extra = (set(tree) - set(want_top) - {"blocks"}) \
         | (set(tree["blocks"]) - set(want_blocks))
     if extra:
         raise ValueError(f"params {sorted(extra)} do not belong to this "
-                         "config (quantized trees are not ported yet)")
-    out = {name: leaf(name, tree[name], shape)
-           for name, shape in want_top.items()}
+                         "config")
+    out = {name: leaf(name, tree[name], shape, dt)
+           for name, (shape, dt) in want_top.items()}
     out["blocks"] = _one_stage(cfg, {
-        name: leaf(f"blocks/{name}", tree["blocks"][name], (*lead, *shape))
-        for name, (shape, _) in want_blocks.items()}, lead[0])
+        name: leaf(f"blocks/{name}", tree["blocks"][name], (*lead, *shape),
+                   dt)
+        for name, (shape, dt) in want_blocks.items()}, lead[0])
     return out if mesh is None else shard_params(mesh, cfg, out)
 
 
 def params_to_numpy(params, cfg: TransformerConfig, mesh=None) -> dict:
     """The inverse of :func:`params_from_jax`: a port tree (parameters,
-    or gradients in their structure) as fp32 numpy leaves in the JAX
-    package's layout, the blocks grouped for the mesh's pipe axis (pipe 1
-    without a mesh), so it compares leaf by leaf with the JAX tree.  With
-    a ``mesh`` the tree is this rank's shard over the pipe, model and
-    expert axes, and the whole one is gathered first
-    (:func:`~.transformer.gather_params`, collective over the model,
-    expert and pipe communicators)."""
+    or gradients in their structure) as numpy leaves in the JAX
+    package's layout (fp32; an int8 tree's weights int8), the blocks
+    grouped for the mesh's pipe axis (pipe 1 without a mesh), so it
+    compares leaf by leaf with the JAX tree.  With a ``mesh`` the tree
+    is this rank's shard over the pipe, model and expert axes, and the
+    whole one is gathered first (:func:`~.transformer.gather_params`,
+    collective over the model, expert and pipe communicators)."""
     lead = _grouping(cfg, mesh)
     if mesh is not None:
         params = gather_params(mesh, cfg, params)
-    want_top, want_blocks = _top_shapes(cfg), _block_shapes(cfg)
+    want_top, want_blocks = _leaf_kinds(cfg, "embed_scale" in params)
     if set(params) != set(want_top) | {"blocks"} \
             or set(params["blocks"]) != set(want_blocks):
         raise ValueError(f"params {sorted(params)} / blocks "
                          f"{sorted(params['blocks'])} do not match this "
                          "config")
 
-    def leaf(name, t, shape):
+    def leaf(name, t, shape, dtype):
         if tuple(t.shape) != shape:
             raise ValueError(f"param {name!r} has shape "
                              f"{tuple(t.shape)}, config wants {shape}")
         # a copy: the train step updates the tensors in place
-        return t.detach().to("cpu", torch.float32).numpy().copy()
+        return t.detach().to("cpu", dtype).numpy().copy()
 
-    out = {name: leaf(name, params[name], shape)
-           for name, shape in want_top.items()}
+    out = {name: leaf(name, params[name], shape, dt)
+           for name, (shape, dt) in want_top.items()}
     whole = _grouping(cfg, None)[1:]
     V = cfg.virtual_pipe
     out["blocks"] = regroup_blocks({
         name: leaf(f"blocks/{name}", params["blocks"][name],
-                   (*whole, *shape))[None]
-        for name, (shape, _) in want_blocks.items()}, 1, lead[0], V, V)
+                   (*whole, *shape), dt)[None]
+        for name, (shape, dt) in want_blocks.items()}, 1, lead[0], V, V)
     return out
 
 

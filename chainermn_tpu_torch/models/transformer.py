@@ -157,7 +157,6 @@ __all__ = [
     "transformer_forward",
 ]
 
-_PARALLEL_SLICE = "the parallel slice (ROADMAP Queue A item 8)"
 # the JAX MeshConfig's axes
 _MESH_AXES = ("pipe", "data", "expert", "seq", "model")
 # the coefficient of the Switch balancing loss in the training objective
@@ -198,7 +197,7 @@ class TransformerConfig:
     fsdp_wire_dtype: str = ""
     vocab_parallel: bool = False
     loss_chunk: int = 0
-    kv_cache_dtype: str = ""   # "" => compute dtype; "int8" not ported
+    kv_cache_dtype: str = ""   # "" => compute dtype; "int8": int8 + scales
     remat: bool = True
     remat_policy: str = "full"
     dtype: str = "bfloat16"    # compute dtype (params stay fp32)
@@ -273,30 +272,13 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 def _check_ported(cfg: TransformerConfig, *, decoding: bool = False,
                   training: bool = False):
-    """Raise ``NotImplementedError`` for options a later slice ports."""
-    unported = []
-    if decoding:
-        unported.append(
-            ('kv_cache_dtype="int8"', cfg.kv_cache_dtype == "int8",
-             "the quantization slice (ROADMAP Queue A item 9)"))
-    if training:
-        if cfg.pipeline_schedule not in ("gpipe", "1f1b", "interleaved"):
-            raise ValueError(
-                "pipeline_schedule must be gpipe|1f1b|interleaved, got "
-                f"{cfg.pipeline_schedule!r}")
-        unported += [
-            # the selective checkpoint would replay the ring's transfers
-            # and the exchanges in its recompute; full remat recomputes
-            # them in the same order on every rank
-            (f'remat_policy="dots" with attention={cfg.attention!r}',
-             cfg.remat and cfg.remat_policy == "dots"
-             and cfg.attention in ("ring", "ulysses"), _PARALLEL_SLICE),
-        ]
-    for name, hit, where in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{name} is not ported to chainermn_tpu_torch yet; it "
-                f"comes with {where}")
+    """The config checks of an entry point: the JAX package's messages
+    for a schedule, an attention or a layout it does not know."""
+    if training and cfg.pipeline_schedule not in ("gpipe", "1f1b",
+                                                  "interleaved"):
+        raise ValueError(
+            "pipeline_schedule must be gpipe|1f1b|interleaved, got "
+            f"{cfg.pipeline_schedule!r}")
     if not decoding and cfg.attention not in ("local", "flash", "ring",
                                               "ulysses"):
         raise ValueError(cfg.attention)
@@ -456,14 +438,19 @@ def _vp_shard_index(Vl: int, tokens, rank: int):
     return (loc >= 0) & (loc < Vl), loc.clamp(0, Vl - 1)
 
 
-def _vp_embed_lookup(embed_local, tokens, model):
+def _vp_embed_lookup(embed_local, tokens, model, scale_local=None):
     """The vocab-parallel embedding gather (Megatron's
     VocabParallelEmbedding): out-of-shard tokens contribute zero and one
     all-reduce over ``model`` assembles the full ``(..., D)`` rows.  The
     backward scatter-adds each member's gradient rows into its own shard
-    only."""
+    only.  ``scale_local`` (an int8 embedding's per-row fp32 scales,
+    sharded like the rows) dequantizes the gathered rows before the one
+    all-reduce."""
     ok, idx = _vp_shard_index(embed_local.shape[0], tokens, model.rank)
-    rows = torch.where(ok[..., None], embed_local[idx], 0.0)
+    rows = embed_local[idx]
+    if scale_local is not None:
+        rows = rows.to(scale_local.dtype) * scale_local[idx][..., None]
+    rows = torch.where(ok[..., None], rows, 0.0)
     return reduce_from_model(rows, model)
 
 
@@ -819,7 +806,9 @@ def _backbone(cfg: TransformerConfig, params, tokens, seq, model, pipe,
     # last saved tensor, would stop the ranks at different collectives
     # (a seq rank skips other masked pairs of the ring and saves other
     # tensors; the model axis's all-reduces and the expert axis's
-    # all-to-alls must all be replayed)
+    # all-to-alls must all be replayed).  Under "dots" too: the
+    # recompute returns the saved outputs in place of the products and
+    # the flash forward, and posts the collectives again in order
     early_stop = seq.size == 1 and model.size == 1 and expert.size == 1
     aux = None
     if pipe.size > 1 or cfg.num_microbatches > 1 or cfg.virtual_pipe > 1:
@@ -872,8 +861,9 @@ def transformer_backbone(cfg: TransformerConfig, params, tokens, seq=None,
     input, and its forward (the flash kernel and the ring's transfers
     included, in the same order on every rank) runs again in the
     backward; ``"dots"`` also keeps the dense products and the attention
-    core's output, so the backward recomputes only the norms and the
-    elementwise ops.
+    core's output, so the backward recomputes only the norms, the
+    elementwise ops and (the same on every rank) the collectives of the
+    seq, model and expert axes.
 
     Over a pipe axis of ``S > 1`` stages, or with ``num_microbatches >
     1`` on one, the stack runs as GPipe (the ``V`` chunk rings one after
@@ -1115,12 +1105,6 @@ def make_value_and_grad_fn(cfg: TransformerConfig, device=None, comm=None,
     _check_layers(1 if mesh is None else mesh.axis_size("pipe"), cfg)
     _check_ported(cfg, training=True)
     seq, model, pipe, expert, data = _axes(mesh, dev)
-    if cfg.remat and cfg.remat_policy == "dots" and expert.size > 1:
-        # the selective checkpoint's recompute would replay the
-        # all-to-alls of some ranks' blocks only
-        raise NotImplementedError(
-            'remat_policy="dots" with an expert axis is not ported to '
-            f"chainermn_tpu_torch yet; it comes with {_PARALLEL_SLICE}")
     group = None if mesh is None else mesh.comm(*BATCH_AXES)
     # the experts' own gradients are summed over (data, seq) only: the
     # members of the expert group hold different experts, and the
@@ -1227,7 +1211,8 @@ def make_train_step(cfg: TransformerConfig, optimizer, device=None,
 # --------------------------------------------------------------------- #
 
 
-def _shard_dims(cfg: TransformerConfig, axis: str = "model") -> dict:
+def _shard_dims(cfg: TransformerConfig, axis: str = "model",
+                quantized: bool = False) -> dict:
     """The dim each leaf shards over ``axis`` (``"model"``, ``"expert"``
     or ``"data"``) in the port's layout (blocks ``(L, ...)``, or ``(V,
     L/V, ...)`` under ``virtual_pipe``), None for a leaf replicated over
@@ -1236,13 +1221,17 @@ def _shard_dims(cfg: TransformerConfig, axis: str = "model") -> dict:
     ``w2 (L, E, F, D)`` shard their experts over ``expert`` and ``F``
     over ``model``; the router is replicated over both.  Under ``fsdp``
     every matrix shards its d_model dim over ``data``
-    (:func:`_fsdp_dims` past the prefix)."""
+    (:func:`_fsdp_dims` past the prefix).  A ``quantized`` tree
+    (:func:`~.quantization.quantize_params_int8`) cuts each scale leaf
+    as its weight with the contraction axes removed (the JAX
+    ``scale_spec``) and ``embed_scale`` as ``embed``; it is never
+    FSDP-sharded (the JAX ``param_specs(quantized=True)``)."""
     if axis == "expert":
         blocks = {"w1": 1, "w2": 1} if cfg.moe else {}
         top = {}
     elif axis == "data":
         blocks = {k: d + 1 for k, d in _fsdp_dims(cfg).items()} \
-            if cfg.fsdp else {}
+            if cfg.fsdp and not quantized else {}
         top = {}
     else:
         blocks = {"wo": 1, "w1": 3, "w2": 2} if cfg.moe \
@@ -1255,13 +1244,18 @@ def _shard_dims(cfg: TransformerConfig, axis: str = "model") -> dict:
     if cfg.virtual_pipe > 1:
         # the chunk axis before the layers
         blocks = {k: d + 1 for k, d in blocks.items()}
+    if quantized:
+        from .quantization import scale_dims
+
+        blocks.update(scale_dims(blocks, cfg))
+        top.update({"embed_scale": top["embed"]} if "embed" in top else {})
     return {"top": top, "blocks": blocks}
 
 
 def _map_sharded(cfg, params, fn, axis: str = "model"):
     """``params`` with ``fn(leaf, dim)`` on every leaf that shards over
     ``axis`` (the others kept), in ``params``' order."""
-    dims = _shard_dims(cfg, axis)
+    dims = _shard_dims(cfg, axis, quantized="embed_scale" in params)
 
     def one(t, dim):
         return t if dim is None else fn(t, dim)

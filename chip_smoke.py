@@ -128,13 +128,23 @@ Phases (any failure exits non-zero before the last line is printed):
     and the gradient bf16-rounded element by element; (c) ResNet-50
     under ``StandardUpdater`` with ZeRO-1 and ZeRO-2, bitwise the
     replicated exchange, each one's ms an update, peak and resident
-    bytes.
+    bytes;
+20. the flagship's decode options on one card (after phase 18; 8
+    prompts of 128 tokens, 128 new): (a) the int8 tree's bytes and its
+    first decode step's logits against bf16's; (b) greedy decoding in
+    bf16, with int8 weights, with the int8 KV cache and with both, ms a
+    step, tokens/s and peak memory; (c) in fp32 the tokens of
+    speculative decoding (k=4, the first 2 blocks as the draft), prompt
+    lookup (k=4, bigrams, a repeated 16-token pattern) and 1-beam search
+    equal to greedy's; (d) the speculative, lookup and 4-beam runs timed
+    in bf16, and one beam reorder of the cache.
 
 Phases 3, 6, 13, 15 (a) and (c), 16 (a) and (c), 17, 18 (b) and 19 (a)
 are the main paths of the kernels:
 each starts with every launch count at 0 and reads the counts when it
-ends; phases 7 to 12 run no hand-written kernel, and hold their counts
-at 0.  It prints the card's name and power limit, a
+ends; phases 7 to 12 and 20 run no hand-written kernel (decoding
+attends the cache with plain products, as the JAX package does), and
+hold their counts at 0.  It prints the card's name and power limit, a
 ``{"dp_resnet50": {...}}`` line of phase 7's metrics, a
 ``{"large_batch": {...}}`` line of phase 12's,
 ``{"lm_data_parallel": {...}}`` of phase 13's, ``{"seq_parallel":
@@ -142,6 +152,7 @@ at 0.  It prints the card's name and power limit, a
 phase 16's, ``{"pipeline_one_card": {...}}`` of phase 17's,
 ``{"moe_one_card": {...}}`` of phase 18's,
 ``{"zero_one_card": {...}}`` of phase 19's,
+``{"decode_options": {...}}`` of phase 20's,
 ``{"drift_one_rank": {...}}`` of phase 14's, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 Weights are random, from numpy seed 0.  fp32 references run with TF32
@@ -154,17 +165,22 @@ exist only across cards (:func:`four_cards`, then
 ``--four-cards seq``
 runs the sequence axis's alone: the flagship's step on 4 ranks under
 ring (contiguous, zigzag), Ulysses and data=2, seq=2 against one
-card's, and seq-KV decoding; ``--four-cards tp`` the model axis's
-alone: the flagship's step at model=4, data=2,model=2 (the vocabulary
-sharded, the loss chunked) and model=2,seq=2 (the ring) against one
-card's, and decoding at model=4 and data=2,model=2 (the vocabulary
-sharded); ``--four-cards pp`` the pipe axis's alone: the flagship's
+card's, seq-KV decoding, and remat "dots" against "full" under the
+ring (contiguous, zigzag) and Ulysses at seq=4 (:func:`four_cards_dots`:
+the gradients of the two policies, the launches, ms and peak memory of
+each, the ranks' leaves after a "dots" step); ``--four-cards tp`` the
+model axis's alone: the flagship's step at model=4, data=2,model=2 (the
+vocabulary sharded, the loss chunked) and model=2,seq=2 (the ring)
+against one card's, and decoding at model=4 and data=2,model=2 (the
+vocabulary sharded), greedy and int8 4-beam search; ``--four-cards pp`` the pipe axis's alone: the flagship's
 step at pipe=4 under GPipe, 1F1B and interleaved and at pipe=2,data=2
 under 1F1B against one card's, and decoding at pipe=4; ``--four-cards
 ep`` the expert axis's alone: the MoE flagship's step at expert=4
 (top-1), data=2,expert=2 (top-2), expert=2,model=2 and pipe=2,expert=2
 (1F1B) against one card's simulation of the same per-rank routing, the
-layer across the four ranks, and decoding at expert=4; ``--four-cards
+layer across the four ranks, decoding at expert=4, and remat "dots"
+against "full" at expert=4 and data=2,expert=2 (top-2);
+``--four-cards dots`` the five "dots" runs alone; ``--four-cards
 zero`` the data axis's sharding alone: the flagship at data=4 with FSDP
 (fp32 and bf16 wires), the MoE flagship at data=2,expert=2 (top-2) and
 pipe=2,data=2 under 1F1B with FSDP, each against the same mesh without
@@ -3399,6 +3415,9 @@ def main():
     # 18. MoE at full width on one card ---------------------------------
     moe_counts, _ = phase_moe(torch, np, root, smi)
 
+    # 20. the flagship's decode options on one card ---------------------
+    decode_counts, _ = phase_decode_options(torch, np, smi)
+
     # 14. Queue C: the large-batch example on one card against the CPU --
     phase_drift(np, root, smi)
 
@@ -3419,7 +3438,8 @@ def main():
                                    **{p: c[0] for p, c in
                                       moe_counts.items()},
                                    **{p: c[0] for p, c in
-                                      zero_counts.items()}),
+                                      zero_counts.items()},
+                                   decode_options=decode_counts[0]),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
@@ -3430,7 +3450,8 @@ def main():
                  **{p: c[1] for p, c in tp_counts.items()},
                  **{p: c[1] for p, c in pp_counts.items()},
                  **{p: c[1] for p, c in moe_counts.items()},
-                 **{p: c[1] for p, c in zero_counts.items()}),
+                 **{p: c[1] for p, c in zero_counts.items()},
+                 decode_options=decode_counts[1]),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
@@ -3442,7 +3463,8 @@ def main():
                  **{p: c[2] for p, c in tp_counts.items()},
                  **{p: c[2] for p, c in pp_counts.items()},
                  **{p: c[2] for p, c in moe_counts.items()},
-                 **{p: c[2] for p, c in zero_counts.items()}),
+                 **{p: c[2] for p, c in zero_counts.items()},
+                 decode_options=decode_counts[2]),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -4022,14 +4044,15 @@ def tp_decode_rank(out, mesh_spec, vocab_parallel):
     and logits, bit for bit (checked).  Rank 0 also decodes the whole
     batch alone on its card and writes ``out/decode.json``: both runs'
     tokens, the logits' relative L2 error and the ms of the mesh's
-    run."""
+    run; then the same for int8 weights and 4-beam search (the beams'
+    tokens and scores)."""
     import numpy as np
     import torch
 
     import chainermn_tpu_torch as cmn
     from chainermn_tpu_torch.models import (
-        TransformerConfig, init_numpy_params, make_generate_fn,
-        params_from_jax)
+        TransformerConfig, init_numpy_params, make_beam_search_fn,
+        make_generate_fn, params_from_jax, quantize_params_int8)
     from chainermn_tpu_torch.parallel import MeshConfig
     from chainermn_tpu_torch.testing import replicas_bitwise
 
@@ -4054,17 +4077,32 @@ def tp_decode_rank(out, mesh_spec, vocab_parallel):
     rows = np.concatenate(data.allgather_obj(toks.cpu().numpy()))
     steps = np.concatenate(data.allgather_obj(logits.cpu().numpy()))
     del params, logits
+    q8 = quantize_params_int8(cfg, tree)
+    beam = make_beam_search_fn(cfg, beam_size=4, max_len=P + NEW,
+                               quantized=True, mesh=mesh)
+    btoks, bscores = beam(params_from_jax(q8, cfg, comm.device, mesh=mesh),
+                          prompts)
+    brows = np.concatenate(data.allgather_obj(btoks.cpu().numpy()))
+    bsc = np.concatenate(data.allgather_obj(bscores.cpu().numpy()))
     if comm.rank == 0:
         one, one_logits = make_generate_fn(
             cfg, max_len=P + NEW, with_logits=True, device=comm.device)(
             params_from_jax(tree, cfg, comm.device), prompts)
         one_logits = one_logits.cpu().numpy()
+        ob, osc = make_beam_search_fn(
+            cfg, beam_size=4, max_len=P + NEW, quantized=True,
+            device=comm.device)(params_from_jax(q8, cfg, comm.device),
+                                prompts)
+        osc = osc.cpu().numpy()
         Path(out).mkdir(parents=True, exist_ok=True)
         (Path(out) / "decode.json").write_text(json.dumps(dict(
             mesh=mesh.shape, vocab_parallel=cfg.vocab_parallel,
             tokens=rows.tolist(), one_card=one.cpu().numpy().tolist(),
             logits_rel_l2=float(np.linalg.norm(steps - one_logits)
                                 / np.linalg.norm(one_logits)),
+            beam_int8=brows.tolist(), beam_int8_one_card=ob.cpu().numpy()
+            .tolist(), beam_int8_scores_rel=float(
+                np.abs(bsc - osc).max() / np.abs(osc).max()),
             members_bitwise=members_bitwise, prompt=P, ms=ms)))
     comm.barrier()
     torch.distributed.destroy_process_group()
@@ -4100,9 +4138,14 @@ def four_cards_tp(root, smi):
         dec = json.loads((out / f"decode_{name}" / "decode.json")
                          .read_text())
         got, want = np.asarray(dec["tokens"]), np.asarray(dec["one_card"])
+        bgot, bwant = (np.asarray(dec[k]) for k in ("beam_int8",
+                                                    "beam_int8_one_card"))
         decode[name] = dict(
             rows_equal=int((got == want).all(axis=1).sum()),
             rows=len(got), logits_rel_l2=dec["logits_rel_l2"],
+            beam_int8_rows_equal=int((bgot == bwant).all(axis=(1, 2))
+                                     .sum()),
+            beam_int8_scores_rel=dec["beam_int8_scores_rel"],
             members_bitwise=dec["members_bitwise"], ms=dec["ms"])
     print(json.dumps({"tensor_parallel": dict(
         report, decode=decode, launches_by_path=launches_by_path,
@@ -4113,6 +4156,9 @@ def four_cards_tp(root, smi):
                 "equal one card's")
         require(d["logits_rel_l2"] < TP_LOGITS_REL,
                 f"decode {name}: logits rel L2 {d['logits_rel_l2']}")
+        require(d["beam_int8_rows_equal"] == d["rows"],
+                f"decode {name}: int8 beams of {d['beam_int8_rows_equal']}"
+                f" of {d['rows']} rows equal one card's")
         require(d["members_bitwise"],
                 f"decode {name}: model members' tokens or logits differ")
     return 0
@@ -5232,6 +5278,419 @@ def four_cards_zero(root, smi):
     return 0
 
 
+# --------------------------------------------------------------------- #
+# 20: the flagship's decode options on one card
+# --------------------------------------------------------------------- #
+
+# 8 prompts of 128 tokens, 128 generated; speculative k=4 with the
+# flagship's first 2 blocks as the draft; prompt lookup k=4 over bigrams
+# on prompts that repeat a 16-token pattern; beam search at 4 beams
+DECODE_P, DECODE_NEW = 128, 128
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
+LOOKUP_K, LOOKUP_NGRAM, LOOKUP_PATTERN = 4, 2, 16
+BEAM_K = 4
+# int8 weights' first decode step against bf16's on the same weights:
+# per-channel int8 rounds each weight by up to half a scale (~0.8 %
+# relative RMS for Gaussian rows), compounded over 24 layers; a broken
+# scale is off by 100 %
+INT8_LOGITS_REL = 0.2
+
+
+def tree_nbytes(tree):
+    import torch
+
+    from chainermn_tpu_torch.training.optimizers import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if torch.is_tensor(t))
+
+
+def timed_decode(torch, fn, warm):
+    """``warm()`` (the same decoder over 2 new tokens: the products' and
+    the allocator's first calls), then one timed ``fn()``: ``(its
+    result, ms, peak GiB above what was resident before it)``."""
+    warm()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def first_mismatch(a, b):
+    """The first (row, position) where two token arrays differ, or
+    None."""
+    import numpy as np
+
+    diff = np.argwhere(np.asarray(a) != np.asarray(b))
+    return None if not len(diff) else tuple(int(i) for i in diff[0])
+
+
+def phase_decode_options(torch, np, smi):
+    """20. The flagship's decode options at full width on one card
+    (8 prompts of 128 tokens, 128 generated; weights drawn on the card):
+    (a) the int8 tree (``quantize_params_int8``): its bytes against the
+    fp32 tree's, and the first decode step's logits against bf16's on
+    the same weights (rel L2, argmax agreement); (b) greedy decoding in
+    bf16, with int8 weights, with the int8 KV cache and with both: ms a
+    decode step (one token a row), tokens/s and the peak memory above
+    what was resident; (c) in fp32 (TF32 off: a step and a verify
+    chunk then round alike), the tokens of speculative decoding (k=4,
+    the draft the flagship's first 2 blocks), prompt lookup (k=4,
+    bigrams, prompts repeating a 16-token pattern) and 1-beam search
+    held equal to greedy's, with the mean accepted proposals; (d) in
+    bf16 the speculative, lookup and 4-beam runs timed, and one beam
+    reorder of the 4-beam cache (the gather along the rows of every
+    layer's cache, in place) on its own.  The decode path runs no flash
+    kernel (attention over the cache is plain, as in the JAX package):
+    the counts are 0 from the phase's start to its end.  Returns the
+    printed metrics."""
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_beam_search_fn, make_generate_fn,
+        make_lookup_generate_fn, make_speculative_generate_fn,
+        quantize_params_int8)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    P, NEW = DECODE_P, DECODE_NEW
+    L = P + NEW
+    cfg = TransformerConfig(**FLAGSHIP)
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0      # path starts
+    params = moe_params(torch, cfg, dev)
+    q8 = quantize_params_int8(cfg, params)
+    rng = np.random.RandomState(SEED + 20)
+    prompts = torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, P)),
+                              device=dev)
+    metrics = dict(card=smi, tree_bytes=dict(
+        fp32=tree_nbytes(params), int8=tree_nbytes(q8)))
+
+    # (a) the first decode step, int8 weights against bf16
+    _, lb = make_generate_fn(cfg, max_len=P + 1, with_logits=True)(
+        params, prompts)
+    _, lq = make_generate_fn(cfg, max_len=P + 1, with_logits=True,
+                             quantized=True)(q8, prompts)
+    metrics["first_step"] = dict(
+        rel_l2=rel_err(lq, lb),
+        argmax_agreement=(lq.argmax(-1) == lb.argmax(-1)).float()
+        .mean().item())
+    del lb, lq
+    tb = metrics["tree_bytes"]
+    print(f"decode (a): int8 tree {tb['int8'] / 2**30:.3f} GiB against "
+          f"fp32 {tb['fp32'] / 2**30:.3f} GiB; first step's logits vs "
+          f"bf16 weights: rel L2 {metrics['first_step']['rel_l2']:.3e}, "
+          f"argmax agreement {metrics['first_step']['argmax_agreement']}")
+    require(metrics["first_step"]["rel_l2"] < INT8_LOGITS_REL,
+            f"(a) int8 logits off bf16's: {metrics['first_step']}")
+
+    # (b) greedy, the four precisions
+    kv8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    metrics["greedy"] = {}
+    tokens = {}
+    for name, (c, tree, quant) in dict(
+            bf16=(cfg, params, False), int8_weights=(cfg, q8, True),
+            int8_kv=(kv8, params, False),
+            int8_both=(kv8, q8, True)).items():
+        fn = make_generate_fn(c, max_len=L, quantized=quant)
+        warm = make_generate_fn(c, max_len=P + 2, quantized=quant)
+        toks, ms, peak = timed_decode(torch, lambda: fn(tree, prompts),
+                                      lambda: warm(tree, prompts))
+        require(toks.shape == (8, L) and bool(
+            (toks[:, :P] == prompts).all()) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"(b) {name}: tokens {tuple(toks.shape)}")
+        tokens[name] = toks.cpu().numpy()
+        metrics["greedy"][name] = dict(
+            ms=ms, ms_per_step=ms / NEW, tokens_per_s=8 * NEW / ms * 1e3,
+            peak_gib=peak, tokens_equal_bf16=float(
+                (tokens[name][:, P:] == tokens["bf16"][:, P:]).mean()))
+        print(f"decode (b) {name}: {ms / NEW:.3f} ms a step (8 tokens), "
+              f"{8 * NEW / ms * 1e3:.0f} tokens/s, peak {peak:.3f} GiB "
+              f"above resident; generated tokens equal to bf16's "
+              f"{metrics['greedy'][name]['tokens_equal_bf16']:.3f}")
+
+    # (c) fp32: speculative, lookup and 1-beam against greedy
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    d32 = dataclasses.replace(f32, n_layers=SPEC_DRAFT_LAYERS)
+    draft = dict(params, blocks={k: v[:SPEC_DRAFT_LAYERS]
+                                 for k, v in params["blocks"].items()})
+    greedy = make_generate_fn(f32, max_len=L)(params, prompts).cpu().numpy()
+    spec, acc = make_speculative_generate_fn(
+        f32, d32, k=SPEC_K, max_len=L, with_stats=True)(params, draft,
+                                                        prompts)
+    pattern = rng.randint(0, cfg.vocab_size, (8, LOOKUP_PATTERN))
+    lp = torch.as_tensor(np.tile(pattern, (1, P // LOOKUP_PATTERN)),
+                         device=dev)
+    greedy_lp = make_generate_fn(f32, max_len=L)(params, lp).cpu().numpy()
+    look, l_acc = make_lookup_generate_fn(
+        f32, k=LOOKUP_K, ngram=LOOKUP_NGRAM, max_len=L, with_stats=True)(
+        params, lp)
+    beam1, _ = make_beam_search_fn(f32, beam_size=1, max_len=L)(params,
+                                                                prompts)
+    metrics["fp32"] = dict(
+        speculative_mean_accepted=float(acc),
+        lookup_mean_accepted=float(l_acc),
+        speculative_first_mismatch=first_mismatch(spec.cpu(), greedy),
+        lookup_first_mismatch=first_mismatch(look.cpu(), greedy_lp),
+        beam1_first_mismatch=first_mismatch(beam1[:, 0].cpu(), greedy))
+    print(f"decode (c) fp32: speculative k={SPEC_K} ({SPEC_DRAFT_LAYERS}-"
+          f"block draft) mean accepted {float(acc):.3f}, lookup k="
+          f"{LOOKUP_K} mean accepted {float(l_acc):.3f}; first mismatch "
+          f"against greedy: speculative "
+          f"{metrics['fp32']['speculative_first_mismatch']}, lookup "
+          f"{metrics['fp32']['lookup_first_mismatch']}, beam 1 "
+          f"{metrics['fp32']['beam1_first_mismatch']}")
+    for what in ("speculative", "lookup", "beam1"):
+        require(metrics["fp32"][f"{what}_first_mismatch"] is None,
+                f"(c) {what} tokens differ from greedy's at "
+                f"{metrics['fp32'][f'{what}_first_mismatch']}")
+    del spec, look, beam1
+
+    # (d) bf16: the speculative, lookup and 4-beam runs timed
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC_DRAFT_LAYERS)
+    spec_fn, spec_warm = (make_speculative_generate_fn(
+        cfg, dcfg, k=SPEC_K, max_len=n, with_stats=True) for n in (L, P + 2))
+    (_, acc), ms, peak = timed_decode(
+        torch, lambda: spec_fn(params, draft, prompts),
+        lambda: spec_warm(params, draft, prompts))
+    metrics["speculative"] = dict(ms=ms, ms_per_token=ms / NEW,
+                                  mean_accepted=float(acc), peak_gib=peak)
+    look_fn, look_warm = (make_lookup_generate_fn(
+        cfg, k=LOOKUP_K, ngram=LOOKUP_NGRAM, max_len=n, with_stats=True)
+        for n in (L, P + 2))
+    (_, l_acc), ms, peak = timed_decode(torch, lambda: look_fn(params, lp),
+                                        lambda: look_warm(params, lp))
+    metrics["lookup"] = dict(ms=ms, ms_per_token=ms / NEW,
+                             mean_accepted=float(l_acc), peak_gib=peak)
+    beam_fn, beam_warm = (make_beam_search_fn(cfg, beam_size=BEAM_K,
+                                              max_len=n) for n in (L, P + 2))
+    (btoks, scores), ms, peak = timed_decode(
+        torch, lambda: beam_fn(params, prompts),
+        lambda: beam_warm(params, prompts))
+    require(btoks.shape == (8, BEAM_K, L) and bool(
+        torch.isfinite(scores).all()) and bool(
+        (scores[:, :-1] >= scores[:, 1:]).all()),
+        f"(d) beam: tokens {tuple(btoks.shape)}, scores {scores}")
+    metrics["beam"] = dict(ms=ms, ms_per_token=ms / NEW, peak_gib=peak)
+    # one reorder of the 4-beam cache: every layer's K and V gathered
+    # along the rows, in place
+    cache = [torch.zeros((cfg.n_layers, 8 * BEAM_K, L, cfg.kv_heads,
+                          cfg.d_head), dtype=torch.bfloat16, device=dev)
+             for _ in range(2)]
+    order = torch.randint(0, 8 * BEAM_K, (8 * BEAM_K,), device=dev)
+
+    def reorder():
+        for c in cache:
+            c.copy_(c.index_select(1, order))
+
+    metrics["beam"]["reorder_ms"] = cuda_ms(reorder, reps=10, runs=3)
+    metrics["beam"]["reorder_bytes"] = 2 * 2 * sum(c.numel() * 2
+                                                   for c in cache)
+    metrics["beam"]["reorder_bound_ms"] = bound_ms(
+        0, metrics["beam"]["reorder_bytes"])[0]
+    del cache
+    print(f"decode (d) bf16: speculative {metrics['speculative']['ms']:.1f}"
+          f" ms ({metrics['speculative']['ms_per_token']:.3f} ms a token, "
+          f"mean accepted {metrics['speculative']['mean_accepted']:.3f}); "
+          f"lookup {metrics['lookup']['ms']:.1f} ms (mean accepted "
+          f"{metrics['lookup']['mean_accepted']:.3f}); beam {BEAM_K} "
+          f"{metrics['beam']['ms']:.1f} ms "
+          f"({metrics['beam']['ms_per_token']:.3f} ms a token), one cache "
+          f"reorder "
+          f"{metrics['beam']['reorder_ms']:.3f} ms (bound "
+          f"{metrics['beam']['reorder_bound_ms']:.3f} ms)")
+    torch.cuda.synchronize()
+    got = (fa.launches, fa.dq_launches, fa.dkv_launches)   # path ended
+    require(got == (0, 0, 0), f"decoding launched the flash kernels {got}")
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"decode_options": metrics}))
+    del params, q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, metrics
+
+
+# --------------------------------------------------------------------- #
+# --four-cards seq/ep/dots: "dots" remat under ring, Ulysses and the
+# expert axis
+# --------------------------------------------------------------------- #
+
+# (name, mesh, attention, layout, moe, top-k)
+DOTS_FOUR = (
+    ("dots_ring_contiguous", "seq=4", "ring", "contiguous", "0", "1"),
+    ("dots_ring_zigzag", "seq=4", "ring", "zigzag", "0", "1"),
+    ("dots_ulysses", "seq=4", "ulysses", "contiguous", "0", "1"),
+    ("dots_expert4_top1", "expert=4", "flash", "contiguous", "1", "1"),
+    ("dots_data2_expert2_top2", "data=2,expert=2", "flash", "contiguous",
+     "1", "2"))
+DOTS_REPS = 2
+
+
+def dots_rank(out, name, mesh_spec, attention, layout, moe, k):
+    """One rank (under torchrun, 4 ranks) of the flagship's gradients
+    (8 x 2048 tokens, bf16; the MoE flagship's with ``moe`` = 1) over a
+    mesh with a seq or an expert axis under remat ``"full"`` and
+    ``"dots"``, from the same parameters: per policy a warm-up, then
+    the flash launches counted from 0 around one ``value_and_grad``
+    (beside :func:`seq_predicted_launches`, the forward once a layer
+    under "dots"), then ``DOTS_REPS`` calls timed and the peak memory;
+    the two policies' gradients compared bitwise (the largest difference
+    otherwise).  Then one AdamW step under "dots" and the ranks' leaves
+    compared bitwise: every leaf over the batch-like group, the experts
+    over ``(data, seq)``.  Rank 0 writes ``out/dots.json``."""
+    import numpy as np
+    import torch
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, init_numpy_params, make_train_step,
+        make_value_and_grad_fn, params_from_jax, shard_params)
+    from chainermn_tpu_torch.ops import flash_attention as fa
+    from chainermn_tpu_torch.parallel import MeshConfig, zigzag_indices
+    from chainermn_tpu_torch.parallel.mesh import BATCH_AXES
+    from chainermn_tpu_torch.testing import replicas_bitwise
+
+    comm = cmn.create_communicator()
+    mesh = MeshConfig(comm, **_mesh_axes(mesh_spec))
+    if moe == "1":
+        cfg = ep_config("gpipe", 1, k)
+        whole = moe_params(torch, cfg, comm.device)
+        comm.bcast_data(whole)
+        params = shard_params(mesh, cfg, whole)
+        del whole
+    else:
+        cfg = TransformerConfig(**dict(FLAGSHIP, attention=attention,
+                                       seq_layout=layout, remat=True))
+        params = params_from_jax(init_numpy_params(cfg, SEED), cfg,
+                                 comm.device, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq + 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    if layout == "zigzag":
+        perm = zigzag_indices(mesh.axis_size("seq"), cfg.max_seq).reshape(-1)
+        x, y = x[:, perm], y[:, perm]
+    mine = dict(rank=comm.rank, coords=mesh.coords, policies={})
+    grads = {}
+    for policy in ("full", "dots"):
+        run = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        fn = make_value_and_grad_fn(run, mesh=mesh)
+        fn(params, x, y)                                   # warm-up
+        torch.cuda.synchronize()
+        comm.barrier()
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0  # path starts
+        loss, grads[policy] = fn(params, x, y)
+        torch.cuda.synchronize()
+        got = (fa.launches, fa.dq_launches, fa.dkv_launches)  # ended
+        want = list(seq_predicted_launches(cfg, mesh, 1))
+        if policy == "dots":
+            want[0] = want[1]
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DOTS_REPS):
+            comm.barrier()
+            t0 = time.perf_counter()
+            fn(params, x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        mine["policies"][policy] = dict(
+            loss=loss.item(), launches=got, predicted=tuple(want),
+            ms=statistics.median(times),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(
+        torch.utils._pytree.tree_leaves(grads["full"]),
+        torch.utils._pytree.tree_leaves(grads["dots"]))]
+    mine.update(grads_bitwise=max(diffs) == 0.0, max_abs_diff=max(diffs))
+    del grads
+    run = dataclasses.replace(cfg, remat=True, remat_policy="dots")
+    opt = training.adamw(3e-4)
+    state = opt.init(params)
+    params, state, loss = make_train_step(run, opt, mesh=mesh)(
+        params, state, x, y)
+    torch.cuda.synchronize()
+    experts = ("w1", "w2") if cfg.moe else ()
+    repl = [v for kk, v in params.items() if kk != "blocks"] + [
+        v for kk, v in params["blocks"].items() if kk not in experts]
+    mine["step_loss"] = loss.item()
+    mine["ranks_equal"] = replicas_bitwise(mesh.comm(*BATCH_AXES), repl) \
+        and replicas_bitwise(mesh.comm("data", "seq"), [
+            params["blocks"][kk] for kk in experts])
+    ranks = comm.allgather_obj(mine)
+    if comm.rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "dots.json").write_text(json.dumps(dict(
+            name=name, mesh=mesh.shape, attention=cfg.attention,
+            layout=layout, moe=cfg.moe, top_k=cfg.router_top_k,
+            world=comm.size, ranks=ranks)))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_dots(root, smi, runs=DOTS_FOUR):
+    """Each of ``runs`` (:func:`dots_rank`) under torchrun on 4 ranks:
+    every rank's flash launches under each policy what the schedule
+    predicts (the forward once a layer and pair under "dots", twice
+    under "full"), the losses of the two policies equal, and the ranks'
+    leaves bitwise after a "dots" step; the gradients' largest
+    difference between the policies (0 when bitwise) and each policy's
+    ms and peak memory reported."""
+    from chainermn_tpu_torch import _build
+
+    out = root / "build" / "four_cards" / "dots"
+    me = str(Path(__file__).resolve())
+    _build.build_all()
+    report = {}
+    for name, *args in runs:
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node", "4",
+                        me, "--dots-rank", str(out / name), name, *args],
+                       check=True, timeout=420)
+        r = json.loads((out / name / "dots.json").read_text())
+        ranks = r["ranks"]
+        report[name] = dict(
+            mesh=r["mesh"], moe=r["moe"], top_k=r["top_k"],
+            grads_bitwise=all(q["grads_bitwise"] for q in ranks),
+            max_abs_diff=max(q["max_abs_diff"] for q in ranks),
+            ranks_equal=all(q["ranks_equal"] for q in ranks),
+            **{pol: dict(
+                ms=max(q["policies"][pol]["ms"] for q in ranks),
+                peak_gib=max(q["policies"][pol]["peak_gib"]
+                             for q in ranks),
+                loss=ranks[0]["policies"][pol]["loss"],
+                launches={q["rank"]: q["policies"][pol]["launches"]
+                          for q in ranks},
+                predicted={q["rank"]: q["policies"][pol]["predicted"]
+                           for q in ranks}) for pol in ("full", "dots")})
+        rep = report[name]
+        print(f"dots {name} ({r['mesh']}): gradients bitwise full remat's "
+              f"{rep['grads_bitwise']} (largest difference "
+              f"{rep['max_abs_diff']:.3e}); value_and_grad "
+              f"{rep['dots']['ms']:.1f} ms under dots, "
+              f"{rep['full']['ms']:.1f} under full; peak "
+              f"{rep['dots']['peak_gib']:.2f} / {rep['full']['peak_gib']:.2f}"
+              f" GiB; launches by rank {rep['dots']['launches']}")
+        for pol in ("full", "dots"):
+            got = {int(k): tuple(v) for k, v in rep[pol]["launches"].items()}
+            want = {int(k): tuple(v)
+                    for k, v in rep[pol]["predicted"].items()}
+            require(got == want, f"{name} {pol}: flash launches by rank "
+                    f"{got}, the schedule predicts {want}")
+        require(rep["ranks_equal"], f"{name}: ranks' leaves differ after "
+                "a dots step")
+        require(rep["full"]["loss"] == rep["dots"]["loss"],
+                f"{name}: losses {rep['full']['loss']} (full) and "
+                f"{rep['dots']['loss']} (dots)")
+    print(json.dumps({"dots_four_cards": dict(report, card=smi)}))
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5245,8 +5704,12 @@ if __name__ == "__main__":
         print(card_name())
         here = Path(__file__).resolve().parent
         if sys.argv[2:3] == ["seq"]:
-            # the sequence axis alone
-            sys.exit(four_cards_seq(here, card_name()))
+            # the sequence axis alone, its "dots" runs after
+            sys.exit(four_cards_seq(here, card_name())
+                     or four_cards_dots(here, card_name(), DOTS_FOUR[:3]))
+        if sys.argv[2:3] == ["dots"]:
+            # "dots" remat under the ring, Ulysses and the expert axis
+            sys.exit(four_cards_dots(here, card_name()))
         if sys.argv[2:3] == ["tp"]:
             # the model axis alone
             sys.exit(four_cards_tp(here, card_name()))
@@ -5254,8 +5717,9 @@ if __name__ == "__main__":
             # the pipe axis alone
             sys.exit(four_cards_pp(here, card_name()))
         if sys.argv[2:3] == ["ep"]:
-            # the expert axis alone
-            sys.exit(four_cards_ep(here, card_name()))
+            # the expert axis alone, its "dots" runs after
+            sys.exit(four_cards_ep(here, card_name())
+                     or four_cards_dots(here, card_name(), DOTS_FOUR[3:]))
         if sys.argv[2:3] == ["zero"]:
             # ZeRO-1/2 and FSDP over the data axis alone
             sys.exit(four_cards_zero(here, card_name()))
@@ -5264,6 +5728,7 @@ if __name__ == "__main__":
                  or four_cards_tp(here, card_name())
                  or four_cards_pp(here, card_name())
                  or four_cards_ep(here, card_name())
+                 or four_cards_dots(here, card_name())
                  or four_cards_zero(here, card_name()))
     if sys.argv[1:2] == ["--zero-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -5280,6 +5745,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ep-sim"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(ep_sim_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--dots-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(dots_rank(*sys.argv[2:9]))
     if sys.argv[1:2] == ["--ep-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(ep_rank(*sys.argv[2:8]))

@@ -1,7 +1,9 @@
-"""Greedy text generation with the flagship transformer on the
-PyTorch/CUDA port — ``generate.py``'s greedy KV-cache path through
-``chainermn_tpu_torch``, on one rank or over a mesh's pipe, data,
-expert, seq and model axes.
+"""Text generation with the flagship transformer on the PyTorch/CUDA
+port — ``generate.py``'s KV-cache decoders through
+``chainermn_tpu_torch`` (greedy, ``--beam``, ``--speculative-k``,
+``--lookup-k``, each with ``--int8`` weights and a ``--kv-int8``
+cache), on one rank or over a mesh's pipe, data, expert, seq and model
+axes.
 It runs from ``lm_state.npz`` written by ``train_lm_torch.py
 --checkpoint`` (so train → generate is a complete loop) or from seeded
 random weights for a smoke run:
@@ -23,6 +25,14 @@ random weights for a smoke run:
     # an MoE checkpoint's experts over 4 cards
     torchrun --nproc_per_node 4 examples/transformer/generate_torch.py \\
         --mesh expert=4 --checkpoint ck --max-len 64
+    # beam search over int8 weights and an int8 KV cache
+    python examples/transformer/generate_torch.py --beam 4 --int8 --kv-int8
+    # speculative decoding, the draft the checkpoint's first 2 layers
+    python examples/transformer/generate_torch.py --checkpoint ck \\
+        --speculative-k 4 --draft-layers 2
+    # prompt lookup: the proposals copied from the context
+    python examples/transformer/generate_torch.py --lookup-k 4 \\
+        --prompt 5,6,7,5,6,7,5,6
 
 ``--mesh pipe=P,data=D,expert=X,seq=R,model=M`` decodes on a world of
 ``P·D·X·R·M`` ranks: each data and expert member its rows of the batch,
@@ -36,11 +46,14 @@ file records it) is regrouped for the decode mesh; an MoE checkpoint
 routed top-k as it trained (the file records it).  Without an axis
 above 1 one rank decodes.  Pass the model flags the training run used
 (``--vocab`` as the training run printed it, with a tokenizer).
-Sampling
+``--lookup-k`` excludes ``--speculative-k`` and ``--beam``, and
+``--speculative-k`` takes precedence over ``--beam``, as in
+``generate.py``; the speculative draft is the checkpoint's first
+``--draft-layers`` blocks when a checkpoint is loaded at pipe 1, and a
+model of that depth from ``--seed + 1`` otherwise.  The speculative and
+lookup runs print their mean accepted proposals a round.  Sampling
 (``--temperature``, ``--top-k``, ``--top-p``) comes with the serving
-slice (ROADMAP Queue A item 12); ``--beam``, ``--speculative-k``,
-``--lookup-k``, ``--int8`` and ``--kv-int8`` with the remaining models
-and decoders (item 9).  Each raises.
+slice (ROADMAP Queue A item 12) and raises.
 """
 
 import argparse
@@ -61,11 +74,6 @@ _UNPORTED = (
     ("--temperature > 0", lambda a: a.temperature > 0, 12),
     ("--top-k", lambda a: a.top_k > 0, 12),
     ("--top-p", lambda a: a.top_p < 1.0, 12),
-    ("--beam", lambda a: a.beam > 0, 9),
-    ("--speculative-k", lambda a: a.speculative_k > 0, 9),
-    ("--lookup-k", lambda a: a.lookup_k > 0, 9),
-    ("--int8", lambda a: a.int8, 9),
-    ("--kv-int8", lambda a: a.kv_int8, 9),
 )
 
 
@@ -117,11 +125,24 @@ def parse_args(argv=None):
                         "freeze (later positions = --pad-id) and "
                         "generation ends when every row is done")
     p.add_argument("--pad-id", type=int, default=0)
-    p.add_argument("--beam", type=int, default=0)
-    p.add_argument("--speculative-k", type=int, default=0)
-    p.add_argument("--lookup-k", type=int, default=0)
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--kv-int8", action="store_true")
+    p.add_argument("--beam", type=int, default=0,
+                   help="beam size; 0 = greedy")
+    p.add_argument("--speculative-k", type=int, default=0,
+                   help="speculative decoding: the draft proposes k "
+                        "tokens a round (0 = off); the same tokens as "
+                        "greedy for a dense model")
+    p.add_argument("--draft-layers", type=int, default=0,
+                   help="the draft's depth (default n_layers/2)")
+    p.add_argument("--lookup-k", type=int, default=0,
+                   help="prompt-lookup decoding: propose k tokens from "
+                        "the last n-gram's most recent earlier "
+                        "occurrence in the context (no draft model); "
+                        "the same tokens as greedy for a dense model")
+    p.add_argument("--lookup-ngram", type=int, default=2)
+    p.add_argument("--int8", action="store_true",
+                   help="weight-only int8 decode")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV cache with per-(token, head) scales")
     p.add_argument("--vocab-parallel", action="store_true",
                    help="shard the vocabulary over the model axis too")
     p.add_argument("--checkpoint", default=None,
@@ -135,11 +156,23 @@ def parse_args(argv=None):
 
 def main(argv=None, keep_logits=False):
     """Generate; returns a namespace of ``tokens`` ``(B, max_len)`` (the
-    whole batch, on every rank of a mesh),
+    whole batch, on every rank of a mesh; ``(B, beam, max_len)`` best
+    first with ``--beam``, and ``scores`` ``(B, beam)``),
+    ``mean_accepted`` (speculative and lookup runs, else None),
     ``cfg``, ``params``, ``prompt``, ``prompt_lens`` and, with
-    ``keep_logits``, ``logits``: the fp32 logits of every decode step
-    (``make_generate_fn(with_logits=True)``)."""
+    ``keep_logits``, ``logits``: the fp32 logits of every greedy decode
+    step (``make_generate_fn(with_logits=True)``)."""
     args = parse_args(argv)
+    if args.lookup_k > 0 and (args.speculative_k > 0 or args.beam > 0):
+        raise SystemExit(
+            "--lookup-k is its own decode mode; drop --speculative-k/"
+            "--beam")
+    if args.lookup_k > 0 and (args.temperature > 0 or args.top_k > 0
+                              or args.top_p < 1.0):
+        raise SystemExit(
+            "--lookup-k is exact-GREEDY decoding; --temperature/"
+            "--top-k/--top-p have no effect there — drop them (for "
+            "sampled speculation use --speculative-k)")
     for what, hit, item in _UNPORTED:
         if hit(args):
             raise NotImplementedError(
@@ -150,8 +183,10 @@ def main(argv=None, keep_logits=False):
     from chainermn_tpu_torch import resolve_device
     from chainermn_tpu_torch.datasets import BPETokenizer
     from chainermn_tpu_torch.models import (
-        TransformerConfig, init_transformer, make_generate_fn,
-        params_from_jax, regroup_blocks)
+        TransformerConfig, init_transformer, make_beam_search_fn,
+        make_generate_fn, make_lookup_generate_fn,
+        make_speculative_generate_fn, params_from_jax,
+        quantize_params_int8, regroup_blocks, shard_params)
     from chainermn_tpu_torch.models.transformer import _check_mesh
     from chainermn_tpu_torch.utils.serialization import load_state
 
@@ -163,7 +198,8 @@ def main(argv=None, keep_logits=False):
         n_layers=args.n_layers, max_seq=args.max_len, attention="local",
         pos_embedding=args.pos_embedding, dtype=args.dtype, remat=False,
         vocab_parallel=args.vocab_parallel, moe=args.moe,
-        n_experts=max(2 * axes.get("expert", 1), 2))
+        n_experts=max(2 * axes.get("expert", 1), 2),
+        kv_cache_dtype="int8" if args.kv_int8 else "")
     _check_mesh(axes, cfg)
     mesh = None
     if any(n > 1 for n in axes.values()):
@@ -202,11 +238,21 @@ def main(argv=None, keep_logits=False):
             cfg = dataclasses.replace(
                 cfg, moe=True, router_top_k=int(saved["router_top_k"]),
                 n_experts=saved["params"]["blocks"]["router"].shape[-1])
-        params = params_from_jax(saved["params"], cfg, dev, mesh=mesh)
+        # the whole tree (JAX layout) is quantized before it is sharded:
+        # a scale spans its weight's whole contraction
+        host = saved["params"]
+        if args.int8:
+            host = quantize_params_int8(cfg, host)
+        params = params_from_jax(host, cfg, dev, mesh=mesh)
         say(f"loaded {ckpt_file}")
     else:
+        host = None
         params = init_transformer(torch.Generator().manual_seed(args.seed),
-                                  cfg, device=dev, mesh=mesh)
+                                  cfg, device=dev)
+        if args.int8:
+            params = quantize_params_int8(cfg, params)
+        if mesh is not None:
+            params = shard_params(mesh, cfg, params)
 
     tok = BPETokenizer.load(args.tokenizer) if args.tokenizer else None
 
@@ -262,28 +308,101 @@ def main(argv=None, keep_logits=False):
         if tok is not None:
             say(f"{label} text:", repr(tok.decode_text(ids)))
 
-    gen = make_generate_fn(cfg, max_len=args.max_len, eos_id=args.eos_id,
-                           pad_id=args.pad_id, with_logits=keep_logits,
-                           device=None if mesh else dev, mesh=mesh)
-    out = gen(params, prompt, prompt_lens=prompt_lens)
-    logits = None
-    if keep_logits:
-        out, logits = out
-    out_np = out.cpu().numpy()
-    if mesh is not None:
-        # the whole batch: each data and expert member's rows, in order
-        out_np = np.concatenate(
-            mesh.comm("data", "expert").allgather_obj(out_np))
-        out = torch.as_tensor(out_np)
-    if prompt_lens is not None:
-        for b in range(out_np.shape[0]):
-            start = prompt.shape[1] - int(prompt_lens[b])
-            show(out_np[b, start:].tolist(), label=f"row {b}")
+    rows_group = None if mesh is None else mesh.comm("data", "expert")
+
+    def whole(t):
+        """The whole batch from each data and expert member's rows."""
+        t = t.cpu().numpy()
+        if rows_group is not None:
+            t = np.concatenate(rows_group.allgather_obj(t))
+        return t
+
+    def show_batch(out_np):
+        """Each row of a ragged batch, else the first row."""
+        if prompt_lens is not None:
+            for b in range(out_np.shape[0]):
+                start = prompt.shape[1] - int(prompt_lens[b])
+                show(out_np[b, start:].tolist(), label=f"row {b}")
+        else:
+            show(out_np[0].tolist())
+
+    where = dict(device=None if mesh else dev, mesh=mesh)
+    logits = scores = mean_acc = None
+    if args.lookup_k > 0:
+        lk = make_lookup_generate_fn(
+            cfg, k=args.lookup_k, ngram=args.lookup_ngram,
+            max_len=args.max_len, eos_id=args.eos_id, pad_id=args.pad_id,
+            quantized=args.int8, with_stats=True, **where)
+        out, mean_acc = lk(params, prompt, prompt_lens=prompt_lens)
+        mean_acc = float(mean_acc)
+        say(f"prompt-lookup k={args.lookup_k} ngram={args.lookup_ngram}: "
+            f"mean accepted proposals/round {mean_acc:.2f} "
+            f"(~{mean_acc + 1:.2f} tokens per target read)")
+        out_np = whole(out)
+        show_batch(out_np)
+    elif args.speculative_k > 0:
+        d_layers = args.draft_layers or max(1, args.n_layers // 2)
+        d_cfg = dataclasses.replace(cfg, n_layers=d_layers)
+        if host is not None and axes.get("pipe", 1) == 1:
+            # the checkpoint's first d_layers blocks with the shared
+            # embedding and norms: a draft whose acceptance reflects the
+            # trained model
+            d_params = params_from_jax(dict(host, blocks={
+                k: v[:, :d_layers] for k, v in host["blocks"].items()}),
+                d_cfg, dev, mesh=mesh)
+            d_quant = args.int8
+            note = "draft = target's first layers"
+        else:
+            d_params = init_transformer(
+                torch.Generator().manual_seed(args.seed + 1), d_cfg,
+                device=dev, mesh=mesh)
+            d_quant = False
+            note = "random draft (mechanics demo — expect ~1 tok/round)"
+        say(f"speculative k={args.speculative_k}, {d_layers}-layer "
+            f"draft: {note}")
+        spec = make_speculative_generate_fn(
+            cfg, d_cfg, k=args.speculative_k, max_len=args.max_len,
+            eos_id=args.eos_id, pad_id=args.pad_id, quantized=args.int8,
+            draft_quantized=d_quant, with_stats=True, **where)
+        out, mean_acc = spec(params, d_params, prompt,
+                             prompt_lens=prompt_lens)
+        mean_acc = float(mean_acc)
+        say(f"mean accepted proposals/round: {mean_acc:.2f} "
+            f"of k={args.speculative_k} "
+            f"(~{mean_acc + 1:.2f} tokens per target read)")
+        out_np = whole(out)
+        show_batch(out_np)
+    elif args.beam > 0:
+        bs = make_beam_search_fn(
+            cfg, beam_size=args.beam, max_len=args.max_len,
+            eos_id=args.eos_id, length_penalty=0.6, quantized=args.int8,
+            **where)
+        out, scores = bs(params, prompt, prompt_lens=prompt_lens)
+        out_np, scores = whole(out), whole(scores)
+        if prompt_lens is not None:
+            for b in range(out_np.shape[0]):        # best beam per row
+                start = prompt.shape[1] - int(prompt_lens[b])
+                show(out_np[b, 0, start:].tolist(),
+                     label=f"row {b} best (score {scores[b, 0]:+.3f})")
+        else:
+            for k in range(args.beam):
+                show(out_np[0, k].tolist(),
+                     label=f"beam {k} (score {scores[0, k]:+.3f})")
     else:
-        show(out_np[0].tolist())
+        gen = make_generate_fn(cfg, max_len=args.max_len,
+                               eos_id=args.eos_id, pad_id=args.pad_id,
+                               quantized=args.int8,
+                               with_logits=keep_logits, **where)
+        out = gen(params, prompt, prompt_lens=prompt_lens)
+        if keep_logits:
+            out, logits = out
+        out_np = whole(out)
+        show_batch(out_np)
     if mesh is not None and owns_world:
         dist.destroy_process_group()
-    return types.SimpleNamespace(tokens=out, logits=logits, cfg=cfg,
+    return types.SimpleNamespace(tokens=torch.as_tensor(out_np),
+                                 logits=logits, scores=scores,
+                                 mean_accepted=mean_acc, cfg=cfg,
                                  params=params, prompt=prompt,
                                  prompt_lens=prompt_lens, tok=tok)
 

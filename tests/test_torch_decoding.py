@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from chainermn_tpu.models import TransformerConfig as JaxConfig
 from chainermn_tpu.models import init_transformer
@@ -24,6 +25,17 @@ from chainermn_tpu_torch.models import (
 )
 
 VOCAB, BATCH, PLEN, MAX_LEN = 64, 3, 6, 16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one CPU thread: its decode steps are many small
+    ops, which a thread pool only slows (and under a busy machine's
+    other test workers, by far)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def setup(**kw):
@@ -94,14 +106,19 @@ def test_eos_row_state_matches_jax():
 
 
 def test_validation_and_unported_options():
+    # sampling is item 12; int8 weights and the int8 KV cache are ported
+    # (test_torch_quantized_decoding.py): they build, and the int8 tree
+    # is asked for
     _, cfg, _, params = setup()
-    with pytest.raises(NotImplementedError, match="sampling"):
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
         make_generate_fn(cfg, temperature=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_generate_fn(cfg, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="quantization"):
-        make_generate_fn(dataclasses.replace(cfg, kv_cache_dtype="int8"),
-                         device="cpu")
+    with pytest.raises(ValueError, match="int8 tree"):
+        make_generate_fn(cfg, quantized=True, device="cpu")(params,
+                                                            prompt())
+    kv8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    out = make_generate_fn(kv8, max_len=MAX_LEN, device="cpu")(params,
+                                                               prompt())
+    assert out.shape == (BATCH, MAX_LEN)
     with pytest.raises(ValueError, match="max_len"):
         make_generate_fn(cfg, max_len=MAX_LEN + 1, device="cpu")
     with pytest.raises(ValueError, match="eos_id"):

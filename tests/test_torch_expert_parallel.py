@@ -120,6 +120,11 @@ STEP_CASES = {
                                           virtual_pipe=2,
                                           pipeline_schedule="interleaved")),
 }
+# the step cases held under "dots" remat against full remat: top-2 at
+# data=2,expert=2, top-1 at expert=2,model=2 (the flash kernels), and
+# 1F1B at pipe=2,expert=2
+DOTS_CASES = ("gpipe_data2_expert2_top2", "gpipe_expert2_model2",
+              "1f1b_pipe2_expert2")
 GEN_CASES = {
     "data2_expert2": (dict(data=2, expert=2),
                       dict(pos_embedding="rope", capacity_factor=2.0)),
@@ -186,6 +191,7 @@ def world(tmp_path_factory):
     payload = dict(
         layer_cases=LAYER_CASES, x=xs, y=ys, lr=LR,
         fwd_cases=full(FWD_CASES), step_cases=full(STEP_CASES),
+        dots_cases=DOTS_CASES,
         tree={n: tree_of(c) for n, c in {**FWD_CASES, **STEP_CASES}.items()},
         gen_cases=full(GEN_CASES),
         gen_tree={n: tree_of(c) for n, c in GEN_CASES.items()},
@@ -436,7 +442,8 @@ def test_simulated_expert_axis_matches_the_world(world, name):
 
 def test_unported_moe_options_raise():
     # the collective-plan IR is item 10; "dots" remat with an expert axis
-    # is item 8
+    # is ported (test_dots_remat_is_full_remat_and_matches_jax): its
+    # config builds a step over an expert axis
     from chainermn_tpu_torch.communicators import LoopbackCommunicator
 
     loop = LoopbackCommunicator(device=torch.device("cpu"))
@@ -444,8 +451,7 @@ def test_unported_moe_options_raise():
         ep.expert_parallel_moe(torch.zeros(4, 2), torch.zeros(2, 2), {},
                                moe_expert_fn, comm=loop, a2a_plan=object())
     cfg = TransformerConfig(**dict(BASE, remat=True, remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        make_value_and_grad_fn(cfg, mesh=_FakeMesh())
+    assert callable(make_value_and_grad_fn(cfg, mesh=_FakeMesh()))
     # FSDP is ported (test_torch_fsdp.py): the MoE flagship at one data
     # member is the same config's without it, bit for bit
     losses, dense, same = fsdp_step_matches_dense(
@@ -580,6 +586,36 @@ def test_expert_gradients_are_the_data_seq_sum_over_the_group(world):
     for k in ("w1", "w2"):
         assert rel_l2(mine[k], grads["blocks"][k]) < 1e-5
         assert rel_l2(4 * mine[k], grads["blocks"][k]) > 1
+
+
+@pytest.mark.parametrize("name", DOTS_CASES)
+def test_dots_remat_is_full_remat_and_matches_jax(world, name):
+    # "dots" with an expert axis: the gradients bitwise full remat's, the
+    # recompute's all-to-alls the same as full remat's and the same on
+    # every rank, the flash forward once a layer (never in the
+    # recompute), and the gradients JAX's at 1e-5 relative L2.  (The
+    # 1F1B schedule recomputes each stage in its backward slot whatever
+    # the policy, in both packages.)
+    loss, grads, _ = jax_step(name)
+    fields_ = fields(STEP_CASES[name])
+    results = world.result()
+
+    def coll(calls):
+        return {k: v for k, v in calls.items() if not k.startswith("flash")}
+
+    want = coll(results[0]["dots"][name]["calls"]["dots"])
+    assert want.get("all_to_all_single")
+    for res in results:
+        d = res["dots"][name]
+        assert d["bitwise"], res["rank"]
+        calls = d["calls"]
+        assert coll(calls["dots"]) == coll(calls["full"]) == want
+        L = fields_["n_layers"]
+        if fields_["attention"] == "flash":
+            assert (calls["dots"]["flash_fwd"], calls["full"]["flash_fwd"],
+                    calls["dots"]["flash_bwd"]) == (L, 2 * L, L)
+        np.testing.assert_allclose(d["loss"], loss, rtol=1e-5)
+        assert_tree_rel(d["grads"], grads, 1e-5)
 
 
 def test_simulated_expert_axis_loss_matches_the_world(world):

@@ -76,10 +76,13 @@ EP_PATH = [PORT / "parallel" / "expert.py"]
 # the data axis's sharding: FSDP's gathers and the sharded-state layer
 FSDP_PATH = [PORT / "parallel" / "fsdp.py",
              PORT / "parallel" / "sharded_state.py"]
+# the serving options: int8 weights and the decoders (decoding.py is in
+# SEQ_PATH)
+SERVE_PATH = [PORT / "models" / "quantization.py"]
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py",
                  ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH + PP_PATH \
-    + EP_PATH + FSDP_PATH
+    + EP_PATH + FSDP_PATH + SERVE_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
@@ -91,7 +94,7 @@ DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
     PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + PP_PATH \
-    + EP_PATH + FSDP_PATH + EXAMPLES
+    + EP_PATH + FSDP_PATH + SERVE_PATH + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,

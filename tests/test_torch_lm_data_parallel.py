@@ -27,6 +27,7 @@ against fp32, as ``test_torch_training.py`` holds the one-device step.
 the JAX side and the kernels' plain versions on the port's CPU path.
 """
 
+import concurrent.futures
 import importlib
 import types
 
@@ -41,11 +42,9 @@ from chainermn_tpu.models import init_transformer, shard_params
 from chainermn_tpu.models import make_train_step as jax_train_step
 from chainermn_tpu.models.transformer import _check_mesh as jax_check_mesh
 from chainermn_tpu.parallel import MeshConfig
-from chainermn_tpu_torch import training
 from chainermn_tpu_torch.models import (
     TransformerConfig,
     make_forward_fn,
-    make_train_step,
     make_value_and_grad_fn,
 )
 from chainermn_tpu_torch.models.transformer import _check_mesh
@@ -74,42 +73,57 @@ def batches():
     return [(t[:, :T], t[:, 1:]) for t in toks]
 
 
+_TREE = []
+
+
 @pytest.fixture(scope="module")
 def tree():
-    return jax.tree.map(np.asarray, init_transformer(
-        jax.random.PRNGKey(0), JaxConfig(**BASE)))
+    _TREE.append(jax.tree.map(np.asarray, init_transformer(
+        jax.random.PRNGKey(0), JaxConfig(**BASE))))
+    return _TREE[0]
 
 
 # the cases whose steps are also held one by one from the JAX states
 FORCED = ("local", "flash", "dots")
+# each case's JAX run, computed in threads (the forced cases' before the
+# world starts, as its payload; the others while it runs)
 _JAX_RUNS = {}
+_POOL = concurrent.futures.ThreadPoolExecutor(len(CASES))
 
 
 def jax_run(name):
+    if name not in _JAX_RUNS:
+        _JAX_RUNS[name] = _POOL.submit(_jax_run, name)
+    return _JAX_RUNS[name].result()
+
+
+def _jax_run(name):
     """``STEPS`` steps of the JAX step at mesh data=4: the losses, the
     final parameters, and the state before each step (parameters, adam
     moments, count) as numpy."""
-    if name not in _JAX_RUNS:
-        jcfg = JaxConfig(**fields(name))
-        mc = MeshConfig(data=N, devices=jax.devices()[:N])
-        params = shard_params(mc, jcfg, init_transformer(
-            jax.random.PRNGKey(0), jcfg))
-        opt = optax.adamw(LR)
-        state = jax.jit(opt.init)(params)
-        step = jax_train_step(mc, jcfg, opt)
-        losses, before = [], []
-        for x, y in batches():
-            adam = state[0]
-            before.append(jax.tree.map(np.asarray, (
-                params, adam.mu, adam.nu, adam.count)))
-            params, state, loss = step(params, state, x, y)
-            losses.append(float(loss))
-        _JAX_RUNS[name] = (losses, jax.tree.map(np.asarray, params), before)
-    return _JAX_RUNS[name]
+    jcfg = JaxConfig(**fields(name))
+    mc = MeshConfig(data=N, devices=jax.devices()[:N])
+    # the module's tree: every case's parameters have BASE's shapes, so
+    # init_transformer draws the same numbers for each (eagerly, in
+    # seconds)
+    params = shard_params(mc, jcfg, _TREE[0])
+    opt = optax.adamw(LR)
+    state = jax.jit(opt.init)(params)
+    step = jax_train_step(mc, jcfg, opt)
+    losses, before = [], []
+    for x, y in batches():
+        adam = state[0]
+        before.append(jax.tree.map(np.asarray, (
+            params, adam.mu, adam.nu, adam.count)))
+        params, state, loss = step(params, state, x, y)
+        losses.append(float(loss))
+    return losses, jax.tree.map(np.asarray, params), before
 
 
 @pytest.fixture(scope="module")
 def port(tmp_path_factory, tree):
+    for name in CASES:
+        _JAX_RUNS[name] = _POOL.submit(_jax_run, name)
     payload = dict(cases=[(n, fields(n), LR) for n in CASES], tree=tree,
                    batches=batches(),
                    forced={n: jax_run(n)[2] for n in FORCED})
@@ -266,30 +280,28 @@ def test_check_mesh_wide_axes_are_a8(axis):
 
 
 @pytest.mark.parametrize("kw", [
-    # vocab_parallel is ported (test_torch_tensor_parallel.py): its place
-    # holds dots under Ulysses, which still raises; MoE is ported
+    # vocab_parallel is ported (test_torch_tensor_parallel.py), and so is
+    # "dots" under Ulysses and the ring (test_torch_sequence_parallel.py):
+    # their places hold them beside FSDP; MoE is ported
     # (test_torch_expert_parallel.py): its places hold it beside FSDP
     dict(moe=True, fsdp=True), dict(fsdp=True),
-    dict(attention="ulysses", remat=True, remat_policy="dots"),
+    dict(attention="ulysses", remat=True, remat_policy="dots", fsdp=True),
     # micro-batches and the pipeline schedules are ported
     # (test_torch_pipeline.py): their places hold them beside FSDP
     dict(num_microbatches=2, moe=True, fsdp=True),
     dict(pipeline_schedule="1f1b", fsdp=True),
     dict(pipeline_schedule="interleaved", virtual_pipe=2, moe=True,
          fsdp=True),
-    dict(attention="ring", remat=True, remat_policy="dots"),
+    dict(attention="ring", remat=True, remat_policy="dots", fsdp=True),
 ])
 def test_unported_training_options_are_a8(kw):
-    # FSDP is ported (test_torch_fsdp.py): at one data member its step is
-    # the same config's without it, bit for bit; "dots" under the ring
-    # and Ulysses still raises naming item 8
+    # every option of item 8 is ported: FSDP (test_torch_fsdp.py) at one
+    # data member steps as the same config without it, bit for bit,
+    # beside each of them
     cfg = TransformerConfig(**dict(BASE, **kw))
-    if cfg.fsdp:
-        losses, dense, same = fsdp_step_matches_dense(cfg)
-        assert losses == dense and same
-        return
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        make_train_step(cfg, training.adamw(LR), device="cpu")
+    assert cfg.fsdp
+    losses, dense, same = fsdp_step_matches_dense(cfg)
+    assert losses == dense and same
 
 
 def test_forward_and_step_take_this_ranks_rows():

@@ -314,24 +314,106 @@ def test_train_lm_torch_seq_flags(flags, error):
                                     else 1)
 
 
+# (flags, the Queue A item its raise names, or the SystemExit message)
+# under the ids the cases have always had: --beam, --speculative-k,
+# --lookup-k, --int8 and --kv-int8 are ported
+# (test_generate_torch_decoders_match_generate_py): their places hold
+# each beside a sampling flag (item 12), and --lookup-k beside sampling
+# or another decode mode (generate.py's exclusions)
 GEN_UNPORTED = [(["--temperature", "0.7"], 12), (["--top-k", "5"], 12),
-                (["--top-p", "0.9"], 12), (["--beam", "4"], 9),
-                (["--speculative-k", "3"], 9), (["--lookup-k", "2"], 9),
-                (["--int8"], 9), (["--kv-int8"], 9),
+                (["--top-p", "0.9"], 12),
+                (["--beam", "4", "--temperature", "0.7"], 12),
+                (["--speculative-k", "3", "--top-k", "5"], 12),
+                (["--lookup-k", "2", "--top-p", "0.9"], "exact-GREEDY"),
+                (["--int8", "--temperature", "0.7"], 12),
+                (["--kv-int8", "--top-p", "0.9"], 12),
                 # --vocab-parallel and the model, pipe and expert axes
                 # are ported (test_torch_tensor_parallel.py,
                 # test_torch_pipeline.py, test_torch_expert_parallel.py):
                 # the expert axis's places hold it beside int8 weights
-                (["--mesh", "pipe=2,expert=2", "--int8"], 9),
-                (["--mesh", "expert=2", "--kv-int8"], 9)]
+                (["--mesh", "pipe=2,expert=2", "--int8", "--top-k", "5"],
+                 12),
+                (["--mesh", "expert=2", "--kv-int8", "--lookup-k", "2",
+                  "--beam", "2"], "own decode mode")]
+GEN_UNPORTED_IDS = ["--temperature 0.7", "--top-k 5", "--top-p 0.9",
+                    "--beam 4", "--speculative-k 3", "--lookup-k 2",
+                    "--int8", "--kv-int8", "--mesh pipe=2,expert=2 --int8",
+                    "--mesh expert=2 --kv-int8"]
 
 
-@pytest.mark.parametrize("flags,item", GEN_UNPORTED,
-                         ids=[" ".join(f) for f, _ in GEN_UNPORTED])
+@pytest.mark.parametrize("flags,item", GEN_UNPORTED, ids=GEN_UNPORTED_IDS)
 def test_generate_torch_unported_flags_raise(flags, item):
     ex = load("examples/transformer/generate_torch.py", "generate_torch")
+    if isinstance(item, str):
+        with pytest.raises(SystemExit, match=item):
+            ex.main(["--device", "cpu"] + flags)
+        return
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         ex.main(["--device", "cpu"] + flags)
+
+
+# generate_torch.py's decoders, each of the five flags once at the
+# example's defaults, from one checkpoint both scripts load
+GEN_MODES = {
+    "beam_int8": ["--beam", "4", "--int8"],
+    "speculative_kv_int8": ["--speculative-k", "3", "--kv-int8"],
+    "lookup": ["--lookup-k", "3", "--prompt", "1,2,3,1,2,3,1,2"],
+}
+
+
+@pytest.fixture(scope="module")
+def decode_ck(tmp_path_factory):
+    """One seeded tree in a checkpoint of each package's container (each
+    reads only its own): ``{"jax": dir, "port": dir}``."""
+    from chainermn_tpu.utils.serialization import save_state as jax_save
+    from chainermn_tpu_torch.models import init_numpy_params
+    from chainermn_tpu_torch.utils.serialization import save_state
+
+    state = {"params": init_numpy_params(TransformerConfig(**LM_CFG),
+                                         seed=0),
+             "pipe": 1, "virtual_pipe": 1}
+    dirs = {k: tmp_path_factory.mktemp(f"decode_ck_{k}")
+            for k in ("jax", "port")}
+    jax_save(str(dirs["jax"] / "lm_state.npz"), state)
+    save_state(str(dirs["port"] / "lm_state.npz"), state)
+    return dirs
+
+
+def _stats(text):
+    """The statistics lines of a run: acceptance, and each beam's
+    score."""
+    return [ln for ln in text.splitlines()
+            if "accepted" in ln or ln.startswith(("beam ", "speculative"))]
+
+
+@pytest.mark.parametrize("mode", list(GEN_MODES))
+def test_generate_torch_decoders_match_generate_py(mode, decode_ck,
+                                                   monkeypatch, capsys):
+    from chainermn_tpu import parallel
+
+    flags = GEN_MODES[mode]
+    real = parallel.MeshConfig
+    # the JAX example's mesh on one of the virtual devices
+    monkeypatch.setattr(parallel, "MeshConfig", lambda **axes: real(
+        devices=jax.devices()[:1], **axes))
+    monkeypatch.setattr(sys, "argv", ["generate.py"] + flags + [
+        "--checkpoint", str(decode_ck["jax"])])
+    # as a script, generate.py finds its sibling train_lm.py on its path
+    monkeypatch.syspath_prepend(str(ROOT / "examples" / "transformer"))
+    want = np.asarray(load("examples/transformer/generate.py",
+                           "generate").main())
+    printed = capsys.readouterr().out
+    # the port's decode steps on one thread (many small ops)
+    res = one_thread(lambda: load(
+        "examples/transformer/generate_torch.py", "generate_torch").main(
+        ["--device", "cpu"] + flags + ["--checkpoint",
+                                       str(decode_ck["port"])]))
+    mine = capsys.readouterr().out
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+    assert _stats(mine) == _stats(printed) and _stats(mine)
+    if mode == "speculative_kv_int8":
+        # the draft is the checkpoint's first n_layers/2 blocks
+        assert "2-layer draft: draft = target's first layers" in mine
 
 
 @pytest.mark.parametrize("pos", ["learned", "rope"])

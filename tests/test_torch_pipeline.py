@@ -207,7 +207,14 @@ def world(tmp_path_factory):
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(run_world, tmp_path_factory.mktemp("pipeline"), N,
                       "battery_pipeline", payload)
+    # the JAX side's compilations meanwhile, a few at a time
+    jax_pool = concurrent.futures.ThreadPoolExecutor(3)
+    for name in STEP_CASES:
+        _JAX_STEP[name] = jax_pool.submit(_jax_step, name)
+    for name in TOY_CASES:
+        _JAX_TOY[name] = jax_pool.submit(_jax_toy, name)
     yield fut
+    jax_pool.shutdown(wait=True)
     pool.shutdown(wait=True)
 
 
@@ -259,15 +266,18 @@ def _stack(trees):
     return jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
 
 
+# the JAX side of each case, computed in the fixture's threads
 _JAX_TOY = {}
 
 
 def jax_toy(name):
+    return _JAX_TOY[name].result()
+
+
+def _jax_toy(name):
     """The JAX schedule of toy case ``name`` in ``shard_map`` over a mesh
     ``pipe=S, data=4/S`` (the batch the same on every data member), as
     world-stacked results (leading axis: pipe)."""
-    if name in _JAX_TOY:
-        return _JAX_TOY[name]
     case = TOY_CASES[name]
     S, M = case["S"], case["M"]
     aux = case.get("aux", False)
@@ -314,7 +324,6 @@ def jax_toy(name):
         out = jax.jit(f)(params, lp, x, y)
         assert len(out) == n_out
         res = jax.tree.map(np.asarray, out)
-    _JAX_TOY[name] = res
     return res
 
 
@@ -491,32 +500,37 @@ _JAX_STEP = {}
 
 
 def jax_step(name):
+    return _JAX_STEP[name].result()
+
+
+def _jax_step(name):
     """The JAX side of a step case: the loss and gradients of its
     ``make_train_step``'s grad body, and the parameters after optax's
     ``adamw`` applies them (remat changes no value; the JAX side
     compiles faster without it)."""
-    if name not in _JAX_STEP:
-        axes, _ = STEP_CASES[name]
-        jcfg = JaxConfig(**dict(fields(STEP_CASES[name]), remat=False))
-        mc = jax_mesh(**(axes or {}))
-        specs = param_specs(jcfg)
-        if jcfg.pipeline_schedule == "gpipe":
-            body = lambda p, xx, yy: jax.value_and_grad(  # noqa: E731
-                lambda q: jax.lax.pmean(jax_lm_loss(jcfg, q, xx, yy),
-                                        ("data", "expert", "seq")))(p)
-        else:
-            body = _make_1f1b_grad(jcfg)
-        grad_fn = jax.jit(jax.shard_map(
-            body, mesh=mc.mesh, in_specs=(specs, _BATCH_SPEC, _BATCH_SPEC),
-            out_specs=(P(), specs)))
-        params = jax_shard_params(mc, jcfg, tree_of(STEP_CASES[name]))
-        loss, grads = grad_fn(params, *batch())
-        opt = optax.adamw(LR)
-        updates, _ = opt.update(grads, opt.init(params), params)
-        new = optax.apply_updates(params, updates)
-        _JAX_STEP[name] = (float(loss), jax.tree.map(np.asarray, grads),
-                           jax.tree.map(np.asarray, new))
-    return _JAX_STEP[name]
+    axes, _ = STEP_CASES[name]
+    jcfg = JaxConfig(**dict(fields(STEP_CASES[name]), remat=False))
+    mc = jax_mesh(**(axes or {}))
+    specs = param_specs(jcfg)
+    if jcfg.pipeline_schedule == "gpipe":
+        body = lambda p, xx, yy: jax.value_and_grad(  # noqa: E731
+            lambda q: jax.lax.pmean(jax_lm_loss(jcfg, q, xx, yy),
+                                    ("data", "expert", "seq")))(p)
+    else:
+        body = _make_1f1b_grad(jcfg)
+    grad_fn = jax.jit(jax.shard_map(
+        body, mesh=mc.mesh, in_specs=(specs, _BATCH_SPEC, _BATCH_SPEC),
+        out_specs=(P(), specs)))
+    params = jax_shard_params(mc, jcfg, tree_of(STEP_CASES[name]))
+    loss, grads = grad_fn(params, *batch())
+    opt = optax.adamw(LR)
+
+    def apply(g, p):
+        return optax.apply_updates(p, opt.update(g, opt.init(p), p)[0])
+
+    new = jax.jit(apply)(grads, params)    # eager optax takes seconds
+    return (float(loss), jax.tree.map(np.asarray, grads),
+            jax.tree.map(np.asarray, new))
 
 
 def assert_tree_rel(got, want, bar):

@@ -162,7 +162,16 @@ def world(tmp_path_factory):
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(run_world, tmp_path_factory.mktemp("seq_parallel"),
                       N, "battery_sequence_parallel", payload)
+    # the JAX side's compilations meanwhile, a few at a time
+    jax_pool = concurrent.futures.ThreadPoolExecutor(3)
+    for name in LM_CASES:
+        _JAX_LM_RUN[name] = jax_pool.submit(_jax_lm, name)
+    for name in RING_CASES:
+        _JAX_RING[name] = jax_pool.submit(_jax_ring, name)
+    for name in ULYSSES_CASES:
+        _JAX_ULYSSES[name] = jax_pool.submit(_jax_ulysses, name)
     yield fut
+    jax_pool.shutdown(wait=True)
     pool.shutdown(wait=True)
 
 
@@ -365,33 +374,42 @@ def assert_attention(got, want):
         np.testing.assert_allclose(a, b, rtol=0, atol=ATOL, err_msg=name)
 
 
+# the JAX side of each case, computed in the fixture's threads
 _JAX_RING = {}
+_JAX_ULYSSES = {}
+
+
+def _jax_ring(name):
+    H, G, layout, window = RING_CASES[name]
+    i = list(RING_CASES).index(name)
+    return jax_attention(
+        partial(jax_ring, axis_name="seq", causal=True, window=window,
+                use_flash=True, interpret=True, layout=layout),
+        *qkvd(i, H, G, layout))
+
+
+def _jax_ulysses(name):
+    H, G = ULYSSES_CASES[name]
+    i = list(ULYSSES_CASES).index(name)
+    return jax_attention(partial(jax_ulysses, axis_name="seq", causal=True),
+                         *qkvd(10 + i, H, G, "contiguous"))
 
 
 @pytest.mark.parametrize("use_flash", [False, True],
                          ids=["einsum", "kernel_schedule"])
 @pytest.mark.parametrize("name", list(RING_CASES))
 def test_ring_attention_matches_jax(world, name, use_flash):
-    H, G, layout, window = RING_CASES[name]
-    if name not in _JAX_RING:
-        i = list(RING_CASES).index(name)
-        _JAX_RING[name] = jax_attention(
-            partial(jax_ring, axis_name="seq", causal=True, window=window,
-                    use_flash=True, interpret=True, layout=layout),
-            *qkvd(i, H, G, layout))
+    want = _JAX_RING[name].result()
     results = world.result()
     got = [np.concatenate([r["ring"][name, use_flash][j] for r in results],
                           axis=1) for j in range(4)]
-    assert_attention(got, _JAX_RING[name])
+    assert_attention(got, want)
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["local", "flash"])
 @pytest.mark.parametrize("name", list(ULYSSES_CASES))
 def test_ulysses_matches_jax(world, name, kernel):
-    H, G = ULYSSES_CASES[name]
-    i = list(ULYSSES_CASES).index(name)
-    want = jax_attention(partial(jax_ulysses, axis_name="seq", causal=True),
-                         *qkvd(10 + i, H, G, "contiguous"))
+    want = _JAX_ULYSSES[name].result()
     results = world.result()
     got = [np.concatenate([r["ulysses"][name, kernel][j] for r in results],
                           axis=1) for j in range(4)]
@@ -447,10 +465,18 @@ def jax_steps(name, batches):
     return logits, losses, jax.tree.map(np.asarray, params)
 
 
-def jax_lm(name):
-    """JAX's logits and one AdamW step on the case's batch."""
+_JAX_LM_RUN = {}
+
+
+def _jax_lm(name):
     logits, losses, params = jax_steps(name, [lm_batch(name)])
     return logits, losses[0], params
+
+
+def jax_lm(name):
+    """JAX's logits and one AdamW step on the case's batch (computed in
+    the fixture's threads)."""
+    return _JAX_LM_RUN[name].result()
 
 
 @pytest.mark.parametrize("name", list(LM_CASES))
@@ -497,6 +523,47 @@ def test_flagship_step_kernel_calls_per_rank(world, name):
         L = f["n_layers"]
         want = ((2 if f["remat"] else 1) * L * live, L * live)
         assert res["calls"]["lm", name] == want, res["rank"]
+
+
+def collectives(calls):
+    return {k: v for k, v in calls.items() if not k.startswith("flash")}
+
+
+@pytest.mark.parametrize("name", list(LM_CASES))
+def test_dots_remat_is_full_remat_and_matches_jax(world, name):
+    # "dots" at data=2, seq=2 (ring contiguous, zigzag, Ulysses): the
+    # gradients bitwise full remat's; the recompute posts the same
+    # collectives as full remat's, the same on every rank; the forward
+    # kernel once a live pair a layer, never again in the recompute;
+    # one AdamW step from them matches JAX's as the full-remat step
+    # does (1e-5 relative L2)
+    _, loss, params = jax_lm(name)
+    f = lm_fields(name)
+    results = world.result()
+    want = collectives(results[0]["dots"][name]["calls"]["dots"])
+    assert want.get("batch_isend_irecv" if f["attention"] == "ring"
+                    else "all_to_all_single")
+    for res in results:
+        d = res["dots"][name]
+        assert d["bitwise"], res["rank"]
+        calls = d["calls"]
+        assert collectives(calls["dots"]) == collectives(calls["full"]) \
+            == want, res["rank"]
+        live = ring_launches(2, T // 2, causal=True,
+                             layout=f.get("seq_layout", "contiguous"),
+                             rank=res["rank"] % 2) \
+            if f["attention"] == "ring" else 1
+        L = f["n_layers"]
+        assert (calls["dots"]["flash_fwd"], calls["dots"]["flash_bwd"]) \
+            == (L * live, L * live), res["rank"]
+        assert calls["full"]["flash_fwd"] == 2 * L * live, res["rank"]
+    first = results[0]["dots"][name]
+    np.testing.assert_allclose(first["step_loss"], loss, rtol=1e-5)
+    for (path, a), b in zip(
+            jax.tree_util.tree_leaves_with_path(first["params"]),
+            jax.tree.leaves(params)):
+        err = np.linalg.norm(a - b) / np.linalg.norm(b)
+        assert err < 1e-5, (jax.tree_util.keystr(path), err)
 
 
 # --------------------------------------------------------------------- #
@@ -556,6 +623,7 @@ def test_train_lm_torch_zigzag_matches_jax(world):
     perm = np.asarray(jax_zigzag(2, T)).reshape(-1)
     batches = [(x[:, perm], y[:, perm])
                for x, y in ex.make_batches(VOCAB, 4, T, 2, seed=0)]
+    jax_lm("ring_zigzag_rope")     # its compiled step, in _JAX_LM
     _, want, _ = jax_steps("ring_zigzag_rope", batches)
     results = world.result()
     got = results[0]["example"]

@@ -94,6 +94,15 @@ def full(cases):
     return {n: (c[0], fields(c)) for n, c in cases.items()}
 
 
+# the int8 decoders over meshes (``_serving`` in test_torch_world.py):
+# the JAX tests' tiny_cfg with GQA, RoPE, the vocabulary sharded over
+# the model axis and the int8 KV cache
+SERVE = dict(vocab_size=VOCAB, d_model=32, n_heads=4, n_kv_heads=2,
+             d_head=8, d_ff=64, n_layers=2, max_seq=16, attention="local",
+             dtype="float32", remat=False, pos_embedding="rope",
+             vocab_parallel=True, kv_cache_dtype="int8")
+
+
 def tree_of(case):
     """Seeded weights for the case in the JAX layout (numpy), fed to
     both packages."""
@@ -144,11 +153,21 @@ def world(tmp_path_factory):
         saved_after="tp", example_ck=str(ck / "tp"),
         generate_runs={
             "tp": ["--device", "cpu", "--n-layers", "2"] + TP_FLAGS,
-            "dp": ["--device", "cpu", "--n-layers", "2"] + DP_FLAGS})
+            "dp": ["--device", "cpu", "--n-layers", "2"] + DP_FLAGS},
+        serving=dict(fields=SERVE, max_len=SERVE["max_seq"], k=3,
+                     tree=init_numpy_params(TransformerConfig(**SERVE),
+                                            seed=2),
+                     prompt=gen_prompt()[:, :4],
+                     pattern=np.tile(gen_prompt()[:, :3], 3)))
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(run_world, tmp_path_factory.mktemp("tensor_parallel"),
                       N, "battery_tensor_parallel", payload)
+    # the JAX steps' compilations meanwhile, a few at a time
+    jax_pool = concurrent.futures.ThreadPoolExecutor(3)
+    for name in STEP_CASES:
+        _JAX_STEP[name] = jax_pool.submit(_jax_step, name)
     yield fut
+    jax_pool.shutdown(wait=True)
     pool.shutdown(wait=True)
 
 
@@ -237,33 +256,39 @@ def test_forward_matches_jax(world, name):
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+# the JAX side of each step case, computed in the fixture's threads
 _JAX_STEP = {}
 
 
 def jax_step(name):
+    return _JAX_STEP[name].result()
+
+
+def _jax_step(name):
     """The JAX side of a step case: the loss and gradients of its
     ``make_train_step``'s grad body, and the parameters after optax's
     ``adamw`` applies them (remat changes no value; the JAX side
     compiles faster without it)."""
-    if name not in _JAX_STEP:
-        axes, _ = STEP_CASES[name]
-        jcfg = JaxConfig(**dict(fields(STEP_CASES[name]), remat=False))
-        mc = jax_mesh(**axes)
-        specs = param_specs(jcfg)
-        grad_fn = jax.jit(jax.shard_map(
-            lambda p, xx, yy: jax.value_and_grad(
-                lambda q: jax.lax.pmean(jax_lm_loss(jcfg, q, xx, yy),
-                                        ("data", "expert", "seq")))(p),
-            mesh=mc.mesh, in_specs=(specs, _BATCH_SPEC, _BATCH_SPEC),
-            out_specs=(P(), specs)))
-        params = jax_shard_params(mc, jcfg, tree_of(STEP_CASES[name]))
-        loss, grads = grad_fn(params, *batch())
-        opt = optax.adamw(LR)
-        updates, _ = opt.update(grads, opt.init(params), params)
-        new = optax.apply_updates(params, updates)
-        _JAX_STEP[name] = (float(loss), jax.tree.map(np.asarray, grads),
-                           jax.tree.map(np.asarray, new))
-    return _JAX_STEP[name]
+    axes, _ = STEP_CASES[name]
+    jcfg = JaxConfig(**dict(fields(STEP_CASES[name]), remat=False))
+    mc = jax_mesh(**axes)
+    specs = param_specs(jcfg)
+    grad_fn = jax.jit(jax.shard_map(
+        lambda p, xx, yy: jax.value_and_grad(
+            lambda q: jax.lax.pmean(jax_lm_loss(jcfg, q, xx, yy),
+                                    ("data", "expert", "seq")))(p),
+        mesh=mc.mesh, in_specs=(specs, _BATCH_SPEC, _BATCH_SPEC),
+        out_specs=(P(), specs)))
+    params = jax_shard_params(mc, jcfg, tree_of(STEP_CASES[name]))
+    loss, grads = grad_fn(params, *batch())
+    opt = optax.adamw(LR)
+
+    def apply(g, p):
+        return optax.apply_updates(p, opt.update(g, opt.init(p), p)[0])
+
+    new = jax.jit(apply)(grads, params)    # eager optax takes seconds
+    return (float(loss), jax.tree.map(np.asarray, grads),
+            jax.tree.map(np.asarray, new))
 
 
 def assert_tree_rel(got, want, bar):
@@ -389,3 +414,57 @@ def test_generate_torch_model_axis_matches_data_axis(world):
         got = res["generate"]
         assert got["tp"].shape == (8, 32)
         np.testing.assert_array_equal(got["tp"], got["dp"])
+
+
+# --------------------------------------------------------------------- #
+# the int8 decoders over meshes
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("what", ["greedy", "spec", "lookup", "beam"])
+def test_int8_decoders_over_data2_and_model2_match_one_rank(world, what):
+    # int8 weights and the int8 KV cache: each decoder over a 2-rank data
+    # axis returns the rank's rows of its one-rank run, and over a
+    # 2-rank model axis (heads and vocabulary sharded) every row; the
+    # speculative and lookup means are the one-rank run's (the
+    # acceptance is the minimum over the rows' group; the target drafts
+    # for itself, so rounds commit several tokens).  The one-rank
+    # runs are held against the JAX package in
+    # test_torch_quantized_decoding.py and test_torch_spec_decoding.py
+    for res in world.result():
+        one, got = res["serving"]["one"][what], res["serving"]["half"][what]
+        rows = slice(None) if res["rank"] >= 2 \
+            else slice(2 * res["rank"], 2 * res["rank"] + 2)
+        if what == "greedy":
+            np.testing.assert_array_equal(got, one[rows])
+        elif what == "beam":
+            np.testing.assert_array_equal(got[0], one[0][rows])
+            np.testing.assert_allclose(got[1], one[1][rows], rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(got[0], one[0][rows])
+            assert got[1] == one[1]
+            if what == "spec":
+                assert got[1] > 0
+
+
+def test_int8_seq_kv_beam_matches_one_rank(world):
+    # beam search at data=2, seq=2: each seq member reorders its block of
+    # the int8 cache (values and scales); the one-rank beams and scores
+    for res in world.result():
+        one = res["serving"]["one"]["beam"]
+        toks, scores = res["serving"]["seq_beam"]
+        rows = slice(2 * (res["rank"] // 2), 2 * (res["rank"] // 2) + 2)
+        np.testing.assert_array_equal(toks, one[0][rows])
+        np.testing.assert_allclose(scores, one[1][rows], rtol=1e-5)
+
+
+def test_int8_tree_and_greedy_at_pipe2_model2(world):
+    # the int8 tree through shard_params and gather_params bitwise (the
+    # scales cut as their weights without the contraction axes: wkv's
+    # (L/2, 2, Hkv/2, Dh) on a rank), and greedy decoding on it
+    for res in world.result():
+        serving = res["serving"]
+        assert serving["pp_round_trip"], res["rank"]
+        assert serving["pp_scale_shape"] == (1, 2, 1, 8)
+        np.testing.assert_array_equal(serving["pp_greedy"],
+                                      serving["one"]["greedy"])

@@ -250,7 +250,7 @@ def test_optimizer_refuses_other_params():
 # ported (test_torch_lm_data_parallel.py, test_torch_sequence_parallel.py,
 # test_torch_tensor_parallel.py, test_torch_pipeline.py,
 # test_torch_expert_parallel.py, test_torch_fsdp.py); their places here
-# hold FSDP beside them, and "dots" under the ring, which still raises
+# hold FSDP beside them
 MOE_TRAINING = [dict(virtual_pipe=2, pipeline_schedule="interleaved",
                      moe=True),
                 dict(pipeline_schedule="interleaved", moe=True),
@@ -264,18 +264,15 @@ MOE_TRAINING = [dict(virtual_pipe=2, pipeline_schedule="interleaved",
     dict(pipeline_schedule="interleaved", moe=True, fsdp=True),
     dict(moe=True, fsdp=True), dict(fsdp=True),
     dict(vocab_parallel=True, num_microbatches=2, fsdp=True),
-    dict(attention="ring", remat=True, remat_policy="dots"),
+    dict(attention="ring", remat=True, remat_policy="dots", fsdp=True),
     dict(num_microbatches=2, moe=True, fsdp=True),
 ])
 def test_unported_training_options_raise(kw):
     # FSDP at one data member: the same config's steps, bit for bit
     _, cfg = configs(**kw)
-    if cfg.fsdp:
-        losses, dense, same = fsdp_step_matches_dense(cfg)
-        assert losses == dense and same
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(cfg, training.sgd(0.1), device="cpu")
+    assert cfg.fsdp
+    losses, dense, same = fsdp_step_matches_dense(cfg)
+    assert losses == dense and same
 
 
 @pytest.mark.parametrize("kw", MOE_TRAINING)

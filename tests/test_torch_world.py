@@ -125,6 +125,68 @@ def one_thread(fn):
         torch.set_num_threads(n)
 
 
+# the torch.distributed calls the port's communicators post
+_COLLECTIVES = ("all_reduce", "batch_isend_irecv", "all_to_all_single",
+                "all_gather_into_tensor", "all_gather", "broadcast",
+                "reduce_scatter_tensor", "send", "recv", "scatter")
+
+
+def run_counted(fn):
+    """``(fn(), calls)``: ``calls`` the collectives (by
+    ``torch.distributed`` function) and the flash kernels' plain
+    versions (``flash_fwd``, ``flash_bwd``) ``fn`` ran on this rank."""
+    import importlib
+
+    import torch.distributed as dist
+
+    # the module (the package's ``ops.flash_attention`` is the function)
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    calls = {}
+    saved = [(dist, n, getattr(dist, n)) for n in _COLLECTIVES] + [
+        (fa, n, getattr(fa, n)) for n in ("flash_attention_reference",
+                                          "flash_attention_bwd_reference")]
+
+    def wrap(name, f):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return f(*a, **kw)
+        return call
+
+    for mod, n, f in saved:
+        key = {"flash_attention_reference": "flash_fwd",
+               "flash_attention_bwd_reference": "flash_bwd"}.get(n, n)
+        setattr(mod, n, wrap(key, f))
+    try:
+        return fn(), calls
+    finally:
+        for mod, n, f in saved:
+            setattr(mod, n, f)
+
+
+def dots_against_full(cfg, mesh, params, x, y):
+    """The gradients of ``cfg`` on ``mesh`` under ``remat_policy="dots"``
+    and under ``"full"``, on one thread: whether they are the same bits,
+    the "dots" loss and gradients (numpy, the whole tree), and what each
+    policy ran on this rank (:func:`run_counted`)."""
+    import dataclasses
+
+    from chainermn_tpu_torch.models import (make_value_and_grad_fn,
+                                            params_to_numpy)
+
+    got, calls = {}, {}
+    for policy in ("full", "dots"):
+        run = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        fn = make_value_and_grad_fn(run, mesh=mesh)
+        got[policy], calls[policy] = one_thread(
+            lambda fn=fn: run_counted(lambda: fn(params, x, y)))
+    leaves = [torch.utils._pytree.tree_leaves(got[k][1])
+              for k in ("full", "dots")]
+    loss, grads = got["dots"]
+    return dict(bitwise=bool(torch.equal(got["full"][0], loss)) and all(
+        torch.equal(a, b) for a, b in zip(*leaves)), loss=float(loss),
+        grads=params_to_numpy(grads, cfg, mesh=mesh), calls=calls)
+
+
 def fsdp_step_matches_dense(cfg, steps=2, seed=0):
     """``cfg`` (with ``fsdp=True``) trained on one CPU rank, where the
     data group has one member, against the same config without FSDP
@@ -1212,6 +1274,22 @@ def battery_sequence_parallel(comm, p):
         out["lm"][name] = dict(logits=logits, loss=float(loss),
                                params=params_to_numpy(params, cfg))
 
+    # "dots" remat against full remat at data=2, seq=2, and one AdamW
+    # step under "dots"
+    out["dots"] = {}
+    for name in p["lm_cases"]:
+        cfg = TransformerConfig(**dict(p["lm_cases"][name], remat=True,
+                                       remat_policy="dots"))
+        x, y = p["lm_batch"][name]
+        params = params_from_jax(p["lm_tree"][name], cfg, device="cpu")
+        res = dots_against_full(cfg, mesh, params, x, y)
+        opt = training.adamw(p["lr"])
+        step = make_train_step(cfg, opt, mesh=mesh)
+        params, _, loss = step(params, opt.init(params), x, y)
+        res.update(step_loss=float(loss),
+                   params=params_to_numpy(params, cfg))
+        out["dots"][name] = res
+
     # decoding: data=2 (each half of the world a mesh of its own), then
     # data=2, seq=2 with the seq-KV cache; eos is a token the no-eos run
     # generates in the first data shard's rows and not in the second's
@@ -1380,6 +1458,77 @@ def battery_tensor_parallel(comm, p):
         for name, argv in p["generate_runs"].items():
             res = gen.main(argv + ["--checkpoint", p["example_ck"]])
             out["generate"][name] = res.tokens.numpy().copy()
+    out["serving"] = _serving(comm, p["serving"])
+    return out
+
+
+def _serving(comm, s):
+    """The int8 decoders over meshes, each against this rank's own
+    one-rank run of it: greedy, speculative (the target as its own
+    draft), prompt lookup and beam search over a 2-rank data axis
+    (the world's first half) and a 2-rank model axis (its second half);
+    beam search at data=2, seq=2 (the seq-KV cache reordered on each
+    member); and at pipe=2, model=2 the int8 tree through
+    ``shard_params``/``gather_params`` and greedy decoding."""
+    from chainermn_tpu_torch.models import (
+        TransformerConfig, make_beam_search_fn, make_generate_fn,
+        make_lookup_generate_fn, make_speculative_generate_fn,
+        params_from_jax, params_to_numpy, quantize_params_int8,
+        regroup_blocks)
+    from chainermn_tpu_torch.parallel import MeshConfig
+
+    cfg = TransformerConfig(**s["fields"])
+    tree = quantize_params_int8(cfg, s["tree"])
+    # the draft is the target itself: every proposal is accepted, so the
+    # rounds commit several tokens at once
+    dcfg, dtree = cfg, tree
+    prompt, T, K = s["prompt"], s["max_len"], s["k"]
+
+    def run(mesh=None):
+        kw = dict(device="cpu") if mesh is None else dict(mesh=mesh)
+        params = params_from_jax(tree, cfg, "cpu", mesh=mesh)
+        d_params = params_from_jax(dtree, dcfg, "cpu", mesh=mesh)
+        spec = make_speculative_generate_fn(
+            cfg, dcfg, k=K, max_len=T, quantized=True,
+            draft_quantized=True, with_stats=True, **kw)(
+            params, d_params, prompt)
+        look = make_lookup_generate_fn(
+            cfg, k=K, max_len=T, quantized=True, with_stats=True, **kw)(
+            params, s["pattern"])
+        beam = make_beam_search_fn(cfg, beam_size=K, max_len=T,
+                                   quantized=True, **kw)(params, prompt)
+        return dict(
+            greedy=make_generate_fn(cfg, max_len=T, quantized=True, **kw)(
+                params, prompt).numpy(),
+            spec=(spec[0].numpy(), float(spec[1])),
+            lookup=(look[0].numpy(), float(look[1])),
+            beam=(beam[0].numpy(), beam[1].numpy()))
+
+    out = {"one": run()}
+    half = comm.split(comm.rank // 2, comm.rank)
+    out["half"] = run(MeshConfig(half, **({"data": 2} if comm.rank < 2
+                                          else {"model": 2})))
+    seq = MeshConfig(comm, data=2, seq=2)
+    toks, scores = make_beam_search_fn(cfg, beam_size=K, max_len=T,
+                                       quantized=True, mesh=seq)(
+        params_from_jax(tree, cfg, "cpu", mesh=seq), prompt)
+    out["seq_beam"] = (toks.numpy(), scores.numpy())
+    pp = MeshConfig(comm, pipe=2, model=2)
+    grouped = dict(tree, blocks=regroup_blocks(tree["blocks"], 1, 2))
+    params = params_from_jax(grouped, cfg, "cpu", mesh=pp)
+    back = params_to_numpy(params, cfg, mesh=pp)
+
+    def same(a, b):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    out["pp_round_trip"] = set(back) == set(grouped) \
+        and set(back["blocks"]) == set(grouped["blocks"]) \
+        and all(same(back[k], grouped[k]) for k in grouped if k != "blocks") \
+        and all(same(v, grouped["blocks"][k])
+                for k, v in back["blocks"].items())
+    out["pp_scale_shape"] = tuple(params["blocks"]["wkv_scale"].shape)
+    out["pp_greedy"] = make_generate_fn(cfg, max_len=T, quantized=True,
+                                        mesh=pp)(params, prompt).numpy()
     return out
 
 
@@ -1643,6 +1792,14 @@ def battery_expert_parallel(comm, p):
             params=params_to_numpy(params, cfg, mesh=mesh),
             dropped=[int(r.dropped) for r in log],
             expert_bitwise=replicas_bitwise(mesh.comm("expert"), repl))
+
+    # "dots" remat against full remat on the step cases' meshes
+    out["dots"] = {}
+    for name in p["dots_cases"]:
+        axes, fields = p["step_cases"][name]
+        cfg, mesh = TransformerConfig(**fields), MeshConfig(comm, **axes)
+        params = params_from_jax(p["tree"][name], cfg, "cpu", mesh=mesh)
+        out["dots"][name] = dots_against_full(cfg, mesh, params, x, y)
 
     # greedy decoding
     out["gen"] = {}
