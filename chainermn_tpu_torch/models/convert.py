@@ -47,8 +47,12 @@ import torch
 from chainermn_tpu_torch._device import resolve_device
 
 from chainermn_tpu_torch.links.batch_normalization import BatchNormState
+from chainermn_tpu_torch.utils.serialization import sorted_keys
 
+from .convnets import _AUX_AFTER, _INCEPTION, ConvNetConfig, _flatten_fin
+from .convnets import _rows as _convnet_rows
 from .resnet import ResNetConfig
+from .seq2seq import Seq2seqConfig
 from .transformer import (
     TransformerConfig,
     _check_layers,
@@ -57,10 +61,12 @@ from .transformer import (
     shard_params,
 )
 
-__all__ = ["chain_params_from_jax", "init_mlp_numpy", "init_numpy_params",
-           "init_resnet_numpy", "init_transformer", "mlp_params_from_jax",
-           "params_from_jax", "params_to_numpy", "resnet_params_from_jax",
-           "resnet_to_numpy"]
+__all__ = ["chain_params_from_jax", "convnet_params_from_jax",
+           "convnet_to_numpy", "init_convnet_numpy", "init_mlp_numpy",
+           "init_numpy_params", "init_resnet_numpy", "init_seq2seq_numpy",
+           "init_transformer", "mlp_params_from_jax", "params_from_jax",
+           "params_to_numpy", "resnet_params_from_jax", "resnet_to_numpy",
+           "seq2seq_params_from_jax", "tree_to_numpy", "tree_to_tensors"]
 
 
 def _block_shapes(cfg: TransformerConfig) -> dict:
@@ -414,22 +420,14 @@ def mlp_params_from_jax(params, device=None) -> list:
 def chain_params_from_jax(params_list, chain) -> list:
     """A JAX ``MultiNodeChainList.init`` list for the port's ``chain``:
     the components ``chain``'s rank owns as fp32 tensors on its
-    communicator's device (a ``{"w", "b"}`` layer or a list of them,
-    through :func:`mlp_params_from_jax`), None for the others; pass it
-    to ``chain.load_params``."""
+    communicator's device (any tree of arrays: an MLP's ``{"w", "b"}``
+    layer or a list of them, an n-step RNN stage's list of ``{"w", "u",
+    "b"}``), None for the others; pass it to ``chain.load_params``."""
     if len(params_list) != len(chain.components):
         raise ValueError(f"got {len(params_list)} param sets for "
                          f"{len(chain.components)} components")
-    dev = chain.comm.device
-    out = []
-    for i, p in enumerate(params_list):
-        if not chain.owns(i):
-            out.append(None)
-        elif isinstance(p, dict):
-            out.append(mlp_params_from_jax([p], dev)[0])
-        else:
-            out.append(mlp_params_from_jax(p, dev))
-    return out
+    return [tree_to_tensors(p, chain.comm.device) if chain.owns(i)
+            else None for i, p in enumerate(params_list)]
 
 
 def init_mlp_numpy(sizes, seed: int = 0) -> list:
@@ -440,3 +438,216 @@ def init_mlp_numpy(sizes, seed: int = 0) -> list:
              * np.float32(np.sqrt(2.0 / i)),
              "b": np.zeros((o,), np.float32)}
             for i, o in zip(sizes[:-1], sizes[1:])]
+
+
+# --------------------------------------------------------------------- #
+# any tree; seq2seq; the convnets
+# --------------------------------------------------------------------- #
+
+
+def tree_to_tensors(tree, device):
+    """A nested dict/list of arrays as fp32 tensors on ``device`` (an
+    already resolved device: the caller's communicator's or entry
+    point's)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_tensors(v, device) for v in tree)
+    return torch.tensor(np.asarray(tree), dtype=torch.float32, device=device)
+
+
+def tree_to_numpy(tree):
+    """A nested dict/list of tensors (parameters or gradients) as numpy
+    copies."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    return tree.detach().to("cpu").numpy().copy()
+
+
+def _seq2seq_shapes(cfg: Seq2seqConfig) -> dict:
+    """``{path: (shape, scale)}`` of ``init_seq2seq``'s tree (scale None:
+    zeros)."""
+    E, H = cfg.d_embed, cfg.d_hidden
+    shapes = {"src_embed": ((cfg.src_vocab, E), 0.1),
+              "tgt_embed": ((cfg.tgt_vocab, E), 0.1)}
+    for stack in ("encoder", "decoder"):
+        for i in range(cfg.n_layers):
+            d_in = E if i == 0 else H
+            shapes[f"{stack}/{i}/w"] = ((d_in, 4 * H), d_in ** -0.5)
+            shapes[f"{stack}/{i}/u"] = ((H, 4 * H), H ** -0.5)
+            shapes[f"{stack}/{i}/b"] = ((4 * H,), None)
+    shapes["proj/w"] = ((H, cfg.tgt_vocab), H ** -0.5)
+    shapes["proj/b"] = ((cfg.tgt_vocab,), None)
+    return shapes
+
+
+def _seq2seq_tree(cfg: Seq2seqConfig, leaf) -> dict:
+    """The seq2seq tree with ``leaf(path, shape, scale)`` at each
+    place (the encoder and decoder as lists; keys sorted)."""
+    out: dict = {}
+    for path, (shape, scale) in _seq2seq_shapes(cfg).items():
+        _put(out, path, leaf(path, shape, scale))
+    for stack in ("encoder", "decoder"):
+        out[stack] = [out[stack][str(i)] for i in range(cfg.n_layers)]
+    return sorted_keys(out)
+
+
+def init_seq2seq_numpy(cfg: Seq2seqConfig, seed: int = 0) -> dict:
+    """Seeded parameters in ``init_seq2seq``'s layout and scales, with
+    numpy's numbers: embeddings ``normal·0.1``, LSTM ``w``
+    ``normal·d_in^-½``, ``u`` ``normal·H^-½``, ``proj.w``
+    ``normal·H^-½``, biases zero."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, shape, scale):
+        if scale is None:
+            return np.zeros(shape, np.float32)
+        return rng.standard_normal(shape, dtype=np.float32) \
+            * np.float32(scale)
+
+    return _seq2seq_tree(cfg, leaf)
+
+
+def seq2seq_params_from_jax(tree, cfg: Seq2seqConfig, device=None) -> dict:
+    """``init_seq2seq``'s tree (numpy leaves) as fp32 tensors on
+    ``device`` (CUDA unless ``"cpu"`` is named), every shape checked."""
+    dev = resolve_device(device)
+
+    def leaf(path, shape, _):
+        parts = path.split("/")
+        node = tree
+        for k in parts:
+            node = node[int(k)] if isinstance(node, (list, tuple)) \
+                else node[k]
+        a = np.asarray(node)
+        if a.shape != shape:
+            raise ValueError(f"param {path!r} has shape {a.shape}, config "
+                             f"wants {shape}")
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return _seq2seq_tree(cfg, leaf)
+
+
+def _googlenet_shapes(cfg: ConvNetConfig) -> dict:
+    """``{path: (JAX shape, kind)}`` of GoogLeNet's tree, kind conv /
+    bias / dense."""
+    if cfg.head == "flatten" and cfg.insize != 224:
+        raise ValueError(
+            f"googlenet reference geometry (head='flatten') is fixed at "
+            f"224px; got image_size={cfg.insize} — use head='gap' for "
+            "other input sizes")
+    shapes = {}
+
+    def conv(path, kh, kw, cin, cout):
+        shapes[f"{path}/w"] = ((kh, kw, cin, cout), "conv")
+        shapes[f"{path}/b"] = ((cout,), "bias")
+
+    def dense(path, fin, fout):
+        shapes[f"{path}/w"] = ((fin, fout), "dense")
+        shapes[f"{path}/b"] = ((fout,), "bias")
+
+    conv("stem/0", 7, 7, 3, 64)
+    conv("stem/1", 1, 1, 64, 64)
+    conv("stem/2", 3, 3, 64, 192)
+    for name, cin, b1, b3r, b3, b5r, b5, pp in _INCEPTION:
+        conv(f"inc/{name}/b1", 1, 1, cin, b1)
+        conv(f"inc/{name}/b3r", 1, 1, cin, b3r)
+        conv(f"inc/{name}/b3", 3, 3, b3r, b3)
+        conv(f"inc/{name}/b5r", 1, 1, cin, b5r)
+        conv(f"inc/{name}/b5", 5, 5, b5r, b5)
+        conv(f"inc/{name}/pp", 1, 1, cin, pp)
+    dense("fc", 1024, cfg.num_classes)
+    for tap, cin in zip(_AUX_AFTER, (512, 528)):
+        conv(f"aux_{tap}/conv", 1, 1, cin, 128)
+        dense(f"aux_{tap}/fc1", 128 * 4 * 4 if cfg.head == "flatten"
+              else 128, 1024)
+        dense(f"aux_{tap}/fc2", 1024, cfg.num_classes)
+    return shapes
+
+
+def _convnet_rows_shapes(cfg: ConvNetConfig) -> list:
+    """One ``{name: (JAX shape, kind)}`` a row of a row-built arch ({}
+    for the rows without parameters)."""
+    fin = _flatten_fin(cfg) if cfg.head == "flatten" else None
+    out = []
+    for row in _convnet_rows(cfg):
+        kind = row[0]
+        if kind in ("c", "cl"):
+            _, kh, kw, cin, cout, _, _ = row
+            out.append({"w": ((kh, kw, cin, cout), "conv"),
+                        "b": ((cout,), "bias")})
+        elif kind in ("f", "fl"):
+            f_in = fin if row[1] == -1 else row[1]
+            out.append({"w": ((f_in, row[2]), "dense"),
+                        "b": ((row[2],), "bias")})
+        else:
+            out.append({})
+    return out
+
+
+def _convnet_tree(cfg: ConvNetConfig, leaf):
+    """The arch's tree with ``leaf(path, shape, kind)`` at each place:
+    a list of row dicts, or GoogLeNet's nested dict (``stem`` a list;
+    keys sorted)."""
+    if cfg.arch != "googlenet":
+        return [{k: leaf(f"{i}/{k}", shape, kind)
+                 for k, (shape, kind) in sorted(row.items())}
+                for i, row in enumerate(_convnet_rows_shapes(cfg))]
+    out: dict = {}
+    for path, (shape, kind) in _googlenet_shapes(cfg).items():
+        _put(out, path, leaf(path, shape, kind))
+    out["stem"] = [out["stem"][str(i)] for i in range(3)]
+    return sorted_keys(out)
+
+
+def init_convnet_numpy(cfg: ConvNetConfig, seed: int = 0):
+    """Seeded parameters in ``init_convnet``'s layout and scales, with
+    numpy's numbers: conv kernels (HWIO) and dense weights
+    ``normal·√(2/fan_in)``, biases zero."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, shape, kind):
+        if kind == "bias":
+            return np.zeros(shape, np.float32)
+        fan_in = int(np.prod(shape[:-1]))
+        return rng.standard_normal(shape, dtype=np.float32) \
+            * np.float32(np.sqrt(2.0 / fan_in))
+
+    return _convnet_tree(cfg, leaf)
+
+
+def convnet_params_from_jax(params, cfg: ConvNetConfig, device=None):
+    """``init_convnet``'s tree (numpy leaves) as fp32 tensors on
+    ``device`` (CUDA unless ``"cpu"`` is named): conv kernels HWIO →
+    OIHW in ``channels_last`` format, every shape checked."""
+    dev = resolve_device(device)
+
+    def leaf(path, shape, kind):
+        node = params
+        for k in path.split("/"):
+            node = node[int(k)] if isinstance(node, (list, tuple)) \
+                else node[k]
+        a = np.asarray(node)
+        if a.shape != shape:
+            raise ValueError(f"param {path!r} has shape {a.shape}, config "
+                             f"wants {shape}")
+        t = torch.tensor(a, dtype=torch.float32, device=dev)
+        if kind == "conv":
+            t = t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        return t
+
+    return _convnet_tree(cfg, leaf)
+
+
+def convnet_to_numpy(tree):
+    """A port convnet tree (parameters or gradients) as numpy in the JAX
+    layout: 4-D conv leaves back to HWIO."""
+    if isinstance(tree, dict):
+        return {k: convnet_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(convnet_to_numpy(v) for v in tree)
+    a = tree.detach().to("cpu").numpy().copy()
+    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a

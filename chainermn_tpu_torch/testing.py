@@ -7,9 +7,9 @@ fallback, SIGTERM → save and stop, a stalled rank → watchdog, NaN →
 abort) is driven by a fault scripted by iteration number, not by
 luck.
 
-Not ported, each raising: the resize faults (``resize_at_iteration``,
-``resize_live_at_iteration``; elastic training, ROADMAP Queue A item 11)
-and the serving and fleet faults (``serve_*``, ``fleet_*``,
+Not ported, each raising: the live resize (``resize_live_at_iteration``,
+``FaultInjector(resize_controller=)``; ROADMAP Queue A item 11) and the
+serving and fleet faults (``serve_*``, ``fleet_*``,
 :meth:`FaultInjector.attach_engine`, :meth:`FaultInjector.attach_fleet`;
 serving, item 12).
 """
@@ -71,7 +71,7 @@ def corrupt_file(path: str, n_bytes: int = 8, offset: Optional[int] = None,
     return positions
 
 
-_ELASTIC_FIELDS = ("resize_at_iteration", "resize_live_at_iteration")
+_ELASTIC_FIELDS = ("resize_live_at_iteration",)
 _SERVING_FIELDS = ("serve_delay_at_round", "serve_raise_at_round",
                    "serve_exhaust_pool_at_admit", "fleet_kill_at_step",
                    "fleet_slow_at_step", "fleet_flap_at_step")
@@ -95,10 +95,15 @@ class FaultPlan:
       loss is not finite;
     - ``save_stall_after_files`` + ``save_stall_seconds``: after the
       checkpointer's Nth file, every further file waits first, so a
-      kill lands while a write is in flight.
+      kill lands while a write is in flight;
+    - ``resize_at_iteration`` + ``resize_to``: the shrink/grow drill:
+      save through the injector's ``checkpointer`` (topology stamped),
+      record that the relaunch runs at world ``resize_to`` and stop the
+      trainer; the driver relaunches at that world and resumes through
+      an ``elastic=True`` checkpointer.
 
-    The resize, serving and fleet fields exist so a JAX-package plan
-    reads here; setting one raises."""
+    The live-resize, serving and fleet fields exist so a JAX-package
+    plan reads here; setting one raises."""
 
     kill_at_iteration: Optional[int] = None
     sigterm_at_iteration: Optional[int] = None
@@ -137,7 +142,7 @@ class FaultPlan:
             if getattr(self, f) is not None:
                 raise NotImplementedError(
                     f"FaultPlan.{f} is not ported to chainermn_tpu_torch "
-                    "yet (elastic training, ROADMAP Queue A item 11)")
+                    "yet (the live resize, ROADMAP Queue A item 11)")
         for f in _SERVING_FIELDS:
             if getattr(self, f) is not None:
                 raise NotImplementedError(
@@ -168,7 +173,7 @@ class FaultInjector:
         if resize_controller is not None:
             raise NotImplementedError(
                 "FaultInjector(resize_controller=...) is not ported to "
-                "chainermn_tpu_torch yet (elastic training, ROADMAP Queue "
+                "chainermn_tpu_torch yet (the live resize, ROADMAP Queue "
                 "A item 11)")
         self.plan = plan
         self.comm = comm
@@ -185,11 +190,11 @@ class FaultInjector:
         real = checkpointer._write_part
         state = {"files": 0}
 
-        def stalled(path, tree, topology):
+        def stalled(path, tree, topology, shard_part=None):
             if state["files"] >= plan.save_stall_after_files:
                 self.fired.append(("save_stall", state["files"]))
                 time.sleep(plan.save_stall_seconds)
-            real(path, tree, topology)
+            real(path, tree, topology, shard_part)
             state["files"] += 1
 
         checkpointer._write_part = stalled
@@ -214,6 +219,17 @@ class FaultInjector:
             corrupt_file(plan.corrupt_path, plan.corrupt_n_bytes,
                          seed=plan.seed)
             self.fired.append(("corrupt", it))
+        if plan.resize_at_iteration == it:
+            if self.checkpointer is None:
+                raise RuntimeError(
+                    "FaultPlan.resize_at_iteration needs "
+                    "FaultInjector(checkpointer=...): the resize drill "
+                    "saves a topology-stamped snapshot to resume from")
+            self.checkpointer.save(trainer.updater, trainer)
+            self.fired.append(("resize", it, plan.resize_to))
+            trainer.stop(
+                f"elastic resize drill: snapshot saved at iteration {it}; "
+                f"relaunch at world={plan.resize_to}")
         if plan.sigterm_at_iteration == it and (
                 plan.sigterm_rank is None
                 or self._rank() == plan.sigterm_rank):

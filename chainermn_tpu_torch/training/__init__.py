@@ -10,6 +10,7 @@ from .optimizers import (
     MultiNodeState,
     Zero1Transformation,
     Zero2Transformation,
+    adam,
     adamw,
     create_multi_node_optimizer,
     cross_replica_mean,
@@ -42,6 +43,7 @@ __all__ = [
     "Trainer",
     "Zero1Transformation",
     "Zero2Transformation",
+    "adam",
     "adamw",
     "cosine_decay_schedule",
     "create_multi_node_evaluator",

@@ -10,7 +10,7 @@ The JAX package's ``make_train_step(..., optimizer)`` takes an optax
 ``update(grads, opt_state, params)`` applies one step to ``params`` in
 place.  Each rule is optax's, with optax's defaults, written over
 ``torch._foreach_*``: ``sgd`` (with ``momentum``, optax's ``trace``),
-``adamw`` (optax's decoupled decay, ``weight_decay`` 1e-4 on every
+``adam``, ``adamw`` (optax's decoupled decay, ``weight_decay`` 1e-4 on every
 leaf; ``mu_dtype`` keeps the first moment in a lower precision),
 ``lars`` and ``lamb``.  A learning rate is a number or a schedule (a
 callable of the update count,
@@ -38,7 +38,7 @@ import torch.utils._pytree as pytree
 from chainermn_tpu_torch.ops import fused as _fused
 
 __all__ = ["MultiNodeState", "OptaxRule", "Zero1Transformation",
-           "Zero2Transformation", "adamw", "create_multi_node_optimizer",
+           "Zero2Transformation", "adam", "adamw", "create_multi_node_optimizer",
            "cross_replica_mean", "lamb", "lars",
            "load_optimizer_state_tree", "map_state_moments",
            "optimizer_state_tree", "sgd", "shard_opt_state", "zero1_init"]
@@ -306,14 +306,23 @@ class _SGD(OptaxRule):
         return self._scaled(grads, lr)
 
 
-class _AdamW(OptaxRule):
-    """``optax.adamw``: adam's update, plus ``wd·p``, times ``−lr``;
-    the first moment in ``mu_dtype``."""
+class _Adam(OptaxRule):
+    """``optax.adam``: ``m̂ / (√v̂ + eps)`` times ``−lr``; the first
+    moment in ``mu_dtype``."""
 
     def _init_state(self, p, group):
         return {"mu": torch.zeros_like(p, dtype=group["mu_dtype"]
                                        or p.dtype),
                 "nu": torch.zeros_like(p)}
+
+    def _rule(self, group, params, grads, states, count, lr):
+        return self._scaled(_adam_moments(grads, states, count, group["b1"],
+                                          group["b2"], group["eps"]), lr)
+
+
+class _AdamW(_Adam):
+    """``optax.adamw``: adam's update, plus ``wd·p``, times ``−lr``;
+    the first moment in ``mu_dtype``."""
 
     def _rule(self, group, params, grads, states, count, lr):
         u = _adam_moments(grads, states, count, group["b1"], group["b2"],
@@ -352,6 +361,16 @@ class _LAMB(OptaxRule):
                           group["eps"])
         u = _decayed(u, params, group["weight_decay"])
         return self._scaled(_trust_scaled(u, params, 1.0, 0.0), lr)
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, *, mu_dtype=None) -> _TorchOptimizer:
+    """``optax.adam`` with optax's defaults (``eps_root`` 0); with
+    ``mu_dtype`` the first moment is kept in it."""
+    if isinstance(mu_dtype, str):
+        mu_dtype = getattr(torch, mu_dtype)
+    return _TorchOptimizer(_Adam, lr=learning_rate, b1=b1, b2=b2, eps=eps,
+                           mu_dtype=mu_dtype)
 
 
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
@@ -889,7 +908,7 @@ def create_multi_node_optimizer(
     plan=None,
     overlap=False,
 ) -> _MultiNodeOptimizer:
-    """Wrap ``actual_optimizer`` (:func:`sgd`, :func:`adamw`,
+    """Wrap ``actual_optimizer`` (:func:`sgd`, :func:`adam`, :func:`adamw`,
     :func:`lars`, :func:`lamb`) with the mean of the gradients over
     ``comm`` — ChainerMN's ``create_multi_node_optimizer``.
 

@@ -25,10 +25,24 @@ records the same name), so the CRC covers the same bytes, and it loads
 back as a CPU ``torch.bfloat16`` tensor over those bytes.  Every other
 leaf loads as a numpy array, as in the JAX package.
 
-Not ported: the shard-only covering-set parts (``build_shard_part``,
-``assemble_shard_state``, ``ShardSetError``; ``save_state(shard_part=...)``
-raises, ROADMAP Queue A item 11) and the telemetry spans around a save
-and a load (item 10).
+Shard-only covering sets (the JAX package's): one logical snapshot
+split into per-member PART files.  Part ``m`` holds member ``m``'s rows
+of every ``shard``-kind optimizer leaf (the topology's ``opt_leaves``)
+and member ``m``'s slice of every ``fsdp``-kind leaf; the ROOT part
+(member 0's) also holds every other entry once, so a set costs about
+one state whatever the world size.  :func:`build_shard_part` cuts one
+part and :func:`assemble_shard_state` rebuilds the world-stacked state
+from a covering set, checking that the parts tile ``[0, world)``; the
+part record rides ``__meta__`` beside the topology stamp
+(``save_state(shard_part=)``, :func:`load_state_with_stamps`).  A
+ZeRO-1/2 set keeps the record's v1 format, one with ``fsdp`` leaves is
+v2.  A port rank holds only its own rows: :func:`build_shard_part`
+takes a world-stacked leaf and cuts ``[lo, hi)`` from it, or a leaf
+that already holds just those rows (leading dim ``hi - lo``, or an
+``fsdp`` dim of ``(hi - lo)/world`` of its recorded length).
+
+Not ported: the telemetry spans around a save and a load (ROADMAP Queue
+A item 10).
 """
 
 from __future__ import annotations
@@ -43,10 +57,13 @@ import zlib
 import numpy as np
 import torch
 
-__all__ = ["ForeignSnapshotError", "SnapshotCorruptError", "load_state",
+__all__ = ["ForeignSnapshotError", "SHARD_PART_FORMAT", "ShardSetError",
+           "SnapshotCorruptError", "assemble_shard_state",
+           "build_shard_part", "fsdp_leaf_entries", "load_state",
            "load_state_with_stamps", "load_state_with_topology",
-           "read_topology", "save_state", "tree_flatten", "tree_unflatten",
-           "verify_state"]
+           "read_shard_part", "read_topology", "save_state",
+           "shard_leaf_indices", "sorted_keys", "tree_flatten",
+           "tree_unflatten", "verify_state"]
 
 
 class SnapshotCorruptError(RuntimeError):
@@ -54,6 +71,19 @@ class SnapshotCorruptError(RuntimeError):
     leaf, undecodable meta, truncated archive).  Typed so recovery code
     (``MultiNodeCheckpointer.maybe_load``'s fallback) can tell "this
     file is damaged" from a programming error."""
+
+
+class ShardSetError(RuntimeError):
+    """Shard-only part files that do not form a covering set (a member
+    missing or twice, worlds or leaf lists that disagree, no root part).
+    The checkpointer's fallback treats it like corruption: it skips the
+    set and tries the next."""
+
+
+#: the ``shard_part`` record's version; v2 adds the ``fsdp`` entries,
+#: and a v1 (ZeRO-1/2) set is still read
+SHARD_PART_FORMAT = 2
+_SHARD_PART_ACCEPTED = (1, 2)
 
 
 class ForeignSnapshotError(SnapshotCorruptError):
@@ -101,6 +131,17 @@ def tree_flatten(tree):
 
     treedef = walk(tree)
     return leaves, treedef
+
+
+def sorted_keys(tree):
+    """``tree`` (dicts and lists) with every dict's keys inserted in
+    sorted order, so ``torch.utils._pytree`` walks it in this
+    container's (JAX's) leaf order."""
+    if isinstance(tree, dict):
+        return {k: sorted_keys(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [sorted_keys(v) for v in tree]
+    return tree
 
 
 _NAMEDTUPLES: dict = {}
@@ -169,11 +210,8 @@ def save_state(path: str, pytree, topology=None, shard_part=None) -> None:
     """Atomically write ``pytree`` (tensors, numpy arrays, numbers) to
     ``path``.  ``topology`` (a dict of builtins,
     :func:`~chainermn_tpu_torch.training.elastic.topology_signature`)
-    rides ``__meta__``, so a resume can read it without the leaves."""
-    if shard_part is not None:
-        raise NotImplementedError(
-            "save_state(shard_part=...) is not ported to chainermn_tpu_torch "
-            "yet (shard-only snapshot sets, ROADMAP Queue A item 11)")
+    and ``shard_part`` (:func:`build_shard_part`'s record) ride
+    ``__meta__``, so a resume can read them without the leaves."""
     leaves, treedef = tree_flatten(pytree)
     payload, dtypes, crcs = {}, [], []
     for i, leaf in enumerate(leaves):
@@ -185,6 +223,8 @@ def save_state(path: str, pytree, topology=None, shard_part=None) -> None:
             "meta_crc_excluded": True}
     if topology is not None:
         meta["topology"] = topology
+    if shard_part is not None:
+        meta["shard_part"] = shard_part
     meta_bytes = pickle.dumps(meta)
     # the meta record guards itself: its CRC rides a separate array, so
     # a flipped bit inside the pickle is a typed error
@@ -301,6 +341,13 @@ def verify_state(path: str) -> None:
             pass
 
 
+def read_shard_part(path: str):
+    """The ``shard_part`` record stamped into ``path`` (``None`` for a
+    full snapshot); reads the meta record only."""
+    with _open(path) as z:
+        return _read_meta(z, path).get("shard_part")
+
+
 def read_topology(path: str):
     """The topology stamped into ``path``'s ``__meta__`` (``None`` when
     none was); reads the meta record only."""
@@ -322,12 +369,217 @@ def load_state_with_topology(path: str):
 
 
 def load_state_with_stamps(path: str):
-    """``(tree, topology, shard_part)`` from one checked read; the
-    port writes no shard parts, so ``shard_part`` is the stamp a file
-    carries or ``None``."""
+    """``(tree, topology, shard_part)`` from one checked read
+    (``shard_part`` ``None`` for a full snapshot)."""
     with _open(path) as z:
         meta = _read_meta(z, path)
         leaves = [_typed(arr, meta["dtypes"][i])
                   for i, arr in _checked_leaves(z, meta, path)]
     return (tree_unflatten(meta["treedef"], leaves), meta.get("topology"),
             meta.get("shard_part"))
+
+
+# --------------------------------------------------------------------- #
+# shard-only covering sets
+# --------------------------------------------------------------------- #
+
+def shard_leaf_indices(topology) -> list:
+    """Flat ``opt_state`` leaf indices the topology's per-leaf layout
+    marks ``shard``: the only leaves a ZeRO-1/2 set splits."""
+    layouts = (topology or {}).get("opt_leaves") or []
+    return [i for i, spec in enumerate(layouts)
+            if spec.get("kind") == "shard"]
+
+
+def fsdp_leaf_entries(topology, key: str = "opt_leaves") -> list:
+    """Flat ``(leaf index, shard dim)`` pairs of the ``fsdp`` records
+    under ``key`` (``"opt_leaves"`` or ``"param_leaves"``)."""
+    layouts = (topology or {}).get(key) or []
+    return [(i, int(spec["dim"])) for i, spec in enumerate(layouts)
+            if spec.get("kind") == "fsdp"]
+
+
+def _fsdp_lengths(topology, key: str) -> dict:
+    layouts = (topology or {}).get(key) or []
+    return {i: spec.get("len") for i, spec in enumerate(layouts)
+            if spec.get("kind") == "fsdp"}
+
+
+def _member_rows(leaf, lo: int, hi: int, world: int):
+    """Member rows ``[lo, hi)`` of a world-stacked leaf, or the leaf
+    itself when it holds just those rows."""
+    shape = tuple(leaf.shape)
+    if shape and shape[0] == world:
+        return leaf[lo:hi]
+    if shape and shape[0] == hi - lo:
+        return leaf
+    raise ValueError(
+        f"shard leaf has shape {shape}; expected a leading axis of the "
+        f"world {world} or of the members [{lo}, {hi})")
+
+
+def _dim_rows(leaf, lo: int, hi: int, world: int, dim: int, length):
+    """Members ``[lo, hi)``'s slice of a dim-sharded leaf along ``dim``:
+    cut from the full leaf, or the leaf itself when it is that slice."""
+    shape = tuple(leaf.shape)
+    full = shape[dim] if length is None else int(length)
+    if dim >= len(shape) or full % world:
+        raise ValueError(
+            f"fsdp leaf has shape {shape}; expected dim {dim} of length "
+            f"{full} divisible by world {world}")
+    w = full // world
+    if shape[dim] == full:
+        idx = [slice(None)] * len(shape)
+        idx[dim] = slice(lo * w, hi * w)
+        return leaf[tuple(idx)]
+    if shape[dim] == (hi - lo) * w:
+        return leaf
+    raise ValueError(
+        f"fsdp leaf has {shape[dim]} elements along dim {dim}: neither "
+        f"the full {full} nor members [{lo}, {hi})'s {(hi - lo) * w}")
+
+
+def build_shard_part(state: dict, topology: dict, lo: int, hi: int,
+                     *, root: bool):
+    """One part of a shard-only covering set: ``(part_state,
+    shard_part_record)`` for members ``[lo, hi)``.
+
+    The root part is the checkpointer's state dict with every ``shard``
+    leaf of ``opt_state`` cut to its rows (and every ``fsdp`` leaf of
+    ``opt_state`` and ``params`` to its slice); a non-root part holds
+    only ``{"shards": {leaf_XXXXX: rows}}`` (and ``"param_shards"``
+    under FSDP).  The record names the range, the world and the leaf
+    indices, so assembly never re-derives the layout."""
+    world = int(topology["world_size"])
+    if not 0 <= lo < hi <= world:
+        raise ValueError(f"member range [{lo}, {hi}) not in [0, {world})")
+    idxs = shard_leaf_indices(topology)
+    fsdp_opt = fsdp_leaf_entries(topology, "opt_leaves")
+    fsdp_par = fsdp_leaf_entries(topology, "param_leaves")
+    len_opt = _fsdp_lengths(topology, "opt_leaves")
+    len_par = _fsdp_lengths(topology, "param_leaves")
+    leaves, treedef = tree_flatten(state["opt_state"])
+    p_leaves, p_treedef = tree_flatten(state["params"]) if fsdp_par \
+        else (None, None)
+    rows = {i: _member_rows(leaves[i], lo, hi, world) for i in idxs}
+    rows.update({i: _dim_rows(leaves[i], lo, hi, world, d, len_opt[i])
+                 for i, d in fsdp_opt})
+    p_rows = {i: _dim_rows(p_leaves[i], lo, hi, world, d, len_par[i])
+              for i, d in fsdp_par}
+    if root:
+        part = dict(state)
+        part["opt_state"] = tree_unflatten(
+            treedef, [rows.get(i, leaf) for i, leaf in enumerate(leaves)])
+        if fsdp_par:
+            part["params"] = tree_unflatten(p_treedef, [
+                p_rows.get(i, leaf) for i, leaf in enumerate(p_leaves)])
+    else:
+        part = {"shards": {f"leaf_{i:05d}": v for i, v in rows.items()}}
+        if fsdp_par:
+            part["param_shards"] = {f"leaf_{i:05d}": v
+                                    for i, v in p_rows.items()}
+    record = {"format": SHARD_PART_FORMAT, "members": [int(lo), int(hi)],
+              "world": world, "root": bool(root),
+              "shard_leaves": [int(i) for i in idxs]}
+    if fsdp_opt or fsdp_par:
+        record["fsdp_opt_leaves"] = [[int(i), int(d)] for i, d in fsdp_opt]
+        record["fsdp_param_leaves"] = [[int(i), int(d)]
+                                       for i, d in fsdp_par]
+    else:
+        # a ZeRO-1/2 set keeps the v1 record, which older readers take
+        record["format"] = 1
+    return part, record
+
+
+def _cat(rows, axis: int):
+    """Concatenate numpy rows, or tensors (a loaded bf16 leaf)."""
+    if any(torch.is_tensor(r) for r in rows):
+        return torch.cat([torch.as_tensor(r) for r in rows], dim=axis)
+    return np.concatenate([np.asarray(r) for r in rows], axis=axis)
+
+
+def assemble_shard_state(parts) -> dict:
+    """The full (world-stacked) state dict from a COVERING set of parts
+    (``(shard_part_record, part_state)`` pairs, any order): exactly one
+    root, member ranges tiling ``[0, world)``, every part agreeing on
+    the world, format and leaf lists (else :class:`ShardSetError`).
+    Each ``shard`` leaf is the member-order concatenation of the parts'
+    rows, each ``fsdp`` leaf of their slices: bitwise the state a full
+    save of the world-stacked state writes."""
+    parts = list(parts)
+    if not parts:
+        raise ShardSetError("no shard parts to assemble")
+    roots = [(rec, st) for rec, st in parts if rec.get("root")]
+    if len(roots) != 1:
+        raise ShardSetError(
+            f"covering set needs exactly one root part, got {len(roots)}")
+    root_rec, root_state = roots[0]
+    fmt = int(root_rec.get("format", -1))
+    if fmt not in _SHARD_PART_ACCEPTED:
+        raise ShardSetError(
+            f"unknown shard_part format {root_rec.get('format')!r} "
+            f"(this reader speaks {sorted(_SHARD_PART_ACCEPTED)})")
+    world = int(root_rec["world"])
+
+    def lists(rec):
+        return ([int(i) for i in rec.get("shard_leaves", [])],
+                [(int(i), int(d)) for i, d in rec.get("fsdp_opt_leaves",
+                                                      [])],
+                [(int(i), int(d)) for i, d in rec.get("fsdp_param_leaves",
+                                                      [])])
+
+    idxs, fsdp_opt, fsdp_par = lists(root_rec)
+    ranges = []
+    for rec, _ in parts:
+        if int(rec.get("world", -1)) != world \
+                or lists(rec) != (idxs, fsdp_opt, fsdp_par) \
+                or int(rec.get("format", -1)) != fmt:
+            raise ShardSetError(
+                "shard parts disagree on world/leaf layout — files "
+                "from different sets were mixed")
+        ranges.append((int(rec["members"][0]), int(rec["members"][1])))
+    order = sorted(range(len(parts)), key=lambda k: ranges[k])
+    cursor = 0
+    for k in order:
+        lo, hi = ranges[k]
+        if lo != cursor:
+            raise ShardSetError(
+                f"member ranges do not tile [0, {world}): gap or "
+                f"overlap at member {cursor} (next part covers "
+                f"[{lo}, {hi}))")
+        cursor = hi
+    if cursor != world:
+        raise ShardSetError(
+            f"member ranges stop at {cursor}, but the set's world is "
+            f"{world} — the covering set is incomplete")
+
+    def collect(i, container_key, state_key):
+        key = f"leaf_{i:05d}"
+        rows = []
+        for k in order:
+            rec, st = parts[k]
+            if rec.get("root"):
+                rows.append(tree_flatten(st[state_key])[0][i])
+            elif key not in st.get(container_key, {}):
+                raise ShardSetError(
+                    f"part covering {rec['members']} is missing shard "
+                    f"leaf {key}")
+            else:
+                rows.append(st[container_key][key])
+        return rows
+
+    leaves, treedef = tree_flatten(root_state["opt_state"])
+    new = list(leaves)
+    for i in idxs:
+        new[i] = _cat(collect(i, "shards", "opt_state"), 0)
+    for i, dim in fsdp_opt:
+        new[i] = _cat(collect(i, "shards", "opt_state"), dim)
+    out = dict(root_state)
+    out["opt_state"] = tree_unflatten(treedef, new)
+    if fsdp_par:
+        p_leaves, p_treedef = tree_flatten(root_state["params"])
+        p_new = list(p_leaves)
+        for i, dim in fsdp_par:
+            p_new[i] = _cat(collect(i, "param_shards", "params"), dim)
+        out["params"] = tree_unflatten(p_treedef, p_new)
+    return out

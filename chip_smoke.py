@@ -3407,6 +3407,12 @@ def main():
     from chainermn_tpu_torch.communicators import create_communicator
 
     zero_counts, _ = phase_zero(torch, np, root, smi, create_communicator())
+
+    # 21. seq2seq, the convnets and the seq2seq example; 22. shard-only
+    # sets, in the same NCCL world
+    models_counts, _ = phase_models(torch, np, root, smi,
+                                    create_communicator())
+    phase_shard_only(torch, np, root, smi, create_communicator())
     torch.distributed.destroy_process_group()
 
     # 17. the pipe axis's schedules on one card -------------------------
@@ -3439,7 +3445,8 @@ def main():
                                       moe_counts.items()},
                                    **{p: c[0] for p, c in
                                       zero_counts.items()},
-                                   decode_options=decode_counts[0]),
+                                   decode_options=decode_counts[0],
+                                   models=models_counts[0]),
              matched=True, **row),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu",
              replaces=tpu + "151", launches=counts["flash_bwd_dq"],
@@ -3451,7 +3458,8 @@ def main():
                  **{p: c[1] for p, c in pp_counts.items()},
                  **{p: c[1] for p, c in moe_counts.items()},
                  **{p: c[1] for p, c in zero_counts.items()},
-                 decode_options=decode_counts[1]),
+                 decode_options=decode_counts[1],
+                 models=models_counts[1]),
              matched=True, **bwd_rows["dq"]),
         dict(name="flash_bwd_dkv", route="cuda",
              source=src + "flash_bwd.cu", replaces=tpu + "195",
@@ -3464,7 +3472,8 @@ def main():
                  **{p: c[2] for p, c in pp_counts.items()},
                  **{p: c[2] for p, c in moe_counts.items()},
                  **{p: c[2] for p, c in zero_counts.items()},
-                 decode_options=decode_counts[2]),
+                 decode_options=decode_counts[2],
+                 models=models_counts[2]),
              matched=True, **bwd_rows["dkv"]),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -5691,6 +5700,664 @@ def four_cards_dots(root, smi, runs=DOTS_FOUR):
     return 0
 
 
+# --------------------------------------------------------------------- #
+# 21: seq2seq and the convnets on one card; 22: shard-only sets;
+# --four-cards elastic: resume at another world size
+# --------------------------------------------------------------------- #
+
+# phase 21 (a): each convnet at its native size, bf16, batch 64, 3
+# StandardUpdater updates (the first a warm-up for the time); the
+# parameter counts are the JAX package's (jax.eval_shape)
+CONVNET_COUNTS = {"alex": 62_378_344, "nin": 7_595_176,
+                  "vgg16": 138_357_544, "googlenet": 13_378_280}
+CONVNET_B, CONVNET_UPDATES = 64, 3
+# fp32 logits of the card against the CPU's, TF32 off: the convolution
+# algorithms sum in other orders
+CONVNET_FWD_REL = 1e-4
+# (b) seq2seq at Seq2seqConfig()'s defaults on 64 ragged pairs of 3-50
+# tokens: the loss and each gradient leaf against the CPU's (relative of
+# the leaf's largest element), the greedy tokens equal
+S2S_PAIRS, S2S_MAX = 64, 50
+S2S_REL = 1e-5
+S2S_STEPS = 5
+
+
+def leaves_rel(torch, got, want):
+    """The largest ``max|a - b| / max|b|`` over two lists of tensors."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        worst = max(worst, ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def convnet_runs(torch, np, comm):
+    """21 (a): each of AlexNet, NiN, VGG-16 and GoogLeNet at its native
+    size (reference geometry): its parameter count, one fp32 forward's
+    logits on 2 images against the CPU's on the same numpy parameters,
+    and ``CONVNET_UPDATES`` bf16 updates of ``sgd(0.01, momentum=0.9)``
+    under ``StandardUpdater`` on ``CONVNET_B`` seeded images (GoogLeNet
+    with its aux loss): ms an update, images/s, peak GiB."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        ConvNetConfig, convnet_apply, convnet_params_from_jax,
+        init_convnet_numpy, softmax_cross_entropy)
+
+    out = {}
+    for arch in ("alex", "nin", "vgg16", "googlenet"):
+        cfg = ConvNetConfig(arch=arch)
+        tree = init_convnet_numpy(cfg, SEED)
+        n = sum(a.size for a in pytree.tree_leaves(tree))
+        require(n == CONVNET_COUNTS[arch],
+                f"{arch}: {n} parameters, the JAX package has "
+                f"{CONVNET_COUNTS[arch]}")
+        size = cfg.insize
+        rng = np.random.default_rng(SEED)
+        x = rng.standard_normal((CONVNET_B, size, size, 3), dtype=np.float32)
+        y = rng.integers(0, cfg.num_classes, CONVNET_B).astype(np.int32)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        with torch.no_grad():
+            card = convnet_apply(f32, convnet_params_from_jax(
+                tree, f32, device=comm.device), torch.as_tensor(
+                x[:2], device=comm.device)).cpu()
+            host = convnet_apply(f32, convnet_params_from_jax(
+                tree, f32, device="cpu"), torch.as_tensor(x[:2]))
+        fwd_rel = rel_err(card, host)
+        require(fwd_rel < CONVNET_FWD_REL,
+                f"{arch}: fp32 logits off the CPU's: rel L2 {fwd_rel}")
+        aux = arch == "googlenet"
+
+        def loss_fn(p, xb, yb, cfg=cfg, aux=aux):
+            if aux:
+                logits, a1, a2 = convnet_apply(cfg, p, xb, with_aux=True)
+                return (softmax_cross_entropy(logits, yb)
+                        + 0.3 * (softmax_cross_entropy(a1, yb)
+                                 + softmax_cross_entropy(a2, yb)))
+            return softmax_cross_entropy(convnet_apply(cfg, p, xb), yb)
+
+        params = convnet_params_from_jax(tree, cfg, device=comm.device)
+        del tree
+        opt = training.create_multi_node_optimizer(
+            training.sgd(0.01, momentum=0.9), comm)
+        up = training.StandardUpdater(
+            SerialIterator(list(zip(x, y)), CONVNET_B, shuffle=False), opt,
+            loss_fn, params, comm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(CONVNET_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            up.update()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(up.observation["main/loss"]))
+        require(all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        ms = statistics.median(times[1:])
+        out[arch] = dict(size=size, params=n, fwd_rel_l2_cpu=fwd_rel,
+                         losses=losses, times_ms=times, step_ms=ms,
+                         images_per_s=CONVNET_B / ms * 1e3,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"21 (a) {arch} at {size} px, {n} parameters: fp32 logits vs "
+              f"CPU rel L2 {fwd_rel:.3e}; bf16 batch {CONVNET_B}: "
+              f"{ms:.2f} ms an update = {CONVNET_B / ms * 1e3:.1f} "
+              f"images/s, peak {out[arch]['peak_gib']:.2f} GiB, losses "
+              f"{losses}")
+        del up, opt, params, x
+    return out
+
+
+def seq2seq_runs(torch, np, comm, root):
+    """21 (b): seq2seq at ``Seq2seqConfig()``'s defaults on the
+    example's ``make_dataset`` of ``S2S_PAIRS`` ragged pairs of 3 to
+    ``S2S_MAX`` tokens: the loss and gradients against the CPU's, the
+    greedy tokens equal, ms an ``adam`` step, real target tokens/s, and
+    one step's host launches and device kernels."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.models import (
+        Seq2seqConfig, init_seq2seq_numpy, seq2seq_loss,
+        seq2seq_params_from_jax, seq2seq_translate)
+
+    ex = load_example(root, "examples/seq2seq/seq2seq_torch.py",
+                      "seq2seq_torch")
+    cfg = Seq2seqConfig()
+    train, test = ex.make_dataset(n=S2S_PAIRS, vocab=cfg.src_vocab,
+                                  max_len=S2S_MAX, seed=SEED)
+    src, tgt = ex.make_converter(S2S_MAX, S2S_MAX + 1)(train + test)
+    tree = init_seq2seq_numpy(cfg, SEED)
+    n = sum(a.size for a in pytree.tree_leaves(tree))
+
+    def value_and_grad(dev):
+        p = seq2seq_params_from_jax(tree, cfg, device=dev)
+        leaves = pytree.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = seq2seq_loss(cfg, p, src, tgt)
+        return p, loss.detach(), torch.autograd.grad(loss, leaves)
+
+    params, loss, grads = value_and_grad(comm.device)
+    host_p, host_loss, host_grads = value_and_grad("cpu")
+    loss_rel = abs(loss.item() - host_loss.item()) / abs(host_loss.item())
+    grad_rel = leaves_rel(torch, grads, host_grads)
+    require(loss_rel <= S2S_REL and grad_rel <= S2S_REL,
+            f"seq2seq: loss rel {loss_rel}, gradients rel {grad_rel} "
+            f"against the CPU's (bar {S2S_REL})")
+    toks = seq2seq_translate(cfg, params, src, max_len=S2S_MAX + 1).cpu()
+    host_toks = seq2seq_translate(cfg, host_p, src, max_len=S2S_MAX + 1)
+    require(torch.equal(toks, host_toks), "seq2seq: greedy tokens differ "
+            "from the CPU's")
+    opt = training.adam(1e-3)
+    state = opt.init(params)
+    leaves, spec = pytree.tree_flatten(params)
+
+    def step():
+        g = torch.autograd.grad(seq2seq_loss(cfg, params, src, tgt), leaves)
+        opt.update(pytree.tree_unflatten(list(g), spec), state, params)
+
+    step()                                        # warm-up
+    times = []
+    for _ in range(S2S_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    host, kernels = host_launches(torch, step)
+    real = int((tgt != 0).sum())
+    res = dict(params=n, pairs=S2S_PAIRS, real_target_tokens=real,
+               loss=loss.item(), loss_rel_cpu=loss_rel,
+               grad_rel_cpu=grad_rel, tokens_equal_cpu=True,
+               times_ms=times, step_ms=ms,
+               target_tokens_per_s=real / ms * 1e3,
+               host_launches_a_step=host, device_kernels_a_step=kernels)
+    print(f"21 (b) seq2seq {n / 1e6:.2f} M parameters, {S2S_PAIRS} pairs "
+          f"({real} real target tokens): loss rel {loss_rel:.2e} and "
+          f"gradients rel {grad_rel:.2e} vs CPU, greedy tokens equal; an "
+          f"adam step {ms:.2f} ms = {real / ms * 1e3:.0f} target "
+          f"tokens/s, {host} host launches and {kernels} device kernels "
+          "a step")
+    return res
+
+
+def seq2seq_example_run(root):
+    """21 (c): ``seq2seq_torch.py --epoch 2`` on the card in a process
+    of its own (a one-rank world of its own): its epochs' losses, which
+    must fall, and its exact-match line."""
+    import os
+    import re
+
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+        "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(root / "examples" / "seq2seq" /
+                             "seq2seq_torch.py"), "--epoch", "2",
+         "--device", "cuda", "--out",
+         str(root / "build" / "chip_smoke" / "seq2seq")],
+        capture_output=True, text=True, timeout=600, env=env)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"seq2seq_torch.py exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    losses = [float(m) for m in re.findall(r"main/loss=([0-9.eE+-]+)",
+                                            proc.stdout)]
+    match = re.findall(r"greedy exact-match on (\d+) held-out pairs: "
+                       r"([0-9.]+)", proc.stdout)
+    require(len(losses) == 2 and losses[1] < losses[0] and match,
+            f"seq2seq_torch.py: losses {losses}, {proc.stdout[-1000:]}")
+    print(f"21 (c) seq2seq_torch.py --epoch 2: losses {losses}, greedy "
+          f"exact-match {match[0][1]} on {match[0][0]} pairs, {wall:.1f} s")
+    return dict(losses=losses, exact_match=float(match[0][1]),
+                wall_s=wall)
+
+
+def phase_models(torch, np, root, smi, comm):
+    """21. The other example models on one card (TF32 off): (a) the
+    convnets (:func:`convnet_runs`), (b) seq2seq (:func:`seq2seq_runs`),
+    (c) the seq2seq example end to end.  No hand-written kernel runs:
+    the counts stay at 0.  Prints ``{"models_one_card": {...}}``."""
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    res = dict(convnets=convnet_runs(torch, np, comm),
+               seq2seq=seq2seq_runs(torch, np, comm, root),
+               example=seq2seq_example_run(root))
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    require(counts == (0, 0, 0), f"phase 21 launched the flash kernels "
+            f"{counts} times")
+    res.update(card=smi, launches=list(counts),
+               phase_s=time.perf_counter() - t0)
+    print(json.dumps({"models_one_card": res}))
+    return counts, res
+
+
+# 22 and --four-cards elastic: ResNet-50 under ZeRO-1 (sync BN, 224 px,
+# sgd(0.1, momentum=0.9), fp32 wire) on one global batch of 128 seeded
+# images, split evenly over the ranks (32 a rank at world 4)
+ELASTIC_B = 128
+ELASTIC_AT, ELASTIC_TO = 2, 2
+# the post-resume updates against the uninterrupted world-4 run: the
+# ranks' shares (gradients, sync BN's moments, the loss) are summed in
+# another order (Queue C check 3: each mean within 3u/(1-3u)·Σ|g|/4 of
+# the exact one), which the bf16 activations' roundings and sgd
+# momentum grow; on the card ZeRO-1 against the replicated exchange
+# drifted 2.8e-5 in 4 updates (PR 15)
+ELASTIC_LOSS_REL = 1e-4
+ELASTIC_PARAMS_REL = 1e-4
+
+
+def elastic_resnet_job(torch, np, comm, ckpt, shard_only=True,
+                       global_batch=ELASTIC_B):
+    """A ZeRO-1 ResNet-50 job on this rank's share of the global batch
+    (the same images whatever the world), with an ``elastic=True``
+    checkpointer; returns ``(trainer, updater, checkpointer)``."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import (
+        ResNetConfig, init_resnet_numpy, resnet_apply,
+        resnet_params_from_jax, softmax_cross_entropy)
+
+    cfg = ResNetConfig()
+    rng = np.random.default_rng(SEED + 1)
+    x = rng.standard_normal((global_batch, 224, 224, 3), dtype=np.float32)
+    y = rng.integers(0, 1000, global_batch).astype(np.int32)
+    n = global_batch // comm.size
+    lo = comm.rank * n
+    params, state = resnet_params_from_jax(
+        *init_resnet_numpy(cfg, SEED), cfg, device=comm.device)
+
+    def loss_fn(prm, st, xb, yb):
+        logits, new = resnet_apply(cfg, prm, st, xb, train=True, comm=comm)
+        return softmax_cross_entropy(logits, yb), new
+
+    opt = training.create_multi_node_optimizer(
+        training.sgd(0.1, momentum=0.9), comm, zero1=True)
+    up = training.StandardUpdater(
+        SerialIterator(list(zip(x[lo:lo + n], y[lo:lo + n])), n,
+                       shuffle=False), opt, loss_fn, params, comm,
+        state=state)
+    trainer = training.Trainer(up, (ELASTIC_AT + 2, "iteration"),
+                               out=str(Path(ckpt).parent / "out"))
+    cp = create_multi_node_checkpointer(comm, str(ckpt), elastic=True,
+                                        shard_only=shard_only)
+    return trainer, up, cp
+
+
+def timed_ms(torch, fn):
+    """``(fn(), ms)`` of one call, the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def set_bytes(ckpt):
+    """``{filename: bytes}`` of a checkpoint directory."""
+    import os
+
+    return {fn: os.path.getsize(Path(ckpt) / fn)
+            for fn in sorted(os.listdir(ckpt))}
+
+
+def phase_shard_only(torch, np, root, smi, comm):
+    """22. Shard-only sets on one card (in the one-rank NCCL world):
+    ResNet-50 under ZeRO-1, 2 updates, then one full and one shard-only
+    save of the same state; each resumed into a fresh job by an
+    ``elastic=True`` checkpointer takes the exact path, and the two
+    resumed states are bitwise each other and the saved one.  Prints
+    ``{"shard_only_one_card": {...}}`` with save and load ms and the
+    set bytes."""
+    import shutil
+
+    from chainermn_tpu_torch.ops import flash_attention as fa
+
+    base = root / "build" / "chip_smoke" / "shard_only"
+    shutil.rmtree(base, ignore_errors=True)
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the path starts
+    _, up, _ = elastic_resnet_job(torch, np, comm, base / "x",
+                                  global_batch=ZERO_RESNET_B)
+    up.update()
+    up.update()
+    saved = grab(torch, up)
+    res = {}
+    for name, shard_only in (("full", False), ("shard_only", True)):
+        _, _, cp = elastic_resnet_job(torch, np, comm, base / name,
+                                      shard_only=shard_only,
+                                      global_batch=ZERO_RESNET_B)
+        _, save_ms = timed_ms(torch, lambda: cp.save(up))
+        _, again, cp2 = elastic_resnet_job(torch, np, comm, base / name,
+                                           shard_only=shard_only,
+                                           global_batch=ZERO_RESNET_B)
+        at, load_ms = timed_ms(torch, lambda: cp2.maybe_load(again))
+        got = grab(torch, again)
+        same = {k: tree_diff(torch, np, got[k], saved[k])[0]
+                for k in ("params", "state", "opt")}
+        require(at == 2 and cp2.last_resume_mode == "exact"
+                and all(same.values()),
+                f"22 {name}: resumed at {at} by {cp2.last_resume_mode}, "
+                f"bitwise {same}")
+        res[name] = dict(save_ms=save_ms, load_ms=load_ms,
+                         mode=cp2.last_resume_mode, bitwise=same,
+                         bytes=set_bytes(base / name))
+        res[name]["resumed"] = got
+        del again, cp2
+    eq = {k: tree_diff(torch, np, res["shard_only"]["resumed"][k],
+                       res["full"]["resumed"][k])[0]
+          for k in ("params", "state", "opt")}
+    require(all(eq.values()), f"22: shard-only resume not the full's {eq}")
+    for name in res:
+        res[name].pop("resumed")
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    require(counts == (0, 0, 0), f"phase 22 launched {counts}")
+    res.update(card=smi, shard_only_bitwise_full=True, images=ZERO_RESNET_B)
+    print(f"22 shard-only at world 1: save {res['shard_only']['save_ms']:.1f}"
+          f" ms, load {res['shard_only']['load_ms']:.1f} ms (full "
+          f"{res['full']['save_ms']:.1f} / {res['full']['load_ms']:.1f}); "
+          "both resumes exact and bitwise")
+    print(json.dumps({"shard_only_one_card": res}))
+    return res
+
+
+def _world_rows_bitwise(torch, np, up, ckpt, it):
+    """Whether this rank's ZeRO state is bitwise row ``rank`` of the
+    from-scratch sharding, at this world, of the state gathered from
+    the shard-only set of iteration ``it`` in ``ckpt`` (read and
+    assembled here on the host)."""
+    import os
+
+    from chainermn_tpu_torch.parallel.sharded_state import (
+        gather_state_leaves, shard_state_leaves)
+    from chainermn_tpu_torch.training import optimizer_state_tree
+    from chainermn_tpu_torch.training.elastic import rank_state_row
+    from chainermn_tpu_torch.utils.serialization import (
+        assemble_shard_state, load_state_with_stamps)
+
+    parts, topo = [], None
+    for fn in sorted(os.listdir(ckpt)):
+        if fn.startswith(f"snapshot_iter_{it}.s"):
+            tree, t, sp = load_state_with_stamps(str(Path(ckpt) / fn))
+            topo = t if sp["root"] else topo
+            parts.append((sp, tree))
+    stacked = assemble_shard_state(parts)["opt_state"]
+    recs = topo["opt_leaves"]
+    want = rank_state_row(shard_state_leaves(gather_state_leaves(
+        stacked, recs), recs, up.comm.size), recs, up.comm.rank)
+    return tree_diff(torch, np, optimizer_state_tree(up.opt_state),
+                     want)[0]
+
+
+def elastic_rank(out, step):
+    """One rank of ``--four-cards elastic``'s drill (under torchrun):
+    ``save`` at world 4 (``FaultPlan(resize_at_iteration=2,
+    resize_to=2)`` through a shard-only checkpointer, a full save beside
+    it for the bytes, then the uninterrupted run's updates 3-4),
+    ``resume`` at world 2 or 1 from that set (the re-laid state against
+    the from-scratch sharding, updates 3-4; at 2 a shard-only save at
+    iteration 4 for the grow), ``grow`` at world 4 from the world-2 set.
+    Rank 0 writes ``out/{step}_{world}.json``."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.testing import FaultInjector, FaultPlan
+
+    comm = cmn.create_communicator()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    out = Path(out)
+    W = comm.size
+    res = dict(step=step, world=W, card=card_name())
+
+    def updates(up, k):
+        losses = []
+        for _ in range(k):
+            up.update()
+            losses.append(float(up.observation["main/loss"]))
+        return losses
+
+    def params_flat(up):
+        return np.concatenate([t.detach().float().cpu().numpy().ravel()
+                               for t in pytree.tree_leaves(up.params)])
+
+    if step == "save":
+        trainer, up, cp = elastic_resnet_job(torch, np, comm,
+                                             out / "drill" / "ckpt")
+        save_ms = []
+        real = cp.save
+
+        def timed_save(*a, **k):
+            _, ms = timed_ms(torch, lambda: real(*a, **k))
+            save_ms.append(ms)
+
+        cp.save = timed_save
+        injector = FaultInjector(FaultPlan(resize_at_iteration=ELASTIC_AT,
+                                           resize_to=ELASTIC_TO), comm,
+                                 checkpointer=cp)
+        trainer.extend(injector, trigger=(1, "iteration"))
+        trainer.run()
+        require(up.iteration == ELASTIC_AT and injector.fired == [
+            ("resize", ELASTIC_AT, ELASTIC_TO)], f"fired {injector.fired}")
+        _, _, full = elastic_resnet_job(torch, np, comm,
+                                        out / "full" / "ckpt",
+                                        shard_only=False)
+        _, full_ms = timed_ms(torch, lambda: full.save(up))
+        res.update(save_ms=comm.allgather_obj(save_ms[0]),
+                   full_save_ms=comm.allgather_obj(full_ms),
+                   losses_after=updates(up, 2))
+    else:
+        src = "grow" if step == "grow" else "drill"
+        _, up, cp = elastic_resnet_job(torch, np, comm, out / src / "ckpt")
+        at, load_ms = timed_ms(torch, lambda: cp.maybe_load(up))
+        it = up.iteration
+        res.update(at=at, mode=cp.last_resume_mode,
+                   load_ms=comm.allgather_obj(load_ms),
+                   bitwise=comm.allgather_obj(_world_rows_bitwise(
+                       torch, np, up, out / src / "ckpt", it)))
+        if step == "resume":
+            res["losses_after"] = updates(up, 2)
+            if W == ELASTIC_TO:
+                _, _, grow = elastic_resnet_job(torch, np, comm,
+                                                out / "grow" / "ckpt")
+                grow.save(up)
+    if comm.rank == 0:
+        if "losses_after" in res:
+            np.save(out / f"params_{step}_{W}.npy", params_flat(up))
+        (out / f"{step}_{W}.json").write_text(json.dumps(res))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# --four-cards elastic (ii): a 4-layer LSTM, one layer a stage, at the
+# seq2seq width; (iii) seq2seq data-parallel at 4 ranks
+RNN_SHAPE = dict(L=4, D=256, B=64, T=50)
+RNN_REL = 1e-6        # the chain's outputs against one card's stack
+RNN_GRAD_REL = 1e-5   # the owner sums 4 equal cotangents, then / 4
+S2S_DP_REL = 1e-5     # the ranks' token-weighted shares, summed
+
+
+def rnn_dp_rank(out):
+    """``--four-cards elastic`` (ii) and (iii) on one rank (under
+    torchrun, 4 ranks): (ii) ``create_multi_node_n_step_rnn`` over the 4
+    ranks on ragged masks, its ``(ys, hy, cy)`` and each stage's
+    reduced gradients of ``sum(ys²)`` against this card's sequential
+    stack, ms a forward and backward (the median of 3 after a
+    warm-up); (iii) one seq2seq gradient at ``Seq2seqConfig()``'s
+    defaults on a ragged global batch of 64 pairs, 16 a rank, each
+    rank's loss weighted by its share of the real target tokens and the
+    gradients summed, against this card's on the whole batch.  Rank 0
+    writes ``out/rnn_dp.json``."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.links import create_multi_node_n_step_rnn
+    from chainermn_tpu_torch.links.n_step_rnn import stage_apply
+    from chainermn_tpu_torch.models import (
+        Seq2seqConfig, chain_params_from_jax, init_seq2seq_numpy,
+        seq2seq_loss, seq2seq_params_from_jax)
+
+    comm = cmn.create_communicator()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, W = comm.rank, comm.size
+    L, D, B, T = (RNN_SHAPE[k] for k in ("L", "D", "B", "T"))
+    chain = create_multi_node_n_step_rnn(L, D, D, L, comm=comm)
+    tree = [c.init(SEED + i) for i, c in enumerate(chain.components)]
+    chain.load_params(chain_params_from_jax(tree, chain))
+    rng = np.random.default_rng(SEED)
+    xs = rng.standard_normal((B, T, D), dtype=np.float32)
+    lens = rng.integers(3, T + 1, B)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    x = torch.as_tensor(xs * mask[..., None], device=comm.device)
+    m = torch.as_tensor(mask, device=comm.device)
+
+    def fwd_bwd():
+        for p in chain.parameters():
+            p.grad = None
+        ys, hy, cy = chain((x, m))
+        (ys ** 2).sum().backward()
+        return ys, hy, cy
+
+    ys, hy, cy = fwd_bwd()
+    times = [timed_ms(torch, fwd_bwd)[1] for _ in range(3)]
+    grads = chain.reduce_grads(chain.grads())
+    seq = [pytree.tree_map(lambda a: torch.tensor(
+        a, device=comm.device, requires_grad=True), layer)
+        for stage in tree for layer in stage]
+    s_ys, s_hy, s_cy = stage_apply(seq, x, m, "lstm")
+    (s_ys ** 2).sum().backward()
+    mine = [layer for layer, c in zip(seq, chain.components)
+            if c.owner == r]
+    rnn = dict(
+        ys_rel=leaves_rel(torch, [ys], [s_ys]),
+        hy_rel=leaves_rel(torch, [hy, cy], [s_hy[-1:], s_cy[-1:]]),
+        grad_rel=leaves_rel(
+            torch, [g for g in pytree.tree_leaves(grads[r])],
+            [t.grad for t in pytree.tree_leaves(mine)]),
+        times_ms=times, ms=statistics.median(times))
+
+    # (iii) seq2seq data-parallel
+    ex = load_example(Path(__file__).resolve().parent,
+                      "examples/seq2seq/seq2seq_torch.py", "seq2seq_torch")
+    cfg = Seq2seqConfig()
+    train, test = ex.make_dataset(n=S2S_PAIRS, vocab=cfg.src_vocab,
+                                  max_len=S2S_MAX, seed=SEED)
+    src, tgt = ex.make_converter(S2S_MAX, S2S_MAX + 1)(train + test)
+    s2s = init_seq2seq_numpy(cfg, SEED)
+
+    def grads_of(rows, weight):
+        p = seq2seq_params_from_jax(s2s, cfg, device=comm.device)
+        leaves = pytree.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = seq2seq_loss(cfg, p, src[rows], tgt[rows]) * weight
+        return torch.autograd.grad(loss, leaves)
+
+    n = S2S_PAIRS // W
+    rows = slice(r * n, (r + 1) * n)
+    tokens = (tgt != 0).sum(1)
+    share = float(tokens[rows].sum()) / float(tokens.sum())
+    dp = [comm.allreduce(g, "sum") for g in grads_of(rows, share)]
+    one = grads_of(slice(None), 1.0)
+    s2s_res = dict(grad_rel=leaves_rel(torch, dp, one), share=share)
+    res = dict(rnn=comm.allgather_obj(rnn), seq2seq=comm.allgather_obj(
+        s2s_res), shape=RNN_SHAPE, card=card_name())
+    if r == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "rnn_dp.json").write_text(json.dumps(res))
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def four_cards_elastic(root, smi):
+    """``--four-cards elastic``: what exists only across cards.  (i) The
+    shrink/grow drill on ResNet-50 under ZeRO-1 (:func:`elastic_rank`):
+    saved at world 4 as a shard-only set, resumed at 2 and at 1 (each
+    rank's re-laid state bitwise the from-scratch sharding; two more
+    updates within ``ELASTIC_LOSS_REL`` and ``ELASTIC_PARAMS_REL`` of the
+    uninterrupted world-4 run), grown 2 → 4 (bitwise); set bytes a rank
+    against a full save's, save and resume ms.  (ii) and (iii)
+    (:func:`rnn_dp_rank`).  Prints ``{"elastic": {...}}``."""
+    import shutil
+
+    import numpy as np
+
+    out = root / "build" / "four_cards" / "elastic"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    me = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+
+    def launch(n, *args):
+        subprocess.run(["torchrun", "--standalone", "--nproc_per_node",
+                        str(n), me, *args], check=True, timeout=600)
+
+    launch(4, "--elastic-rank", str(out), "save")
+    launch(2, "--elastic-rank", str(out), "resume")
+    launch(1, "--elastic-rank", str(out), "resume")
+    launch(4, "--elastic-rank", str(out), "grow")
+    launch(4, "--rnn-dp-rank", str(out))
+    runs = {f.stem: json.loads(f.read_text()) for f in out.glob("*.json")}
+    straight = np.load(out / "params_save_4.npy")
+    base = runs["save_4"]["losses_after"]
+    report = dict(card=smi, drill={}, command_s=None)
+    for name in ("resume_2", "resume_1", "grow_4"):
+        r = runs[name]
+        require(r["at"] in (ELASTIC_AT, ELASTIC_AT + 2)
+                and r["mode"] == "relayout" and all(r["bitwise"]),
+                f"{name}: resumed at {r['at']} by {r['mode']}, bitwise "
+                f"{r['bitwise']}")
+        rep = dict(at=r["at"], mode=r["mode"], bitwise=r["bitwise"],
+                   load_ms=r["load_ms"])
+        if "losses_after" in r:
+            got = np.load(out / f"params_{name}.npy")
+            rep["loss_rel"] = [abs(a - b) / abs(b) for a, b in
+                               zip(r["losses_after"], base)]
+            rep["params_rel_l2"] = float(np.linalg.norm(got - straight)
+                                         / np.linalg.norm(straight))
+            require(max(rep["loss_rel"]) <= ELASTIC_LOSS_REL
+                    and rep["params_rel_l2"] <= ELASTIC_PARAMS_REL,
+                    f"{name}: after 2 updates losses rel {rep['loss_rel']}"
+                    f", parameters rel L2 {rep['params_rel_l2']} against "
+                    "the uninterrupted world-4 run")
+        report["drill"][name] = rep
+    shard = set_bytes(out / "drill" / "ckpt")
+    full = set_bytes(out / "full" / "ckpt")
+    report["drill"]["save_4"] = dict(
+        save_ms=runs["save_4"]["save_ms"],
+        full_save_ms=runs["save_4"]["full_save_ms"],
+        shard_bytes=shard, full_bytes=full,
+        set_over_full=sum(shard.values()) / sum(full.values()))
+    rd = runs["rnn_dp"]
+    for q in rd["rnn"]:
+        require(q["ys_rel"] <= RNN_REL and q["hy_rel"] <= RNN_REL
+                and q["grad_rel"] <= RNN_GRAD_REL,
+                f"n-step RNN against one card: {q}")
+    require(all(q["grad_rel"] <= S2S_DP_REL for q in rd["seq2seq"]),
+            f"seq2seq data-parallel against one card: {rd['seq2seq']}")
+    report.update(rnn=rd["rnn"], seq2seq_dp=rd["seq2seq"],
+                  rnn_shape=rd["shape"])
+    report["command_s"] = time.perf_counter() - t0
+    print(json.dumps({"elastic": report}))
+    return 0
+
+
 def card_name():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5723,13 +6390,23 @@ if __name__ == "__main__":
         if sys.argv[2:3] == ["zero"]:
             # ZeRO-1/2 and FSDP over the data axis alone
             sys.exit(four_cards_zero(here, card_name()))
+        if sys.argv[2:3] == ["elastic"]:
+            # resume at another world size, the n-step RNN, seq2seq DP
+            sys.exit(four_cards_elastic(here, card_name()))
         sys.exit(four_cards(here, card_name())
                  or four_cards_seq(here, card_name())
                  or four_cards_tp(here, card_name())
                  or four_cards_pp(here, card_name())
                  or four_cards_ep(here, card_name())
                  or four_cards_dots(here, card_name())
-                 or four_cards_zero(here, card_name()))
+                 or four_cards_zero(here, card_name())
+                 or four_cards_elastic(here, card_name()))
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(elastic_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--rnn-dp-rank"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(rnn_dp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--zero-rank"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(zero_rank(*sys.argv[2:9]))

@@ -1,7 +1,8 @@
-"""ImageNet ResNet data-parallel training on the PyTorch/CUDA port — the
-same program as ``train_imagenet.py`` through ``chainermn_tpu_torch``:
-ResNet-50 with synchronised BN, bf16 compute, ``sgd(0.1, momentum=0.9)``
-and, with ``--grad-dtype bfloat16``, a bf16 gradient wire.
+"""ImageNet data-parallel training on the PyTorch/CUDA port — the same
+program as ``train_imagenet.py`` through ``chainermn_tpu_torch``:
+ResNet-50 with synchronised BN (or ``--arch alex``, ``nin``, ``vgg16``,
+``googlenet``), bf16 compute, ``sgd(0.1, momentum=0.9)`` and, with
+``--grad-dtype bfloat16``, a bf16 gradient wire.
 
 One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``):
 
@@ -11,12 +12,14 @@ One process a GPU, launched by ``torchrun`` (ChainerMN's ``mpiexec``):
 ``--batchsize`` is the global batch, as in ``train_imagenet.py``; each
 rank iterates its ``scatter_dataset`` shard with ``batchsize // world``.
 The data is the lazy synthetic ImageNet-shaped set unless
-``--train-npz`` names arrays ``x``/``y``; ``--tiny`` is the 32 px,
-width-8 CPU smoke run.  Weights come from numpy's seed ``--seed`` (0).
-``--loader native`` materialises this rank's shard once and batches it
-with the C++ loader (``chainermn_tpu_torch.native``, built with ``g++``
-on first use).  The other architectures (``alex``, ``nin``, ``vgg16``,
-``googlenet``) are not ported yet (ROADMAP Queue A item 9).
+``--train-npz`` names arrays ``x``/``y``; ``--tiny`` is the 32 px
+CPU smoke run (ResNet at width 8; the convnets with the
+global-average-pool head in fp32); at full size the convnets take the
+reference geometry at 224 px (``head="flatten"``), and GoogLeNet trains
+on ``main + 0.3·(aux_4a + aux_4d)``.  Weights come from numpy's seed
+``--seed`` (0).  ``--loader native`` materialises this rank's shard
+once and batches it with the C++ loader (``chainermn_tpu_torch.native``,
+built with ``g++`` on first use).
 """
 
 import argparse
@@ -90,8 +93,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(args, quiet=False):
-    """The example's trainer, not yet run: a namespace of ``comm``,
+def build(args, quiet=False, init=None):
+    """The example's trainer, not yet run (from ``init``, a JAX-layout
+    parameter tree — ``(params, state)`` for ResNet — where given, else
+    numpy's seeded weights): a namespace of ``comm``,
     ``cfg``, ``image`` (the side in pixels), ``updater``, ``trainer``,
     ``evaluator`` and ``log`` (rank 0's ``LogReport``; None on the other
     ranks, so they do not write the same file)."""
@@ -101,12 +106,11 @@ def build(args, quiet=False):
     from chainermn_tpu_torch import training
     from chainermn_tpu_torch.datasets import SubDataset
     from chainermn_tpu_torch.models import (
-        ResNetConfig, accuracy, init_resnet_numpy, resnet_apply,
-        resnet_params_from_jax, softmax_cross_entropy)
+        ConvNetConfig, ResNetConfig, accuracy, convnet_apply,
+        convnet_params_from_jax, init_convnet_numpy, init_resnet_numpy,
+        resnet_apply, resnet_params_from_jax, softmax_cross_entropy)
 
-    if not args.arch.startswith("resnet"):
-        raise NotImplementedError(
-            f"--arch {args.arch} is not ported yet (ROADMAP Queue A item 9)")
+    resnet = args.arch.startswith("resnet")
     comm = cmn.create_communicator(args.communicator, device=args.device)
     if comm.rank == 0 and not quiet:
         print(f"world: {comm.size} ranks on {comm.inter_size} nodes, "
@@ -118,11 +122,17 @@ def build(args, quiet=False):
 
     if args.tiny:
         image, classes, n = 32, 8, 512
-        cfg = ResNetConfig(depth=50, num_classes=classes, width=8,
-                           dtype="float32")
+        # the flatten heads need near-native sizes (32 px collapses)
+        cfg = (ResNetConfig(depth=50, num_classes=classes, width=8,
+                            dtype="float32") if resnet
+               else ConvNetConfig(arch=args.arch, num_classes=classes,
+                                  dtype="float32", head="gap"))
     else:
         image, classes, n = 224, 1000, 50000
-        cfg = ResNetConfig(depth=int(args.arch[6:]), num_classes=classes)
+        cfg = (ResNetConfig(depth=int(args.arch[6:]), num_classes=classes)
+               if resnet
+               else ConvNetConfig(arch=args.arch, num_classes=classes,
+                                  image_size=image))
     n = args.n_images or n
 
     data = make_dataset(n, image, classes, npz=args.train_npz)
@@ -132,13 +142,31 @@ def build(args, quiet=False):
     train_set = cmn.scatter_dataset(train_set, comm, shuffle=True, seed=0)
     test_set = cmn.scatter_dataset(test_set, comm)
 
-    params, state = resnet_params_from_jax(
-        *init_resnet_numpy(cfg, args.seed), cfg, device=comm.device)
+    if resnet:
+        params, state = resnet_params_from_jax(
+            *(init or init_resnet_numpy(cfg, args.seed)), cfg,
+            device=comm.device)
 
-    def loss_fn(params, state, x, y):
-        logits, new_state = resnet_apply(cfg, params, state, x, train=True,
-                                         comm=comm)
-        return softmax_cross_entropy(logits, y), new_state
+        def loss_fn(params, state, x, y):
+            logits, new_state = resnet_apply(cfg, params, state, x,
+                                             train=True, comm=comm)
+            return softmax_cross_entropy(logits, y), new_state
+    else:
+        params, state = convnet_params_from_jax(
+            init if init is not None else init_convnet_numpy(cfg, args.seed),
+            cfg, device=comm.device), None
+        if args.arch == "googlenet":
+            # the Inception recipe: main + 0.3·(aux_4a + aux_4d)
+            def loss_fn(params, x, y):
+                logits, a1, a2 = convnet_apply(cfg, params, x,
+                                               with_aux=True)
+                return (softmax_cross_entropy(logits, y)
+                        + 0.3 * (softmax_cross_entropy(a1, y)
+                                 + softmax_cross_entropy(a2, y)))
+        else:
+            def loss_fn(params, x, y):
+                return softmax_cross_entropy(convnet_apply(cfg, params, x),
+                                             y)
 
     opt = cmn.create_multi_node_optimizer(
         training.sgd(args.lr, momentum=0.9), comm,
@@ -178,7 +206,8 @@ def build(args, quiet=False):
 
     def metrics_fn(bundle, x, y):
         params, state = bundle
-        logits, _ = resnet_apply(cfg, params, state, x, train=False)
+        logits = (resnet_apply(cfg, params, state, x, train=False)[0]
+                  if resnet else convnet_apply(cfg, params, x))
         return {"loss": softmax_cross_entropy(logits, y),
                 "accuracy": accuracy(logits, y)}
 

@@ -386,17 +386,10 @@ def _unported():
 
     c = LoopbackCommunicator(device="cpu")
     return {
-        "shard_only": (lambda: create_multi_node_checkpointer(
-            c, "x", shard_only=True), 11),
-        "elastic": (lambda: create_multi_node_checkpointer(
-            c, "x", elastic=True), 11),
         "rebind_world": (lambda: create_multi_node_checkpointer(
             c, "x").rebind_world(c), 11),
-        "relayout_state": (lambda: elastic.relayout_state({}, {}, {}), 11),
         "membership": (lambda: elastic.ElasticMembership(), 11),
         "resize_controller": (lambda: elastic.ResizeController(), 11),
-        "shard_part": (lambda: tser.save_state("x", {}, shard_part={}), 11),
-        "plan_resize": (lambda: FaultPlan(resize_at_iteration=3), 11),
         "plan_live_resize": (
             lambda: FaultPlan(resize_live_at_iteration=3), 11),
         "injector_resize": (lambda: FaultInjector(
@@ -423,17 +416,22 @@ def test_unported_options_raise(name):
 
 
 def test_elastic_resume_onto_changed_topology_raises(comm, tmp_path):
+    """A set saved at world 2 (a replicated optimizer): the default
+    checkpointer refuses it, an ``elastic=True`` one re-lays it (the
+    replicated state passes through) from rank 0's file."""
     up = FakeUpdater(comm, 1, 4)
     tser.save_state(str(tmp_path / "snapshot_iter_4.0"),
                     {"iteration": 4, "world_size": 2, "params": up.params,
                      "opt_state": training.optimizer_state_tree(
                          up.opt_state)},
                     topology=dict(TOPOLOGY, world_size=2, inter_size=2))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 11"):
-        create_multi_node_checkpointer(comm, str(tmp_path), elastic=True)
     with pytest.raises(RuntimeError, match="same world size"):
         create_multi_node_checkpointer(comm, str(tmp_path)).maybe_load(up)
+    fresh = FakeUpdater(comm, 0, 0)
+    cp = create_multi_node_checkpointer(comm, str(tmp_path), elastic=True)
+    assert cp.maybe_load(fresh) == 4
+    assert cp.last_resume_mode == "relayout"
+    assert torch.equal(fresh.params["w"], up.params["w"])
 
 
 # --------------------------------------------------------------------- #

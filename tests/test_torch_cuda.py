@@ -1024,6 +1024,103 @@ def test_cuda_finalize_frees_captured_windows(nccl_comm):
                  training.optimizer_state_tree(eager.opt_state))
 
 
+# --------------------------------------------------------------------- #
+# the other example models and shard-only sets on the card
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("arch,head,size", [
+    ("alex", "gap", 32), ("nin", "gap", 32), ("vgg16", "gap", 32),
+    ("googlenet", "gap", 32), ("alex", "flatten", 227),
+    ("googlenet", "flatten", 224)])
+def test_cuda_convnet_forward_matches_cpu(cuda, arch, head, size):
+    """fp32 logits (and GoogLeNet's aux heads) on the card against the
+    CPU's on the same numpy parameters: 1e-4 relative L2 (TF32 off; the
+    convolution algorithms sum in other orders)."""
+    from chainermn_tpu_torch.models import (
+        ConvNetConfig, convnet_apply, convnet_params_from_jax,
+        init_convnet_numpy)
+
+    cfg = ConvNetConfig(arch=arch, head=head, image_size=size,
+                        num_classes=10, dtype="float32")
+    tree = init_convnet_numpy(cfg, 0)
+    x = np.random.RandomState(1).randn(2, size, size, 3).astype(np.float32)
+    aux = arch == "googlenet"
+    with torch.no_grad():
+        got = convnet_apply(cfg, convnet_params_from_jax(tree, cfg, cuda),
+                            torch.tensor(x, device=cuda), with_aux=aux)
+        want = convnet_apply(cfg, convnet_params_from_jax(tree, cfg, "cpu"),
+                             torch.tensor(x), with_aux=aux)
+    for g, w in zip(got if aux else (got,), want if aux else (want,)):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        assert ((g.cpu() - w).norm() / w.norm()).item() < 1e-4
+
+
+def test_cuda_seq2seq_matches_cpu(cuda):
+    """The loss and every gradient leaf on the card against the CPU's to
+    1e-5 relative (of the leaf's largest element), the greedy tokens
+    equal."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch.models import (
+        Seq2seqConfig, init_seq2seq_numpy, seq2seq_loss,
+        seq2seq_params_from_jax, seq2seq_translate)
+
+    cfg = Seq2seqConfig(src_vocab=50, tgt_vocab=50, d_embed=32,
+                        d_hidden=48, n_layers=2)
+    tree = init_seq2seq_numpy(cfg, 0)
+    rng = np.random.RandomState(0)
+    src = np.zeros((8, 10), np.int32)
+    tgt = np.zeros((8, 11), np.int32)
+    for i in range(8):
+        n = rng.randint(2, 11)
+        s = rng.randint(3, 50, n)
+        src[i, :n], tgt[i, :n], tgt[i, n] = s, s[::-1], 2
+    out = {}
+    for dev in (cuda, "cpu"):
+        p = seq2seq_params_from_jax(tree, cfg, device=dev)
+        leaves = pytree.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = seq2seq_loss(cfg, p, src, tgt)
+        grads = torch.autograd.grad(loss, leaves)
+        out[str(dev)] = (loss.item(), [g.cpu() for g in grads],
+                         seq2seq_translate(cfg, p, src, max_len=11).cpu())
+    (lc, gc, tc), (lh, gh, th) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.equal(tc, th)
+
+
+def test_cuda_shard_only_round_trip(nccl_comm, tmp_path):
+    """A ZeRO-1 job's full and shard-only sets on the card, each resumed
+    by an ``elastic=True`` checkpointer at the same topology: the exact
+    path, bitwise the saved state."""
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+
+    def opt():
+        return training.create_multi_node_optimizer(
+            training.sgd(0.1, momentum=0.9), nccl_comm, zero1=True)
+
+    up = _tiny_resnet_job(nccl_comm, opt(), accum_steps=1)
+    up.update()
+    up.update()
+    for shard_only in (False, True):
+        path = str(tmp_path / f"ck{int(shard_only)}")
+        create_multi_node_checkpointer(nccl_comm, path, elastic=True,
+                                       shard_only=shard_only).save(up)
+        again = _tiny_resnet_job(nccl_comm, opt(), accum_steps=1)
+        cp = create_multi_node_checkpointer(nccl_comm, path, elastic=True,
+                                            shard_only=shard_only)
+        assert cp.maybe_load(again) == 2 and cp.last_resume_mode == "exact"
+        assert _same(again.params, up.params)
+        assert _same(again.state, up.state)
+        assert _same(training.optimizer_state_tree(again.opt_state),
+                     training.optimizer_state_tree(up.opt_state))
+
+
 def test_cuda_failed_capture_raises(nccl_comm):
     """A step that reads a value on the host cannot be captured: the
     capture raises, and nothing runs the window eagerly in its place.

@@ -40,7 +40,8 @@ EXAMPLES = [ROOT / "examples" / "mnist" / "train_mnist_torch.py",
             ROOT / "examples" / "imagenet"
             / "train_imagenet_large_batch_torch.py",
             ROOT / "examples" / "transformer" / "train_lm_torch.py",
-            ROOT / "examples" / "transformer" / "generate_torch.py"]
+            ROOT / "examples" / "transformer" / "generate_torch.py",
+            ROOT / "examples" / "seq2seq" / "seq2seq_torch.py"]
 # the test helpers the port's drills import or run in children
 TEST_HELPERS = [ROOT / "tests" / "test_torch_world.py",
                 ROOT / "tests" / "_torch_fault_worker.py"]
@@ -79,10 +80,14 @@ FSDP_PATH = [PORT / "parallel" / "fsdp.py",
 # the serving options: int8 weights and the decoders (decoding.py is in
 # SEQ_PATH)
 SERVE_PATH = [PORT / "models" / "quantization.py"]
+# the other example models: seq2seq, the n-step RNN, the convnets
+MODELS_PATH = [PORT / "models" / "seq2seq.py",
+               PORT / "links" / "n_step_rnn.py",
+               PORT / "models" / "convnets.py"]
 TRAINING_PATH = [PORT / "models" / "transformer.py",
                  PORT / "training" / "optimizers.py",
                  ROOT / "chip_smoke.py"] + SEQ_PATH + TP_PATH + PP_PATH \
-    + EP_PATH + FSDP_PATH + SERVE_PATH
+    + EP_PATH + FSDP_PATH + SERVE_PATH + MODELS_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
 DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
@@ -94,7 +99,7 @@ DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
     PORT / "models" / "mlp.py", PORT / "models" / "convert.py",
     PORT / "datasets" / "__init__.py", PORT / "iterators" / "__init__.py",
     PORT / "iterators" / "_convert.py"] + SEQ_PATH + TP_PATH[:1] + PP_PATH \
-    + EP_PATH + FSDP_PATH + SERVE_PATH + EXAMPLES
+    + EP_PATH + FSDP_PATH + SERVE_PATH + MODELS_PATH + EXAMPLES
 
 
 @pytest.mark.parametrize("path", TRAINING_PATH,
@@ -177,6 +182,9 @@ FAULT_HANDLERS = {
                    "verdict allgather the peers wait in",
         "BaseException": "the writer thread's error box, re-raised at "
                          "the join",
+        "ShardSetError": "a shard-only set whose parts do not tile votes "
+                         "the set down, and resume falls back (the JAX "
+                         "package's rule)",
     },
     "extensions/watchdog.py": {
         "Exception": "the on_stall callback: a failing callback must not "
@@ -383,3 +391,31 @@ def test_no_path_under_the_jax_package(path):
             if "chainermn_tpu/" in v:
                 assert re.fullmatch(r"chainermn_tpu/[\w/]+\.py:\d*", v), \
                     f"{path.relative_to(ROOT)}:{node.lineno} {v!r}"
+
+
+def test_new_model_entry_points_need_cuda_unless_cpu_is_named(no_cuda):
+    from chainermn_tpu_torch.models import (
+        ConvNetConfig,
+        Seq2seqConfig,
+        convnet_params_from_jax,
+        init_convnet,
+        init_convnet_numpy,
+        init_seq2seq,
+        init_seq2seq_numpy,
+        seq2seq_params_from_jax,
+    )
+
+    s2s = Seq2seqConfig(src_vocab=8, tgt_vocab=8, d_embed=4, d_hidden=4,
+                        n_layers=1)
+    conv = ConvNetConfig(arch="nin", head="gap", num_classes=4,
+                         image_size=32)
+    for call in (lambda: init_seq2seq(s2s),
+                 lambda: seq2seq_params_from_jax(init_seq2seq_numpy(s2s),
+                                                 s2s),
+                 lambda: init_convnet(conv),
+                 lambda: convnet_params_from_jax(init_convnet_numpy(conv),
+                                                 conv)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert init_seq2seq(s2s, device="cpu")["proj"]["w"].device.type == "cpu"
+    assert init_convnet(conv, device="cpu")[0]["w"].device.type == "cpu"

@@ -2089,6 +2089,159 @@ def battery_fsdp(comm, p):
 
 
 # --------------------------------------------------------------------- #
+# the n-step RNN over ranks (test_torch_n_step_rnn.py)
+# --------------------------------------------------------------------- #
+
+
+def battery_n_step_rnn(comm, p):
+    """Every case of ``p["cases"]`` (``n_layers, n_stages, cell, xs,
+    mask, params, grad``) through ``create_multi_node_n_step_rnn`` on
+    this world: the chain's ``(ys, hy, cy)`` on this rank, and with
+    ``grad`` the reduced gradients of ``sum(ys ** 2)`` of the stages it
+    owns; beside them the port's own sequential stack on one rank
+    (``stage_apply`` over every layer), its gradients in the chain's
+    structure."""
+    import torch.utils._pytree as pytree
+
+    from chainermn_tpu_torch.links import create_multi_node_n_step_rnn
+    from chainermn_tpu_torch.links.n_step_rnn import stage_apply
+    from chainermn_tpu_torch.models import chain_params_from_jax
+
+    out = {}
+    for name, c in p["cases"].items():
+        chain = create_multi_node_n_step_rnn(
+            c["n_layers"], c["xs"].shape[-1], p["d_hidden"], c["n_stages"],
+            comm=comm, cell=c["cell"])
+        params = chain.load_params(chain_params_from_jax(c["params"], chain))
+        ys, hy, cy = chain((c["xs"], c["mask"]))
+        res = dict(ys=ys.detach().numpy().copy(),
+                   hy=hy.detach().numpy().copy(),
+                   cy=cy.detach().numpy().copy())
+        if c["grad"]:
+            (ys ** 2).sum().backward()
+            res["grads"] = [None if g is None else np_tree(g)
+                            for g in chain.reduce_grads(chain.grads())]
+        # the sequential stack on this rank alone
+        seq = [pytree.tree_map(lambda a: torch.tensor(a, requires_grad=True),
+                               layer)
+               for stage in c["params"] for layer in stage]
+        s_ys, s_hy, s_cy = stage_apply(seq, torch.tensor(c["xs"]),
+                                       torch.tensor(c["mask"]), c["cell"])
+        res["seq"] = dict(ys=s_ys.detach().numpy().copy(),
+                          hy=s_hy.detach().numpy().copy(),
+                          cy=s_cy.detach().numpy().copy())
+        if c["grad"]:
+            (s_ys ** 2).sum().backward()
+            flat = iter(np_tree(pytree.tree_map(lambda t: t.grad, seq)))
+            res["seq"]["grads"] = [[next(flat) for _ in stage]
+                                   for stage in c["params"]]
+        out[name] = res
+        del params
+    return out
+
+
+# --------------------------------------------------------------------- #
+# elastic resume (test_torch_elastic.py)
+# --------------------------------------------------------------------- #
+
+
+def elastic_data():
+    """The elastic drills' regression set: 5 features to 3 targets."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 5).astype(np.float32)
+    y = (x @ rng.randn(5, 3)).astype(np.float32)
+    return [(x[i], y[i]) for i in range(64)]
+
+
+def elastic_job(comm, root, shard_only=False, elastic=True, history=1):
+    """A ZeRO-1 ``adam(1e-2)`` job whose leaves do not divide over 4 or
+    2 ranks (``w`` 15 and ``b`` 3 elements), batch 4 of this rank's
+    slice of :func:`elastic_data`, and its checkpointer (not extended:
+    the drills save through the fault injector or by hand).  Returns
+    ``(trainer, updater, checkpointer)``."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+
+    def loss(params, x, y):
+        return torch.mean((x @ params["w"] + params["b"] - y) ** 2)
+
+    it = SerialIterator(elastic_data()[comm.rank::comm.size], batch_size=4,
+                        shuffle=False)
+    opt = training.create_multi_node_optimizer(training.adam(1e-2), comm,
+                                               zero1=True)
+    up = training.StandardUpdater(
+        it, opt, loss, {"b": torch.zeros(3), "w": torch.zeros(5, 3)}, comm)
+    trainer = training.Trainer(up, stop_trigger=(10, "iteration"),
+                               out=str(Path(root) / "out"))
+    cp = create_multi_node_checkpointer(comm, str(Path(root) / "ckpt"),
+                                        shard_only=shard_only,
+                                        elastic=elastic, history=history)
+    return trainer, up, cp
+
+
+def _elastic_state(up):
+    from chainermn_tpu_torch import training
+
+    return dict(params=np_tree(up.params), iteration=int(up.iteration),
+                opt=np_tree(training.optimizer_state_tree(up.opt_state)))
+
+
+def battery_elastic_save(comm, p):
+    """World 4 (or the grow drill's 2): ``FaultPlan(resize_at_iteration,
+    resize_to)`` saves a full set and a shard-only set and stops the
+    trainer; each rank's state then, and a same-topology resume of each
+    set (the exact path, bitwise)."""
+    from chainermn_tpu_torch.testing import FaultInjector, FaultPlan
+
+    out = {}
+    for name, shard_only in (("full", False), ("shard", True)):
+        root = Path(p["root"]) / name
+        trainer, up, cp = elastic_job(comm, root, shard_only=shard_only)
+        injector = FaultInjector(FaultPlan(
+            resize_at_iteration=p["at"], resize_to=p["to"]), comm,
+            checkpointer=cp)
+        trainer.extend(injector, trigger=(1, "iteration"))
+        trainer.run()
+        out[name] = dict(saved=_elastic_state(up), fired=injector.fired)
+        _, again, cp2 = elastic_job(comm, root, shard_only=shard_only)
+        out[name]["resumed_at"] = cp2.maybe_load(again)
+        out[name]["mode"] = cp2.last_resume_mode
+        out[name]["again"] = _elastic_state(again)
+    return out
+
+
+def battery_elastic_resume(comm, p):
+    """A smaller or larger world: each set of ``p["sets"]`` resumed by an
+    ``elastic=True`` checkpointer (the state, the path taken), one more
+    update; a default checkpointer's refusal; and with ``p["save_to"]``
+    the resumed full-set job saved here (the grow drill's source)."""
+    out = {}
+    for name in p["sets"]:
+        root = Path(p["root"]) / name
+        _, up, cp = elastic_job(comm, root)
+        at = cp.maybe_load(up)
+        out[name] = dict(at=at, mode=cp.last_resume_mode,
+                         state=_elastic_state(up))
+        up.update()
+        out[name]["after"] = _elastic_state(up)
+        if name == "full" and p.get("save_to"):
+            _, _, cp_to = elastic_job(comm, p["save_to"])
+            cp_to.save(up)
+    _, up, cp = elastic_job(comm, Path(p["root"]) / "full", elastic=False)
+    try:
+        cp.maybe_load(up)
+        out["refused"] = None
+    except RuntimeError as e:
+        out["refused"] = str(e)
+    return out
+
+
+# --------------------------------------------------------------------- #
 # the harness's own tests
 # --------------------------------------------------------------------- #
 
