@@ -10,6 +10,9 @@ NCCL on the card and gloo on the CPU.
 The process model is ChainerMN's: one process a GPU, launched by
 ``torchrun`` (``mpiexec`` then).  :func:`init_distributed` reads
 torchrun's environment, or starts a one-rank world when there is none.
+``create_communicator(ranks=)`` builds a communicator over some of the
+launch's ranks (the JAX factory's ``devices=``): the live resize's
+worlds, each a prefix of the launch.
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ import torch.distributed as dist
 
 from chainermn_tpu_torch._device import resolve_device
 
+from ._obj_channel import (
+    DataSizeError,
+    KVObjectChannel,
+    StaleGenerationError,
+)
 from .base import CommunicatorBase
 from .loopback import LoopbackCommunicator
 from .torch_dist import DEFAULT_TIMEOUT, TorchDistCommunicator
@@ -41,7 +49,10 @@ _LEGACY_ALIASES = {
 
 __all__ = [
     "CommunicatorBase",
+    "DataSizeError",
+    "KVObjectChannel",
     "LoopbackCommunicator",
+    "StaleGenerationError",
     "TorchDistCommunicator",
     "create_communicator",
     "init_distributed",
@@ -122,9 +133,11 @@ def create_communicator(
     device=None,
     batched_copy: bool = True,
     timeout: timedelta = DEFAULT_TIMEOUT,
+    ranks=None,
 ) -> CommunicatorBase:
     """Create a communicator over every rank of the default process
-    group (started by :func:`init_distributed` here if it is not yet).
+    group (started by :func:`init_distributed` here if it is not yet),
+    or over ``ranks``.
 
     Args:
       communicator_name: ``"tpu_xla"`` (``torch.distributed``: NCCL on
@@ -137,6 +150,17 @@ def create_communicator(
         default group's backend must match it: NCCL for CUDA, gloo for
         the CPU.
       batched_copy: accepted for parity; the fused exchange always packs.
+      ranks: the global ranks of the new communicator, in rank order
+        (the JAX factory's ``devices=``).  Its two groups are new ones.
+        EVERY rank of the launch calls this, in the same order; a rank
+        outside ``ranks`` gets ``None`` (it only counts the groups, with
+        no store traffic and no wait).  A group built with
+        ``use_local_synchronization=True``, which only its members
+        create, is named by its ranks and the count of groups the
+        process holds; once a group is destroyed that name comes round
+        again, its rendezvous keys are still on the store, and the next
+        group of the same name hangs.  The launch-wide count names each
+        group once.
     """
     name = communicator_name
     if name in _LEGACY_ALIASES:
@@ -162,6 +186,20 @@ def create_communicator(
             f"init_distributed(device={dev.type!r})")
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
+    if ranks is not None:
+        ranks = [int(r) for r in ranks]
+        if not ranks:
+            raise ValueError("create_communicator(ranks=[]): no rank")
+        kw = dict(timeout=timeout)
+        if ranks != sorted(ranks):
+            kw["sort_ranks"] = False
+        group = dist.new_group(ranks, backend=want, **kw)
+        obj_group = dist.new_group(ranks, backend="gloo", **kw)
+        if dist.get_rank() not in ranks:
+            return None
+        return TorchDistCommunicator(
+            group, obj_group, ranks, dev, grad_dtype=allreduce_grad_dtype,
+            timeout=timeout, store=_STORE)
     obj_group = dist.new_group(backend="gloo", timeout=timeout)
     return TorchDistCommunicator(
         dist.group.WORLD, obj_group, list(range(dist.get_world_size())),

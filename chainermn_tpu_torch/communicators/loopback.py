@@ -12,6 +12,7 @@ import torch
 
 from chainermn_tpu_torch._device import resolve_device
 
+from ._obj_channel import KVObjectChannel
 from .base import CommunicatorBase, check_perm
 
 _REDUCE_OPS = ("sum", "mean", "max", "min", "prod")
@@ -23,6 +24,9 @@ class LoopbackCommunicator(CommunicatorBase):
         self._queue: list = []
         self.n_collectives = 0      # none is ever issued
         self.store = None           # no world, no key-value store
+        # fenced like a world's (ElasticMembership.fence); never carries
+        # a message here
+        self._obj_channel = KVObjectChannel(tag="cmnobj/loopback")
 
     size = property(lambda self: 1)
     rank = property(lambda self: 0)
@@ -33,6 +37,9 @@ class LoopbackCommunicator(CommunicatorBase):
 
     def split(self, color: int, key: int) -> "LoopbackCommunicator":
         return self
+
+    def close(self) -> None:
+        """No group to destroy."""
 
     def _stacked(self, x, what):
         if x.shape[:1] != (1,):

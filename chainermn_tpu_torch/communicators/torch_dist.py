@@ -18,7 +18,13 @@ and its autotuner (ROADMAP Queue A item 10).
 ``n_collectives`` counts the tensor collectives this communicator
 issued, so a caller can count the all-reduces of one gradient exchange.
 ``store`` is the world's key-value store when ``init_distributed``
-started the world (the training watchdog's heartbeats go there).
+started the world (the training watchdog's heartbeats go there), and
+``_obj_channel`` a :class:`~chainermn_tpu_torch.communicators.
+_obj_channel.KVObjectChannel` over it, the JAX communicators'
+attribute, which an elastic membership fences to its epoch; the
+``*_obj`` collectives stay on the communicator's own gloo group, new
+for each communicator.  :meth:`close` destroys the two groups (the
+default group excepted) once a live resize has moved off them.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch.utils._pytree as pytree
 
 from chainermn_tpu_torch.ops import fused as _fused
 
+from ._obj_channel import KVObjectChannel
 from .base import CommunicatorBase, check_perm, tree_reduce
 
 _REDUCE_OPS = ("sum", "mean", "max", "min", "prod")
@@ -67,6 +74,12 @@ class TorchDistCommunicator(CommunicatorBase):
         self._timeout = timeout
         self.n_collectives = 0
         self._rank = dist.get_rank(group)
+        # the members name a group alike (it is their rendezvous), so
+        # the name tags the channel's keys
+        self._obj_channel = KVObjectChannel(
+            tag=f"cmnobj/{getattr(obj_group, 'group_name', 'world')}",
+            store=store)
+        self.closed = False
         # node layout: every member's host, in rank order
         hosts = self.allgather_obj(socket.gethostname())
         nodes = sorted(set(hosts), key=hosts.index)
@@ -109,6 +122,27 @@ class TorchDistCommunicator(CommunicatorBase):
         return TorchDistCommunicator(group, obj_group, ranks, self._device,
                                      self._grad_dtype, self._timeout,
                                      self.store)
+
+    def close(self) -> None:
+        """Destroy this communicator's groups — its tensor group (unless
+        it is the default group) and its object group — and those of
+        its :meth:`hierarchy`.  Every member calls it, after the last
+        collective on them; a second call does nothing.  Without it
+        every live resize would leave an NCCL communicator and its
+        buffers behind."""
+        if self.closed:
+            return
+        self.closed = True
+        sub = getattr(self, "_hierarchy", None)
+        if sub is not None:
+            for c in sub:
+                if c is not self:
+                    c.close()
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        for g in (self._group, self._obj_group):
+            if g is not dist.group.WORLD:
+                dist.destroy_process_group(g)
 
     # -- tensor collectives -------------------------------------------- #
 

@@ -14,11 +14,15 @@ package's ``extensions/``; ChainerMN's layer L5):
 - :func:`add_global_except_hook`: one rank's uncaught exception ends
   the whole job.
 - :class:`TrainingWatchdog`: stall reports from step heartbeats, across
-  ranks through the world's store.
+  ranks through the world's store, with the flight recorder's tail and
+  the merged metrics.
+- :class:`MetricsTextfile` / :class:`MetricsExport`: the metrics
+  registry as a Prometheus textfile, and ``trainer.observation`` as a
+  JSONL series (defined in :mod:`chainermn_tpu_torch.utils.metrics` and
+  :mod:`~chainermn_tpu_torch.utils.telemetry`).
 
-Not ported: ``GoodputReport``, ``MetricsTextfile``, ``MetricsExport``
-and ``StragglerReport`` (the observability plane, ROADMAP Queue A item
-10).
+Not ported, raising: ``GoodputReport`` and ``StragglerReport``, which
+read the updater's step phases (ROADMAP Queue A item 10).
 """
 
 from chainermn_tpu_torch.extensions.allreduce_persistent import (
@@ -43,13 +47,19 @@ from chainermn_tpu_torch.extensions.snapshot import (
     multi_node_snapshot,
 )
 from chainermn_tpu_torch.extensions.watchdog import TrainingWatchdog
+from chainermn_tpu_torch.utils.metrics import GoodputReport, MetricsTextfile
+from chainermn_tpu_torch.utils.telemetry import MetricsExport, StragglerReport
 
 __all__ = [
     "AllreducePersistentValues",
     "FailOnNonNumber",
+    "GoodputReport",
+    "MetricsExport",
+    "MetricsTextfile",
     "MultiNodeCheckpointer",
     "ObservationAggregator",
     "PreemptionCheckpointer",
+    "StragglerReport",
     "TrainingWatchdog",
     "add_global_except_hook",
     "create_multi_node_checkpointer",

@@ -48,5 +48,10 @@ class AllreducePersistentValues:
                 state)
         self._set(updater, state)
 
+    def rebind_world(self, comm) -> None:
+        """Follow a live resize: average over the new world (``None``:
+        this rank is parked)."""
+        self.comm = comm
+
     def __call__(self, trainer) -> None:
         self.allreduce_persistent(trainer.updater)

@@ -52,9 +52,15 @@ copy's time on the main thread (measured in ``chip_smoke.py`` phase 9);
 a copy on a side stream ordered by ``wait_stream`` would hide it, at the
 price of a buffer the next step may not touch until an event says so.
 
-Not ported, raising: ``rebind_world`` (the live resize, ROADMAP Queue A
-item 11).  Not ported, and absent: the metrics counters and telemetry
-spans (item 10).
+``rebind_world(comm)`` follows a live resize: a write in flight is
+joined and agreed under the OLD communicator, and later saves stamp and
+write the new world's set (``rebind_world(None)``: the rank left its
+world, parked, and runs no collective of it again).
+
+Recordings, the JAX package's: the ``checkpoint/save_shard`` and
+``checkpoint/resume`` spans, and the counters
+``checkpoint/snapshots_written`` (after a write lands: at the async
+path's join) and ``checkpoint/quarantined``.
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from chainermn_tpu_torch.training.elastic import (
     stack_rank_states,
     topology_signature,
 )
+from chainermn_tpu_torch.utils.metrics import get_registry
 from chainermn_tpu_torch.utils.serialization import (
     ShardSetError,
     SnapshotCorruptError,
@@ -91,6 +98,7 @@ from chainermn_tpu_torch.utils.serialization import (
     tree_flatten,
     tree_unflatten,
 )
+from chainermn_tpu_torch.utils.telemetry import get_recorder
 
 _LOG = logging.getLogger(__name__)
 
@@ -102,12 +110,6 @@ __all__ = ["MultiNodeCheckpointer", "create_multi_node_checkpointer"]
 _FILE_RE = re.compile(
     r"^(?P<name>.+)_iter_(?P<iter>\d+)\."
     r"(?:(?P<rank>\d+)|s(?P<member>\d+)of(?P<world>\d+))$")
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"MultiNodeCheckpointer {what} is not ported to chainermn_tpu_torch "
-        "yet (the live resize, ROADMAP Queue A item 11)")
 
 
 def _snapshot_filename(name: str, iteration: int, rank: int) -> str:
@@ -271,6 +273,7 @@ class MultiNodeCheckpointer:
             n += 1
             q = f"{path}.corrupt{n}"
         os.replace(path, q)
+        get_registry().inc("checkpoint/quarantined")
         return q
 
     def _checked_file(self, path: str, owner: int):
@@ -394,19 +397,26 @@ class MultiNodeCheckpointer:
 
     def save(self, updater, trainer=None) -> None:
         it = int(updater.iteration)
-        topology = self._topology(updater)
-        # the signature rides __meta__, not the tree
-        jobs = self._set_jobs(updater_state(updater, trainer), it, topology)
-        if self.async_write:
-            self._save_async(jobs, it, topology)
-            return
-        for path, tree, part in jobs:
-            self._write_part(path, tree, topology, part)
-        self._saved_iterations.add(it)
-        # every rank's file of this iteration exists before older sets
-        # go
-        self.comm.barrier()
-        self._cleanup(keep=it)
+        with get_recorder().span("checkpoint/save_shard", cat="checkpoint",
+                                 step=it, async_write=self.async_write):
+            topology = self._topology(updater)
+            # the signature rides __meta__, not the tree
+            jobs = self._set_jobs(updater_state(updater, trainer), it,
+                                  topology)
+            if self.async_write:
+                # counted at the join, where a failed write surfaces
+                self._save_async(jobs, it, topology)
+                return
+            for path, tree, part in jobs:
+                self._write_part(path, tree, topology, part)
+            # counted once the write landed: a scraper diffs it against
+            # the sets on disk
+            get_registry().inc("checkpoint/snapshots_written")
+            self._saved_iterations.add(it)
+            # every rank's file of this iteration exists before older
+            # sets go
+            self.comm.barrier()
+            self._cleanup(keep=it)
 
     def _set_jobs(self, state, it: int, topology) -> List[tuple]:
         """The files this rank owes for one save, as ``(path, tree,
@@ -507,6 +517,7 @@ class MultiNodeCheckpointer:
             raise RuntimeError(
                 f"async checkpoint write of iteration {it} failed"
             ) from box["error"]
+        get_registry().inc("checkpoint/snapshots_written")
         self._saved_iterations.add(it)
         if barrier_and_gc:
             self.comm.barrier()
@@ -574,6 +585,10 @@ class MultiNodeCheckpointer:
         load is the verification); a damaged newest set falls back to
         the next, and what was skipped is logged.  Returns the resumed
         iteration, or ``None`` when there is nothing to resume."""
+        with get_recorder().span("checkpoint/resume", cat="checkpoint"):
+            return self._maybe_load(updater, trainer)
+
+    def _maybe_load(self, updater, trainer) -> Optional[int]:
         self._join_pending(barrier_and_gc=True)
         cur_topo = self._topology(updater)
         skipped: List[int] = []
@@ -646,13 +661,26 @@ class MultiNodeCheckpointer:
         return it
 
     def rebind_world(self, comm) -> None:
-        """Not ported: follow a live resize onto a new communicator."""
-        raise _not_ported("rebind_world")
+        """Follow a live resize (``ResizeController`` calls it on every
+        extension that has it): a write in flight is joined and agreed
+        complete under the OLD communicator first (its barrier belongs to
+        the world that started it; every old rank reaches the resize's
+        boundary), then later saves stamp the new world's topology and
+        write its set.  ``comm=None``: this rank left its world (parked)
+        and runs none of its collectives again.  Idempotent for the
+        communicator already bound."""
+        if comm is self.comm:
+            return
+        if self.comm is not None:
+            self._join_pending(barrier_and_gc=True)
+        self._host_bufs = [None, None]
+        self.comm = comm
 
     def finalize(self, trainer=None) -> None:
         # while an exception unwinds (Trainer.run's finally) peers may be
-        # dead: join the write for durability, but run no collective
-        crashing = sys.exc_info()[0] is not None
+        # dead: join the write for durability, but run no collective;
+        # nor does a rank parked outside the world (comm None)
+        crashing = sys.exc_info()[0] is not None or self.comm is None
         self._join_pending(barrier_and_gc=not crashing)
         if not crashing:
             self.comm.barrier()

@@ -10,8 +10,9 @@ that makes ``torchrun``'s agent tear the other ranks down.  It does not
 call ``destroy_process_group()``, which can block behind a peer stuck in
 a collective.  In a one-rank world it defers to the previous hook.
 
-Not ported: the flight recorder's timeline in the crash dump (ROADMAP
-Queue A item 10); the dump holds the threads' stacks.
+Beside the stacks, an enabled flight recorder's ring is dumped as a
+Chrome trace (``trace_crash.rank<r>.json``, the JAX package's
+``_dump_trace``): the timeline of the seconds before the crash.
 """
 
 from __future__ import annotations
@@ -20,8 +21,11 @@ import faulthandler
 import os
 import sys
 import traceback
+from typing import Optional
 
 import torch.distributed as dist
+
+from chainermn_tpu_torch.utils.telemetry import get_recorder
 
 __all__ = ["add_global_except_hook"]
 
@@ -37,16 +41,35 @@ def _world():
     return 0, 1
 
 
-def _dump_trace(rank: int) -> str:
-    """Every thread's stack, as ``faulthandler`` prints it, into
-    ``trace_crash.rank<r>.txt`` under the trace directory (env
-    ``CHAINERMN_TPU_TRACE_DIR``, else the one ``add_global_except_hook``
-    was given, else the working directory)."""
+def _trace_out_dir() -> str:
+    """The crash dump's directory (env ``CHAINERMN_TPU_TRACE_DIR``,
+    else the one ``add_global_except_hook`` was given, else the working
+    directory), made if missing."""
     out_dir = os.environ.get("CHAINERMN_TPU_TRACE_DIR", _trace_dir)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"trace_crash.rank{rank}.txt")
+    return out_dir
+
+
+def _dump_stacks(rank: int) -> str:
+    """Every thread's stack, as ``faulthandler`` prints it, into
+    ``trace_crash.rank<r>.txt`` under the trace directory."""
+    path = os.path.join(_trace_out_dir(), f"trace_crash.rank{rank}.txt")
     with open(path, "w") as f:
         faulthandler.dump_traceback(file=f, all_threads=True)
+    return path
+
+
+def _dump_trace(rank: int) -> Optional[str]:
+    """The flight recorder's ring as a Chrome trace,
+    ``trace_crash.rank<r>.json`` under the trace directory; nothing when
+    tracing is off or the ring is empty."""
+    recorder = get_recorder()
+    if not recorder.enabled or not len(recorder):
+        return None
+    path = os.path.join(_trace_out_dir(), f"trace_crash.rank{rank}.json")
+    recorder.export_chrome(path)
+    sys.stderr.write(f"[chainermn_tpu_torch] flight-recorder trace dumped "
+                     f"to {path} (load at https://ui.perfetto.dev)\n")
     return path
 
 
@@ -59,6 +82,7 @@ def _make_hook(prev_hook):
                              "(global except hook):\n")
             traceback.print_exception(
                 exc_type, exc_value, exc_traceback, file=sys.stderr)
+            _dump_trace(rank)
             prev_hook(exc_type, exc_value, exc_traceback)
             return
         try:
@@ -67,9 +91,10 @@ def _make_hook(prev_hook):
                 "the whole job (global except hook):\n")
             traceback.print_exception(
                 exc_type, exc_value, exc_traceback, file=sys.stderr)
-            path = _dump_trace(rank)
+            path = _dump_stacks(rank)
             sys.stderr.write(f"[chainermn_tpu_torch] rank {rank}: every "
                              f"thread's stack dumped to {path}\n")
+            _dump_trace(rank)
             sys.stderr.flush()
         finally:
             os._exit(1)     # MPI_Abort: no cleanup, no hang

@@ -41,6 +41,11 @@ class ObservationAggregator:
             vals = [d[k] for d in gathered if k in d]
             trainer.observation[k] = sum(vals) / len(vals)
 
+    def rebind_world(self, comm) -> None:
+        """Follow a live resize: average over the new world (``None``:
+        this rank is parked and observes nothing)."""
+        self.comm = comm
+
     def __call__(self, trainer) -> None:
         # the work is done in observe(); the triggered call does nothing
         pass

@@ -13,8 +13,13 @@ ChainerMN's lost everything since its last periodic snapshot.
   and every rank saves the same iteration.
 - Then the trainer stops cleanly (``trainer.stop()``): ``finalize``
   joins an async write and restores the previous handlers.
-
-Not ported: ``membership=`` (elastic relaunch, ROADMAP Queue A item 11).
+- With ``membership=`` (an
+  :class:`~chainermn_tpu_torch.training.elastic.ElasticMembership`) the
+  stop is recorded after the save (``note_stop``), so the relaunch, at
+  whatever world size it gets, agrees a new epoch before it touches the
+  snapshots.
+- ``rebind_world(comm)`` follows a live resize: the flag's OR and the
+  wrapped checkpointer's saves run on the new world.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ class PreemptionCheckpointer:
         handlers are chained, and restored at ``finalize``.
       check_interval: look at the flag every N iterations (every rank
         on the same calls).
+      membership: an ``ElasticMembership`` whose ``note_stop`` records
+        the stop after the collective save.
     """
 
     trigger = (1, "iteration")
@@ -49,13 +56,12 @@ class PreemptionCheckpointer:
     def __init__(self, checkpointer, comm=None,
                  signals: Sequence[int] = (signal.SIGTERM,),
                  check_interval: int = 1, membership=None):
-        if membership is not None:
-            raise NotImplementedError(
-                "PreemptionCheckpointer(membership=...) is not ported to "
-                "chainermn_tpu_torch yet (elastic training, ROADMAP Queue "
-                "A item 11)")
         self.checkpointer = checkpointer
         self.comm = comm
+        self.membership = membership
+        # a flag OR'd over a communicator follows the world; one checked
+        # locally (comm None) stays local
+        self._follows_world = comm is not None
         self.signaled = False
         self._signals = tuple(signals)
         self._prev_handlers = {}
@@ -94,10 +100,12 @@ class PreemptionCheckpointer:
         self._install()
 
     def rebind_world(self, comm) -> None:
-        raise NotImplementedError(
-            "PreemptionCheckpointer.rebind_world is not ported to "
-            "chainermn_tpu_torch yet (elastic training, ROADMAP Queue A "
-            "item 11)")
+        """Follow a live resize (``ResizeController`` calls it): the
+        flag's OR and the wrapped checkpointer's saves run on the new
+        world's communicator (``None``: this rank is parked)."""
+        if self._follows_world:
+            self.comm = comm
+        self.checkpointer.rebind_world(comm)
 
     def _global_flag(self) -> bool:
         if self.comm is None or self.comm.size <= 1:
@@ -114,6 +122,10 @@ class PreemptionCheckpointer:
             return
         it = trainer.updater.iteration
         self.checkpointer.save(trainer.updater, trainer)
+        if self.membership is not None:
+            # the durable record of this stop makes the relaunch's
+            # agree() bump the epoch past this incarnation
+            self.membership.note_stop(reason="preemption", iteration=it)
         trainer.stop(f"preemption signal received; checkpoint saved at "
                      f"iteration {it}")
 

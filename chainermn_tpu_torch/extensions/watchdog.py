@@ -31,15 +31,28 @@ every peer stalled (the report names the error under
 ``store_unreachable``), the store is not probed again, and the local
 check runs on.
 
-Not ported (ROADMAP Queue A item 10): the report's flight-recorder tail,
-merged metrics and alert state; the report names them under
-``not_ported``.
+The report carries the flight recorder's newest events
+(``trace_tail``, ``trace_tail_events`` of them; empty when tracing is
+off): what this process did in the seconds before the stall, beside the
+stacks that show where it is stuck now.  Each heartbeat is an instant
+event (``watchdog/heartbeat``) and a ``watchdog/heartbeats`` count; a
+report counts ``watchdog/stalls``.  With an enabled metrics registry on
+a world of several ranks, every rank publishes its snapshot on the store
+at most every ``metrics_publish_interval`` seconds
+(``watchdog/metrics/<rank>``), and the report embeds the merge of the
+local registry with the peers' last snapshots (``metrics``, and as
+Prometheus text ``metrics_prom``), computed with no collective: a hung
+job cannot run one.
+
+Not ported (ROADMAP Queue A item 10): the burn-rate alerts' state; the
+report names it under ``not_ported``.
 """
 
 from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import os
 import sys
 import threading
@@ -49,12 +62,19 @@ from typing import Callable, Optional
 
 import torch.distributed as dist
 
+from chainermn_tpu_torch.communicators._obj_channel import kv_get_json
+from chainermn_tpu_torch.utils.metrics import (
+    MetricsRegistry,
+    get_registry,
+    to_prometheus,
+)
+from chainermn_tpu_torch.utils.telemetry import get_recorder
+
 __all__ = ["TrainingWatchdog"]
 
 _KV_PREFIX = "watchdog/hb"
+_KV_METRICS_PREFIX = "watchdog/metrics"
 _NOT_PORTED = {
-    "trace_tail": "the flight recorder, ROADMAP Queue A item 10",
-    "metrics": "the merged metrics registry, ROADMAP Queue A item 10",
     "alerts": "the burn-rate alerts, ROADMAP Queue A item 10",
 }
 
@@ -85,6 +105,10 @@ class TrainingWatchdog:
       report_path: where the JSON report goes (default
         ``<trainer.out>/stall_report.json``, or the working directory).
       exit_code: the escalation's exit status.
+      trace_tail_events: how many flight-recorder events the report
+        embeds (``trace_tail``).
+      metrics_publish_interval: the least seconds between two store
+        publications of this rank's metrics snapshot.
     """
 
     trigger = (1, "iteration")
@@ -97,7 +121,9 @@ class TrainingWatchdog:
                  comm=None, escalate: bool = False,
                  on_stall: Optional[Callable[[dict], None]] = None,
                  report_path: Optional[str] = None,
-                 exit_code: int = 42):
+                 exit_code: int = 42,
+                 trace_tail_events: int = 64,
+                 metrics_publish_interval: float = 2.0):
         if stall_timeout <= 0:
             raise ValueError("stall_timeout must be > 0")
         self.stall_timeout = float(stall_timeout)
@@ -110,6 +136,9 @@ class TrainingWatchdog:
         self.on_stall = on_stall
         self.report_path = report_path
         self.exit_code = exit_code
+        self.trace_tail_events = int(trace_tail_events)
+        self.metrics_publish_interval = float(metrics_publish_interval)
+        self._metrics_published_m = None
         self.stall_count = 0          # reports fired
         self.last_report: Optional[dict] = None
         self._beats = 0
@@ -121,6 +150,7 @@ class TrainingWatchdog:
         self._reported_peers: set = set()
         self._peer_seen: dict = {}    # rank -> (beats, monotonic seen)
         self._store_error: Optional[str] = None   # the store is gone
+        self._was_running = False     # stopped while parked (rebind)
         self._started_m = None
 
     # ------------------------------------------------------------------ #
@@ -144,6 +174,44 @@ class TrainingWatchdog:
         if kv is not None:
             kv.set(f"{_KV_PREFIX}/{self._rank}",
                    f"{self._beats},{time.time()}")
+
+    def _publish_metrics(self) -> None:
+        """This rank's registry snapshot on the store, at most every
+        ``metrics_publish_interval`` seconds (a world of several ranks
+        with an enabled registry only), so a peer's stall report can
+        merge it."""
+        kv = self._kv
+        reg = get_registry()
+        if kv is None or not reg.enabled:
+            return
+        now_m = time.monotonic()
+        if self._metrics_published_m is not None and \
+                now_m - self._metrics_published_m \
+                < self.metrics_publish_interval:
+            return
+        self._metrics_published_m = now_m
+        kv.set(f"{_KV_METRICS_PREFIX}/{self._rank}",
+               json.dumps(reg.snapshot(), default=float))
+
+    def _merged_metrics(self) -> dict:
+        """The local registry's snapshot folded with every peer's last
+        published one, with no collective (a hung job cannot run one);
+        an unreachable store leaves the local snapshot."""
+        merged = MetricsRegistry(enabled=True)
+        merged.load(get_registry().snapshot())
+        kv = self._kv
+        if kv is None or self._store_error is not None:
+            return merged.snapshot()
+        for rank in range(self.comm.size):
+            if rank == self._rank:
+                continue          # the local registry is fresher
+            try:
+                snap = kv_get_json(kv, f"{_KV_METRICS_PREFIX}/{rank}")
+            except dist.DistError:
+                break
+            if isinstance(snap, dict):
+                merged.load(snap)
+        return merged.snapshot()
 
     def _peer_beats(self, kv) -> dict:
         """``{rank: beat count, or None if never published}`` of every
@@ -198,7 +266,30 @@ class TrainingWatchdog:
         self._iteration = iteration
         self._last_beat = time.monotonic()
         self._reported_current_stall = False
+        get_recorder().instant("watchdog/heartbeat", cat="watchdog",
+                               step=iteration, beats=self._beats)
+        get_registry().inc("watchdog/heartbeats")
         self._publish_beat()
+        self._publish_metrics()
+
+    def rebind_world(self, comm) -> None:
+        """Follow a live resize.  ``None``: this rank is parked and
+        beats no heartbeat, so the monitor stops (a parked rank is not a
+        stall).  A communicator: the peers are the new world's; the
+        monitor restarts, armed again at the next heartbeat."""
+        running = self._thread is not None or self._was_running
+        self.stop()
+        self._last_beat = None
+        self._peer_seen.clear()
+        self._reported_peers.clear()
+        self._was_running = running and comm is None
+        if comm is None:
+            return
+        if self.comm is not None:
+            self.comm = comm
+        if running:
+            self._started_m = time.monotonic()
+            self.start()
 
     def start(self) -> None:
         if self._thread is not None and self._thread.is_alive():
@@ -249,11 +340,15 @@ class TrainingWatchdog:
             # a peer-only report leaves the local episode armed
             self._reported_current_stall = True
         self.stall_count += 1
+        get_registry().inc("watchdog/stalls")
+        recorder = get_recorder()
+        metrics = self._merged_metrics()
         report = {
             "ts": time.strftime("%Y-%m-%dT%H:%M:%S"),
             "rank": self._rank,
             "kind": "local-stall" if local_stall else "peer-stall",
-            "seconds_since_heartbeat": round(stalled_s, 3),
+            # rounded up to the ms: never below the threshold it crossed
+            "seconds_since_heartbeat": math.ceil(stalled_s * 1e3) / 1e3,
             "stall_timeout_s": self.stall_timeout,
             "iteration": self._iteration,
             "beats": self._beats,
@@ -263,12 +358,20 @@ class TrainingWatchdog:
             "stalled_peers": stalled_peers,
             "threads": _thread_stacks(),
             "escalating": bool(self.escalate and local_stall),
+            # what this process did before the beats stopped
+            "trace_tail": recorder.tail(self.trace_tail_events),
+            "trace_enabled": recorder.enabled,
+            # the job's last metrics, merged over the ranks' snapshots
+            "metrics": metrics,
+            "metrics_prom": to_prometheus(metrics,
+                                          labels={"rank": "merged"}),
+            "metrics_enabled": get_registry().enabled,
             "not_ported": dict(_NOT_PORTED),
         }
         self.last_report = report
         path = self.report_path or "stall_report.json"
         with open(path, "w") as f:
-            json.dump(report, f, indent=1)
+            json.dump(report, f, indent=1, default=str)
         sys.stderr.write(
             f"\n[chainermn_tpu_torch watchdog] rank {self._rank}: "
             f"{report['kind']}: no step-boundary heartbeat for "

@@ -10,7 +10,10 @@ work over processes: a port process is one rank.
 
 In the port each rank iterates its own shard (``scatter_dataset``), so
 its batch size is the *local* batch: the JAX package's global
-``batch_size`` divided by ``comm.size``.
+``batch_size`` divided by ``comm.size``.  The global-batch feed is the
+JAX package's model instead: every rank iterates the same stream of
+global batches and :class:`GlobalBatchConverter` takes its rows, so
+the stream's position survives a live resize.
 
 The prefetching feed (:class:`PrefetchIterator`,
 :class:`StagingConverter`) is in :mod:`.prefetch`; the C++ batch loader
@@ -23,7 +26,12 @@ from typing import Optional
 
 import numpy as np
 
-from ._convert import apply_batch_policy, default_converter, local_rows
+from ._convert import (
+    GlobalBatchConverter,
+    apply_batch_policy,
+    default_converter,
+    local_rows,
+)
 from .prefetch import (
     DeviceWindow,
     PrefetchIterator,
@@ -34,6 +42,7 @@ from .prefetch import (
 
 __all__ = [
     "DeviceWindow",
+    "GlobalBatchConverter",
     "PrefetchIterator",
     "SerialIterator",
     "StagingConverter",

@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["apply_batch_policy", "default_converter", "local_rows"]
+__all__ = ["GlobalBatchConverter", "apply_batch_policy",
+           "default_converter", "local_rows"]
 
 
 def default_converter(batch):
@@ -64,3 +65,25 @@ def local_rows(arrays, rank: int, world_size: int):
     package's batch sharding gives device ``rank``."""
     b = arrays[0].shape[0] // world_size
     return tuple(a[rank * b:(rank + 1) * b] for a in arrays)
+
+
+class GlobalBatchConverter:
+    """The global-batch feed's converter: every rank iterates the same
+    seeded stream of global batches, and this takes the rank's rows
+    (:func:`default_converter`, :func:`apply_batch_policy`, then
+    :func:`local_rows`) with the rank and world read from ``comm`` when
+    it is called — the JAX package's model, where one stream's batch is
+    sharded over the mesh.  So the stream's position is the same on
+    every rank and survives a live resize: ``StandardUpdater.rebind_world``
+    re-points ``comm``.  The split policy is the updater's
+    ``drop_remainder``, handed over when the updater adopts this
+    converter."""
+
+    def __init__(self, comm):
+        self.comm = comm
+        self.drop_remainder = True
+
+    def __call__(self, batch):
+        arrays = apply_batch_policy(default_converter(batch), self.comm.size,
+                                    self.drop_remainder)
+        return local_rows(arrays, self.comm.rank, self.comm.size)

@@ -7,11 +7,9 @@ fallback, SIGTERM → save and stop, a stalled rank → watchdog, NaN →
 abort) is driven by a fault scripted by iteration number, not by
 luck.
 
-Not ported, each raising: the live resize (``resize_live_at_iteration``,
-``FaultInjector(resize_controller=)``; ROADMAP Queue A item 11) and the
-serving and fleet faults (``serve_*``, ``fleet_*``,
-:meth:`FaultInjector.attach_engine`, :meth:`FaultInjector.attach_fleet`;
-serving, item 12).
+Not ported, each raising: the serving and fleet faults (``serve_*``,
+``fleet_*``, :meth:`FaultInjector.attach_engine`,
+:meth:`FaultInjector.attach_fleet`; serving, ROADMAP Queue A item 12).
 """
 
 from __future__ import annotations
@@ -71,7 +69,6 @@ def corrupt_file(path: str, n_bytes: int = 8, offset: Optional[int] = None,
     return positions
 
 
-_ELASTIC_FIELDS = ("resize_live_at_iteration",)
 _SERVING_FIELDS = ("serve_delay_at_round", "serve_raise_at_round",
                    "serve_exhaust_pool_at_admit", "fleet_kill_at_step",
                    "fleet_slow_at_step", "fleet_flap_at_step")
@@ -100,10 +97,15 @@ class FaultPlan:
       save through the injector's ``checkpointer`` (topology stamped),
       record that the relaunch runs at world ``resize_to`` and stop the
       trainer; the driver relaunches at that world and resumes through
-      an ``elastic=True`` checkpointer.
+      an ``elastic=True`` checkpointer;
+    - ``resize_live_at_iteration`` + ``resize_live_to``: the LIVE
+      resize drill: arm the injector's ``resize_controller``
+      (``training.elastic.ResizeController``) at that boundary; the
+      controller (priority 0, after the injector's 1) resizes at the end
+      of the same tick, and training goes on in the same processes.
 
-    The live-resize, serving and fleet fields exist so a JAX-package
-    plan reads here; setting one raises."""
+    The serving and fleet fields exist so a JAX-package plan reads here;
+    setting one raises."""
 
     kill_at_iteration: Optional[int] = None
     sigterm_at_iteration: Optional[int] = None
@@ -138,11 +140,6 @@ class FaultPlan:
     seed: int = 0
 
     def __post_init__(self):
-        for f in _ELASTIC_FIELDS:
-            if getattr(self, f) is not None:
-                raise NotImplementedError(
-                    f"FaultPlan.{f} is not ported to chainermn_tpu_torch "
-                    "yet (the live resize, ROADMAP Queue A item 11)")
         for f in _SERVING_FIELDS:
             if getattr(self, f) is not None:
                 raise NotImplementedError(
@@ -170,14 +167,10 @@ class FaultInjector:
 
     def __init__(self, plan: FaultPlan, comm=None, checkpointer=None,
                  resize_controller=None):
-        if resize_controller is not None:
-            raise NotImplementedError(
-                "FaultInjector(resize_controller=...) is not ported to "
-                "chainermn_tpu_torch yet (the live resize, ROADMAP Queue "
-                "A item 11)")
         self.plan = plan
         self.comm = comm
         self.checkpointer = checkpointer
+        self.resize_controller = resize_controller
         self.fired: list = []
         if checkpointer is not None \
                 and plan.save_stall_after_files is not None:
@@ -219,6 +212,15 @@ class FaultInjector:
             corrupt_file(plan.corrupt_path, plan.corrupt_n_bytes,
                          seed=plan.seed)
             self.fired.append(("corrupt", it))
+        if plan.resize_live_at_iteration == it:
+            if self.resize_controller is None:
+                raise RuntimeError(
+                    "FaultPlan.resize_live_at_iteration needs "
+                    "FaultInjector(resize_controller=...) — the live "
+                    "resize is performed by a ResizeController "
+                    "extension on the same tick")
+            self.resize_controller.request(plan.resize_live_to)
+            self.fired.append(("resize_live", it, plan.resize_live_to))
         if plan.resize_at_iteration == it:
             if self.checkpointer is None:
                 raise RuntimeError(

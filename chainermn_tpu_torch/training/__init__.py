@@ -1,6 +1,17 @@
 """Optimizers, the multi-node optimizer, and ChainerMN's training loop:
 updater, trainer, triggers and evaluators."""
 
+from .elastic import (
+    ElasticMembership,
+    MembershipRecord,
+    RelayoutError,
+    ResizeController,
+    StaleGenerationError,
+    post_resize_intent,
+    relayout_state,
+    same_topology,
+    topology_signature,
+)
 from .evaluators import (
     Evaluator,
     GenericMultiNodeEvaluator,
@@ -33,12 +44,17 @@ from .triggers import IntervalTrigger, get_trigger
 from .updater import StandardUpdater, fuse_steps
 
 __all__ = [
+    "ElasticMembership",
     "Evaluator",
     "GenericMultiNodeEvaluator",
     "IntervalTrigger",
     "LogReport",
+    "MembershipRecord",
     "MultiNodeState",
     "PrintReport",
+    "RelayoutError",
+    "ResizeController",
+    "StaleGenerationError",
     "StandardUpdater",
     "Trainer",
     "Zero1Transformation",
@@ -59,7 +75,11 @@ __all__ = [
     "make_extension",
     "map_state_moments",
     "optimizer_state_tree",
+    "post_resize_intent",
+    "relayout_state",
+    "same_topology",
     "sgd",
     "shard_opt_state",
+    "topology_signature",
     "zero1_init",
 ]

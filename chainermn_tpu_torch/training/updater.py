@@ -36,9 +36,18 @@ is.  ``max_inflight`` windows may be enqueued on the card before the
 oldest is waited for (its CUDA event), and the observed loss is then
 the retired window's.
 
+:meth:`StandardUpdater.rebind_world` moves the loop onto another
+world mid-run (the live resize's last step): the windows in flight are
+waited for and every captured window dropped (a CUDA graph baked the
+old group's NCCL calls), a prefetching feed is closed and re-wrapped
+over the new communicator with its converter, and a global-batch
+converter (:class:`~chainermn_tpu_torch.iterators.GlobalBatchConverter`)
+is re-pointed.  A per-rank shard feed re-slices when the world changes,
+so a change of world size with one raises.
+
 Not ported yet, each raising: ``exchange_probe_every`` and the
 telemetry hooks ``mark_steady``/``register_memory`` (ROADMAP Queue A
-item 10), and ``rebind_world`` (elastic training, item 11).
+item 10).
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ import torch.utils._pytree as pytree
 
 from chainermn_tpu_torch._device import resolve_device
 from chainermn_tpu_torch.iterators import (
+    GlobalBatchConverter,
     PrefetchIterator,
     StagingConverter,
     assemble_window,
@@ -219,8 +229,12 @@ class StandardUpdater:
       converter: batch → tuple of columns (arrays or tensors); each is
         moved to ``comm.device``.
       drop_remainder: the JAX package's policy for a global batch that
-        does not divide by the world size; every port rank is fed its
-        own batch, so no batch is split and nothing is dropped.
+        does not divide by the world size: drop the remainder rows, or
+        raise.  A per-rank feed gives each rank its own batch, so no
+        batch is split; the global-batch feed's
+        :class:`~chainermn_tpu_torch.iterators.GlobalBatchConverter`
+        splits each batch over the world and takes this policy from
+        the updater that adopts it.
       state: optional tree of non-trained tensors, broadcast like
         ``params`` and replaced by ``loss_fn``'s ``new_state`` each
         microbatch.
@@ -322,6 +336,9 @@ class StandardUpdater:
         self.comm = comm
         self.converter = converter
         self.drop_remainder = drop_remainder
+        conv = self._feed_converter()
+        if isinstance(conv, GlobalBatchConverter):
+            conv.drop_remainder = drop_remainder
         self.device = comm.device
 
         self.params = comm.bcast_data(params)
@@ -378,8 +395,79 @@ class StandardUpdater:
     def register_memory(self, accountant=None, prefix: str = "train"):
         raise _not_ported("register_memory (the memory accountant)", 10)
 
+    def _feed_converter(self):
+        """The converter the feed runs: the prefetcher's resolved one,
+        or the updater's."""
+        if isinstance(self.iterator, PrefetchIterator):
+            return self.iterator._converter
+        return self.converter
+
+    def check_world_change(self, world_size: int) -> None:
+        """Raise unless the feed can follow a live resize to
+        ``world_size``: a change of world size needs the global-batch
+        feed, whose stream every rank iterates (a per-rank shard feed
+        re-slices its dataset when the world changes)."""
+        if int(world_size) == int(self.comm.size) or isinstance(
+                self._feed_converter(), GlobalBatchConverter):
+            return
+        raise ValueError(
+            f"a live resize from world {self.comm.size} to {world_size} "
+            "needs the global-batch feed: every rank iterating the same "
+            "stream with converter=GlobalBatchConverter(comm) (the rows "
+            "of iterators.local_rows).  A per-rank shard feed "
+            "(scatter_dataset) re-slices when the world changes: resume "
+            "at the new world size from a checkpoint "
+            "(create_multi_node_checkpointer(..., elastic=True)) instead")
+
+    def drain(self) -> None:
+        """Wait for the windows in flight (their CUDA events) and drop
+        every captured window: its CUDA graph holds the world's NCCL
+        calls, so it must go before the world's groups do."""
+        for event, _ in self._inflight:
+            event.synchronize()
+        self._inflight.clear()
+        self._windows = {}
+
     def rebind_world(self, comm, optimizer) -> None:
-        raise _not_ported("rebind_world (elastic training)", 11)
+        """Re-bind the loop to a NEW communicator and optimizer mid-run
+        (the JAX package's ``rebind_world``; the live resize's
+        ``ResizeController`` calls it at the paused boundary).  The
+        windows in flight are drained and the captured ones dropped; a
+        prefetching feed is closed (its lookahead returned to the base
+        iterator) and re-wrapped over ``comm`` with the prefetcher's
+        resolved converter; a :class:`GlobalBatchConverter` is
+        re-pointed at ``comm``; ``opt_state`` is the new optimizer's
+        fresh state, into which the caller installs the re-laid one
+        (with the parameters, the model state and the train state).
+        A switch of sharding mode, or of world size with a per-rank
+        shard feed, raises."""
+        sharding = (
+            "zero2" if isinstance(optimizer, Zero2Transformation)
+            else "zero1" if isinstance(optimizer, Zero1Transformation)
+            else None)
+        if sharding != self.sharding:
+            raise ValueError(
+                f"rebind_world cannot switch sharding mode mid-run "
+                f"({self.sharding!r} -> {sharding!r}, zero1="
+                f"{sharding in ('zero1', 'zero2')}): the carried "
+                "optimizer state's layout would not match the new "
+                "transformation")
+        self.check_world_change(comm.size)
+        self.drain()
+        conv = self._feed_converter()
+        if isinstance(self.iterator, PrefetchIterator):
+            base, depth = self.iterator._base, self.iterator.depth
+            self.iterator.close()
+            self.iterator = PrefetchIterator(
+                base, comm, converter=conv,
+                steps_per_execution=self.window_steps, depth=depth,
+                drop_remainder=self.drop_remainder)
+        if isinstance(conv, GlobalBatchConverter):
+            conv.comm = comm
+        self.comm = comm
+        self.device = comm.device
+        self.optimizer = optimizer
+        self.opt_state = optimizer.init(self.params)
 
     def finalize(self):
         """Release the feed and the captured windows: a prefetching

@@ -41,8 +41,10 @@ takes a world-stacked leaf and cuts ``[lo, hi)`` from it, or a leaf
 that already holds just those rows (leading dim ``hi - lo``, or an
 ``fsdp`` dim of ``(hi - lo)/world`` of its recorded length).
 
-Not ported: the telemetry spans around a save and a load (ROADMAP Queue
-A item 10).
+The flight recorder (:mod:`~chainermn_tpu_torch.utils.telemetry`)
+times a save (``checkpoint/save``, with the leaf count and the bytes),
+a checked load (``checkpoint/load``) and an integrity walk
+(``checkpoint/crc_walk``), the JAX package's spans.
 """
 
 from __future__ import annotations
@@ -212,30 +214,36 @@ def save_state(path: str, pytree, topology=None, shard_part=None) -> None:
     :func:`~chainermn_tpu_torch.training.elastic.topology_signature`)
     and ``shard_part`` (:func:`build_shard_part`'s record) ride
     ``__meta__``, so a resume can read them without the leaves."""
-    leaves, treedef = tree_flatten(pytree)
-    payload, dtypes, crcs = {}, [], []
-    for i, leaf in enumerate(leaves):
-        arr, dtype = _host_array(leaf)
-        payload[f"leaf_{i:05d}"] = arr
-        dtypes.append(dtype)
-        crcs.append(_leaf_crc(arr))
-    meta = {"treedef": treedef, "dtypes": dtypes, "crcs": crcs,
-            "meta_crc_excluded": True}
-    if topology is not None:
-        meta["topology"] = topology
-    if shard_part is not None:
-        meta["shard_part"] = shard_part
-    meta_bytes = pickle.dumps(meta)
-    # the meta record guards itself: its CRC rides a separate array, so
-    # a flipped bit inside the pickle is a typed error
-    payload["__meta__"] = np.frombuffer(meta_bytes, dtype=np.uint8)
-    payload["__meta_crc__"] = np.asarray(
-        [zlib.crc32(meta_bytes) & 0xFFFFFFFF], dtype=np.uint64)
-    tmp = path + ".tmp"
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(tmp, "wb") as f:
-        np.savez(f, **payload)
-    os.replace(tmp, path)    # atomic on POSIX: no torn snapshots
+    from chainermn_tpu_torch.utils.telemetry import get_recorder
+
+    with get_recorder().span("checkpoint/save", cat="checkpoint",
+                             path=os.path.basename(path)) as sp:
+        leaves, treedef = tree_flatten(pytree)
+        payload, dtypes, crcs = {}, [], []
+        for i, leaf in enumerate(leaves):
+            arr, dtype = _host_array(leaf)
+            payload[f"leaf_{i:05d}"] = arr
+            dtypes.append(dtype)
+            crcs.append(_leaf_crc(arr))
+        meta = {"treedef": treedef, "dtypes": dtypes, "crcs": crcs,
+                "meta_crc_excluded": True}
+        if topology is not None:
+            meta["topology"] = topology
+        if shard_part is not None:
+            meta["shard_part"] = shard_part
+        meta_bytes = pickle.dumps(meta)
+        # the meta record guards itself: its CRC rides a separate array,
+        # so a flipped bit inside the pickle is a typed error
+        payload["__meta__"] = np.frombuffer(meta_bytes, dtype=np.uint8)
+        payload["__meta_crc__"] = np.asarray(
+            [zlib.crc32(meta_bytes) & 0xFFFFFFFF], dtype=np.uint64)
+        sp.set(n_leaves=len(leaves),
+               nbytes=int(sum(a.nbytes for a in payload.values())))
+        tmp = path + ".tmp"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)    # atomic on POSIX: no torn snapshots
 
 
 # --------------------------------------------------------------------- #
@@ -335,7 +343,11 @@ def verify_state(path: str) -> None:
     """Raise :class:`SnapshotCorruptError` unless ``path`` is a
     complete, checksum-clean snapshot; a missing file raises
     ``FileNotFoundError``.  Reads every leaf, builds no tree."""
-    with _open(path) as z:
+    from chainermn_tpu_torch.utils.telemetry import get_recorder
+
+    z = _open(path)
+    with get_recorder().span("checkpoint/crc_walk", cat="checkpoint",
+                             path=os.path.basename(path)), z:
         meta = _read_meta(z, path)
         for _ in _checked_leaves(z, meta, path):
             pass
@@ -371,10 +383,15 @@ def load_state_with_topology(path: str):
 def load_state_with_stamps(path: str):
     """``(tree, topology, shard_part)`` from one checked read
     (``shard_part`` ``None`` for a full snapshot)."""
-    with _open(path) as z:
+    from chainermn_tpu_torch.utils.telemetry import get_recorder
+
+    z = _open(path)
+    with get_recorder().span("checkpoint/load", cat="checkpoint",
+                             path=os.path.basename(path)) as sp, z:
         meta = _read_meta(z, path)
         leaves = [_typed(arr, meta["dtypes"][i])
                   for i, arr in _checked_leaves(z, meta, path)]
+        sp.set(n_leaves=len(leaves))
     return (tree_unflatten(meta["treedef"], leaves), meta.get("topology"),
             meta.get("shard_part"))
 

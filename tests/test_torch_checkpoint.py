@@ -386,14 +386,6 @@ def _unported():
 
     c = LoopbackCommunicator(device="cpu")
     return {
-        "rebind_world": (lambda: create_multi_node_checkpointer(
-            c, "x").rebind_world(c), 11),
-        "membership": (lambda: elastic.ElasticMembership(), 11),
-        "resize_controller": (lambda: elastic.ResizeController(), 11),
-        "plan_live_resize": (
-            lambda: FaultPlan(resize_live_at_iteration=3), 11),
-        "injector_resize": (lambda: FaultInjector(
-            FaultPlan(), resize_controller=object()), 11),
         "plan_serving": (lambda: FaultPlan(serve_raise_at_round=1), 12),
         "plan_fleet": (lambda: FaultPlan(fleet_kill_at_step=1), 12),
         "attach_engine": (

@@ -1121,6 +1121,86 @@ def test_cuda_shard_only_round_trip(nccl_comm, tmp_path):
                      training.optimizer_state_tree(up.opt_state))
 
 
+def _used_bytes():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def test_cuda_sinks_record_a_save_and_a_resume(nccl_comm, tmp_path):
+    """The metrics registry and the flight recorder around a checkpoint
+    of a job on the card: the checkpoint spans in the trace, the
+    counter in the Prometheus text."""
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.utils import (
+        MetricsRegistry,
+        TraceRecorder,
+        parse_prometheus_text,
+        set_recorder,
+        set_registry,
+        to_prometheus,
+        verify_state,
+    )
+
+    reg, rec = MetricsRegistry(enabled=True), TraceRecorder(enabled=True)
+    prev = set_registry(reg), set_recorder(rec)
+    try:
+        rng = np.random.RandomState(0)
+        data = [(rng.randn(5).astype(np.float32), np.float32(i))
+                for i in range(16)]
+
+        def job():
+            return training.StandardUpdater(
+                SerialIterator(data, 4, shuffle=False),
+                training.create_multi_node_optimizer(
+                    training.sgd(0.1, momentum=0.9), nccl_comm,
+                    zero1=True),
+                lambda p, x, y: ((x @ p["w"] - y) ** 2).mean(),
+                {"w": torch.zeros(5, device="cuda")}, nccl_comm)
+
+        up = job()
+        up.update()
+        cp = create_multi_node_checkpointer(nccl_comm, str(tmp_path),
+                                            shard_only=True)
+        cp.save(up)
+        for fn in tmp_path.iterdir():
+            verify_state(str(fn))
+        again = job()
+        assert cp.maybe_load(again) == 1
+        assert torch.equal(again.params["w"], up.params["w"])
+    finally:
+        set_registry(prev[0])
+        set_recorder(prev[1])
+    names = {e["name"] for e in rec.events()}
+    assert {"checkpoint/save", "checkpoint/crc_walk",
+            "checkpoint/save_shard", "checkpoint/resume",
+            "checkpoint/load"} <= names
+    parsed = parse_prometheus_text(to_prometheus(reg))
+    assert parsed["checkpoint_snapshots_written"]["value"] == 1.0
+
+
+def test_cuda_close_frees_the_groups_nccl_communicator(nccl_comm):
+    """``close()`` destroys a communicator's NCCL group: five
+    communicators built, used and closed one after another leave the
+    card's used memory where the first left it."""
+    from chainermn_tpu_torch.communicators import create_communicator
+
+    x = torch.ones(1 << 20, device="cuda")
+    used = []
+    for _ in range(5):
+        c = create_communicator(ranks=[0])
+        c.allreduce(x)
+        c.alltoall(x.view(1, -1))
+        c.close()
+        assert c.closed
+        used.append(_used_bytes())
+    assert used[-1] - used[0] <= 16 * 2**20, used
+
+
 def test_cuda_failed_capture_raises(nccl_comm):
     """A step that reads a value on the host cannot be captured: the
     capture raises, and nothing runs the window eagerly in its place.

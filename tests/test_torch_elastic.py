@@ -176,14 +176,6 @@ def test_rank_rows_stack_and_split():
             np.testing.assert_array_equal(back[k], rows[r][k])
 
 
-def test_live_resize_still_raises():
-    for call in (elastic.ElasticMembership, elastic.ResizeController,
-                 elastic.MembershipRecord, elastic.post_resize_intent):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 11"):
-            call()
-
-
 # --------------------------------------------------------------------- #
 # the shard-only part format
 # --------------------------------------------------------------------- #

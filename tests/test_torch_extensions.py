@@ -279,7 +279,12 @@ def test_watchdog_reports_a_stall(tmp_path):
     assert reports[0]["iteration"] == 7
     assert reports[0]["seconds_since_heartbeat"] > 0.5
     on_disk = json.loads((tmp_path / "s.json").read_text())
-    assert on_disk["not_ported"]["trace_tail"].endswith("item 10")
+    # the flight recorder's tail is embedded (the global recorder is off
+    # by default: an empty tail, flagged so); the alerts stay unported
+    assert on_disk["trace_tail"] == [] and not on_disk["trace_enabled"]
+    assert on_disk["metrics"] == {} and not on_disk["metrics_enabled"]
+    assert list(on_disk["not_ported"]) == ["alerts"]
+    assert on_disk["not_ported"]["alerts"].endswith("item 10")
     assert not on_disk["peer_heartbeats"]
     assert any("MainThread" in k for k in on_disk["threads"])
     assert wd.stall_count == 1            # one report an episode

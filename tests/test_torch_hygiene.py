@@ -90,7 +90,10 @@ TRAINING_PATH = [PORT / "models" / "transformer.py",
     + EP_PATH + FSDP_PATH + SERVE_PATH + MODELS_PATH
 # ChainerMN's data-parallel path: the communicators (no gloo in place of
 # NCCL, no CPU in place of the card), the exchange, the loop, the model
-DP_PATH = sorted((PORT / "communicators").glob("*.py")) + sorted(
+# (less the store's control-plane channel, whose handlers are the fault
+# layer's, listed in FAULT_HANDLERS)
+DP_PATH = sorted(p for p in (PORT / "communicators").glob("*.py")
+                 if p.name != "_obj_channel.py") + sorted(
     (PORT / "training").glob("*.py")) + [
     PORT / "ops" / "fused.py", PORT / "ops" / "collectives.py",
     PORT / "ops" / "point_to_point.py",
@@ -207,6 +210,34 @@ FAULT_HANDLERS = {
                         "rule) instead of hanging shutdown; state_dict "
                         "and reset raise",
     },
+    # the control plane over the world's store, and the two sinks
+    "communicators/_obj_channel.py": {
+        "dist.DistError": "a transient store error (a network error, a "
+                          "reset connection, a broken pipe) retried, "
+                          "bounded; anything else, a timeout included, "
+                          "re-raised",
+        "StaleGenerationError": "re-raised once the refused message is "
+                                "consumed (its keys deleted)",
+        "ValueError": "a status key (a resize intent) or the membership "
+                      "file that is not JSON reads as absent (the JAX "
+                      "package's rule)",
+        "UnicodeDecodeError": "a status key that is not text reads as "
+                              "absent",
+        "OSError": "a membership file that cannot be read reads as "
+                   "absent",
+    },
+    "utils/metrics.py": {
+        "OSError": "a full disk must never end training: the Prometheus "
+                   "textfile's flush is skipped (the JAX package's rule)",
+    },
+    "utils/telemetry.py": {
+        "OSError": "a full disk ends the trace's stream, or skips a "
+                   "MetricsExport line, never training",
+        "ValueError": "a malformed CHAINERMN_TPU_TRACE_CAPACITY at import "
+                      "falls back to the default capacity",
+        "TypeError": "an observation that is not a number is left out of "
+                     "the MetricsExport line",
+    },
     "native/__init__.py": {
         "FileNotFoundError": "no g++: re-raised as RuntimeError naming the "
                              "build",
@@ -218,7 +249,9 @@ FAULT_HANDLERS = {
 }
 FAULT_PATH = sorted((PORT / "extensions").glob("*.py")) + [
     PORT / "utils" / "serialization.py", PORT / "testing.py",
-    PORT / "iterators" / "prefetch.py", PORT / "native" / "__init__.py"]
+    PORT / "iterators" / "prefetch.py", PORT / "native" / "__init__.py",
+    PORT / "communicators" / "_obj_channel.py",
+    PORT / "utils" / "metrics.py", PORT / "utils" / "telemetry.py"]
 
 
 def _handler_names(h):

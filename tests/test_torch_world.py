@@ -13,6 +13,7 @@ spawned processes start quickly; the test files hold the JAX side.
 """
 
 import multiprocessing
+import os
 import pickle
 import time
 import traceback
@@ -2239,6 +2240,575 @@ def battery_elastic_resume(comm, p):
     except RuntimeError as e:
         out["refused"] = str(e)
     return out
+
+
+# --------------------------------------------------------------------- #
+# the metrics registry (test_torch_metrics.py)
+# --------------------------------------------------------------------- #
+
+
+def battery_merge_metrics(comm, rows):
+    """``merge_metrics`` of this rank's registry (row ``rank`` of
+    ``rows``): the merged snapshot and its Prometheus text."""
+    from chainermn_tpu_torch.utils.metrics import (
+        MetricsRegistry,
+        merge_metrics,
+        to_prometheus,
+    )
+
+    reg = MetricsRegistry(enabled=True)
+    reg.load(rows[comm.rank])
+    merged = merge_metrics(comm, reg)
+    return merged.snapshot(), to_prometheus(merged,
+                                            labels={"rank": "merged"})
+
+
+# --------------------------------------------------------------------- #
+# the live resize (test_torch_live_resize.py)
+# --------------------------------------------------------------------- #
+
+LIVE_N, LIVE_DIM, LIVE_CLASSES, LIVE_BATCH = 96, 6, 3, 16
+
+
+def live_dataset():
+    """The JAX live-resize tests' set: 96 examples of 6 features, 3
+    classes."""
+    rng = np.random.RandomState(0)
+    return [(rng.randn(LIVE_DIM).astype(np.float32),
+             np.int32(i % LIVE_CLASSES)) for i in range(LIVE_N)]
+
+
+def live_params():
+    """The MLP ``[6, 12, 3]``'s weights from a seed (He init, numpy)."""
+    rng = np.random.RandomState(1)
+    out = []
+    for fan_in, fan_out in ((LIVE_DIM, 12), (12, LIVE_CLASSES)):
+        out.append({"b": np.zeros(fan_out, np.float32),
+                    "w": (rng.randn(fan_in, fan_out)
+                          * np.sqrt(2.0 / fan_in)).astype(np.float32)})
+    return out
+
+
+def live_world(n):
+    """A communicator over the launch's ranks ``[0, n)`` (every rank
+    calls it; ``None`` outside)."""
+    from chainermn_tpu_torch.communicators import create_communicator
+
+    return create_communicator("tpu_xla", device="cpu", ranks=range(n))
+
+
+def live_opt(comm):
+    from chainermn_tpu_torch import training
+
+    return training.create_multi_node_optimizer(training.adam(5e-2), comm,
+                                                zero1=True)
+
+
+def live_updater(comm, prefetch=0, max_inflight=None, iterator=None,
+                 converter=None):
+    """The JAX tests' job on the global-batch feed: every rank iterates
+    the whole set in the same shuffled order (batch 16, seed 7) and
+    takes its rows."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import (
+        GlobalBatchConverter,
+        SerialIterator,
+    )
+    from chainermn_tpu_torch.models import mlp_apply, softmax_cross_entropy
+
+    it = iterator if iterator is not None else SerialIterator(
+        live_dataset(), LIVE_BATCH, shuffle=True, seed=7)
+    params = [{k: torch.tensor(v) for k, v in layer.items()}
+              for layer in live_params()]
+
+    def loss_fn(p, x, y):
+        return softmax_cross_entropy(mlp_apply(p, x), y)
+
+    kw = {} if max_inflight is None else dict(max_inflight=max_inflight)
+    return training.StandardUpdater(
+        it, live_opt(comm), loss_fn, params, comm,
+        converter=converter or GlobalBatchConverter(comm),
+        prefetch=prefetch, **kw)
+
+
+def _live_state(up):
+    from chainermn_tpu_torch import training
+
+    return dict(params=np_tree(up.params), iteration=int(up.iteration),
+                world=int(up.comm.size),
+                opt=np_tree(training.optimizer_state_tree(up.opt_state)))
+
+
+def _updates(up, k):
+    out = []
+    for _ in range(k):
+        up.update()
+        out.append(float(up.observation["main/loss"]))
+    return out
+
+
+def _live_drill(comm, root):
+    """The acceptance drill on the global-batch feed: arm B, live
+    (``FaultPlan(resize_live_at_iteration=2, resize_live_to=2)``, a
+    second plan back to 4 at iteration 4, stop at 6: ranks 2 and 3
+    parked in between), and arm A, the save/restart chain at the same
+    boundaries (fresh jobs resumed by ``elastic=True`` checkpointers at
+    4, 2 and 4).  Each rank's losses (the job's ``LogReport``, which a
+    joining rank takes from rank 0), final state and the records."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.testing import FaultInjector, FaultPlan
+    from chainermn_tpu_torch.training.elastic import ResizeController
+
+    r = comm.rank
+    # arm B: the live path
+    c4 = live_world(4)
+    up = live_updater(c4)
+    trainer = training.Trainer(up, (6, "iteration"),
+                               out=str(Path(root) / "b"))
+    ctrl = ResizeController(live_world, live_opt)
+    log = training.LogReport(trigger=(1, "iteration"))
+    shrink, grow = (FaultInjector(FaultPlan(resize_live_at_iteration=at,
+                                            resize_live_to=to), c4,
+                                  resize_controller=ctrl)
+                    for at, to in ((2, 2), (4, 4)))
+    for ext in (log, shrink, grow, ctrl):
+        trainer.extend(ext)
+    trainer.run()
+    live = dict(losses={e["iteration"]: e["main/loss"] for e in log.log},
+                state=_live_state(up), resizes=ctrl.resizes,
+                fired=shrink.fired + grow.fired, closed=c4.closed,
+                stop=trainer.stop_reason)
+    up.comm.close()
+
+    # arm A: save/restart at the same boundaries
+    ck = str(Path(root) / "a")
+    a4 = live_world(4)
+    up = live_updater(a4)
+    losses = dict(enumerate(_updates(up, 2), 1))
+    create_multi_node_checkpointer(a4, ck, elastic=True).save(up)
+    a4.close()
+    a2 = live_world(2)              # None on ranks 2 and 3
+    if a2 is not None:
+        up = live_updater(a2)
+        cp = create_multi_node_checkpointer(a2, ck, elastic=True)
+        resumed2 = (cp.maybe_load(up), cp.last_resume_mode)
+        losses.update(dict(enumerate(_updates(up, 2), 3)))
+        cp.save(up)
+        a2.close()
+    else:
+        resumed2 = None
+    a4 = live_world(4)
+    up = live_updater(a4)
+    cp = create_multi_node_checkpointer(a4, ck, elastic=True)
+    resumed4 = (cp.maybe_load(up), cp.last_resume_mode)
+    got = _updates(up, 2)
+    losses.update({5: got[0], 6: got[1]})
+    restart = dict(losses=losses, state=_live_state(up),
+                   resumed=(resumed2, resumed4))
+    a4.close()
+    return dict(live=live, restart=restart)
+
+
+def battery_live_control(comm, p):
+    """The live resize's control plane over the world's store (the JAX
+    ``scenario_elastic_membership`` and ``scenario_resize_live``), with
+    no process group: ``ElasticMembership`` agrees epoch 1 over every
+    rank, a channel fenced to it refuses a message published before the
+    fence and delivers the next one, a relaunched membership on the same
+    path agrees epoch 2; the last rank posts ``post_resize_intent(n)``,
+    every rank reads it and the OR-agreement resolves to it everywhere,
+    the epoch bumps, the intent is cleared on every rank.  Returns what
+    each check saw and ``ok``."""
+    import os
+
+    from chainermn_tpu_torch.communicators import (
+        KVObjectChannel,
+        StaleGenerationError,
+    )
+    from chainermn_tpu_torch.training.elastic import (
+        ElasticMembership,
+        ResizeController,
+        post_resize_intent,
+    )
+
+    me, n = comm.rank, comm.size
+    store = comm.store
+    boot = KVObjectChannel(tag="live-control-boot", store=store)
+
+    def barrier():
+        boot.allgather(None, list(range(n)), me)
+
+    def stale_then_live(membership, tag):
+        chan = KVObjectChannel(tag=tag, store=store)
+        if me == 0:
+            chan.send("before the fence", src=0, dst=1)
+        membership.fence(chan)
+        if me == 0:
+            chan.send({"epoch": membership.record.epoch}, src=0, dst=1)
+        if me != 1:
+            return None
+        try:
+            chan.recv(src=0, dst=1)
+            refused = False
+        except StaleGenerationError:
+            refused = True
+        return refused, chan.recv(src=0, dst=1)
+
+    out = {}
+    path = os.path.join(p["root"], "membership")
+    m = ElasticMembership(comm, path=path)
+    rec = m.agree()
+    out["membership"] = dict(epoch=rec.epoch, members=rec.members,
+                             rank=rec.rank_of(me))
+    out["fence"] = stale_then_live(m, "live-control-data")
+    rec2 = ElasticMembership(comm, path=path).agree()
+    out["relaunch_epochs"] = boot.allgather((rec.epoch, rec2.epoch),
+                                            list(range(n)), me)
+
+    path = os.path.join(p["root"], "resize")
+    membership = ElasticMembership(comm, path=path)
+    ctrl = ResizeController(comm_factory=lambda w: comm,
+                            optimizer_factory=lambda c: None,
+                            membership=membership)
+    out["intent_before"] = ctrl._kv_intent(comm)
+    barrier()
+    if me == n - 1:
+        post_resize_intent(n, reason="control drill")
+    barrier()
+    out["intent_seen"] = ctrl._kv_intent(comm)
+    mine = ctrl._kv_intent(comm) if me == n - 1 else None
+    seen = [r for r in boot.allgather(mine, list(range(n)), me)
+            if r is not None]
+    out["agreed"] = max(seen) if seen else None
+    rec = membership.agree()
+    out["resize_epoch"] = rec.epoch
+    out["resize_fence"] = stale_then_live(membership, "live-control-resize")
+    ctrl._clear_kv_intent(comm)
+    barrier()
+    out["intent_after"] = ctrl._kv_intent(comm)
+    barrier()
+    out["ok"] = (
+        out["membership"] == dict(epoch=1, members=list(range(n)), rank=me)
+        and out["relaunch_epochs"] == [(1, 2)] * n
+        and out["intent_before"] is None and out["intent_seen"] == n
+        and out["agreed"] == n and out["resize_epoch"] == 1
+        and out["intent_after"] is None
+        and all(f is None or f == (True, {"epoch": 1})
+                for f in (out["fence"], out["resize_fence"]))
+        and (me != 1 or out["fence"] == (True, {"epoch": 1})))
+    # the verdict of every rank, on every rank
+    out["ok"] = all(boot.allgather(out["ok"], list(range(n)), me))
+    return out
+
+
+def _live_job(root, stop=100, **kw):
+    """``(trainer, updater, controller)`` of a job on the world of 4."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.training.elastic import ResizeController
+
+    up = live_updater(live_world(4), **kw)
+    trainer = training.Trainer(up, (stop, "iteration"), out=str(root))
+    return trainer, up, ResizeController(live_world, live_opt)
+
+
+def _release(ctrl, trainer, up):
+    """End a case: rank 0 posts the job's end (parked ranks stop) and
+    the members close their world."""
+    ctrl.finalize(trainer)
+    if not ctrl.parked:
+        up.comm.close()
+
+
+def _case_direct(root):
+    """The JAX acceptance case by direct ``resize`` calls: 2 updates at
+    4, 3 at 2, 3 at 4 (ranks 2 and 3 return from the shrink's call once
+    the grow brought them back), against the save/restart chain."""
+    from chainermn_tpu_torch.extensions import (
+        create_multi_node_checkpointer,
+    )
+
+    trainer, up, ctrl = _live_job(Path(root) / "b")
+    losses = dict(enumerate(_updates(up, 2), 1))
+    ctrl.resize(trainer, 2)
+    if up.comm.rank < 2 and up.comm.size == 2:
+        losses.update(enumerate(_updates(up, 3), 3))
+        ctrl.resize(trainer, 4)
+    after_grow = (int(up.comm.size), int(up.iteration))
+    losses.update(enumerate(_updates(up, 3), 6))
+    live = dict(losses=losses, state=_live_state(up), grow=after_grow,
+                worlds=[r["world"] for r in ctrl.resizes],
+                pauses=[r["pause_s"] for r in ctrl.resizes])
+    _release(ctrl, trainer, up)
+    ck = str(Path(root) / "a")
+    a4 = live_world(4)
+    up = live_updater(a4)
+    losses = dict(enumerate(_updates(up, 2), 1))
+    create_multi_node_checkpointer(a4, ck, elastic=True).save(up)
+    a4.close()
+    a2 = live_world(2)
+    if a2 is not None:
+        up = live_updater(a2)
+        cp = create_multi_node_checkpointer(a2, ck, elastic=True)
+        cp.maybe_load(up)
+        losses.update(enumerate(_updates(up, 3), 3))
+        cp.save(up)
+        a2.close()
+    a4 = live_world(4)
+    up = live_updater(a4)
+    create_multi_node_checkpointer(a4, ck, elastic=True).maybe_load(up)
+    losses.update(enumerate(_updates(up, 3), 6))
+    restart = dict(losses=losses, state=_live_state(up))
+    a4.close()
+    return dict(live=live, restart=restart)
+
+
+def _case_same_world(root):
+    """4 -> 4: an epoch only; 5 updates against the uninterrupted 5."""
+    a4 = live_world(4)
+    ref = _updates(live_updater(a4), 5)
+    a4.close()
+    trainer, up, ctrl = _live_job(root)
+    got = _updates(up, 2)
+    old = up.comm
+    ctrl.resize(trainer, 4)
+    got += _updates(up, 3)
+    out = dict(ref=ref, got=got, epoch=ctrl.epoch, closed=old.closed,
+               renewed=up.comm is not old)
+    _release(ctrl, trainer, up)
+    return out
+
+
+def _case_request(root):
+    """``request(2)`` before ``run``: the resize at the first boundary,
+    the run finishing at world 2; the parked ranks' trainers stopped at
+    the job's end."""
+    trainer, up, ctrl = _live_job(root, stop=6)
+    trainer.extend(ctrl)
+    ctrl.request(2)
+    trainer.run()
+    out = dict(iteration=int(up.iteration), parked=ctrl.parked,
+               resizes=[{k: r[k] for k in ("iteration", "world", "epoch")}
+                        for r in ctrl.resizes],
+               requested=ctrl._requested, stop=trainer.stop_reason,
+               world=None if ctrl.parked else int(up.comm.size))
+    if not ctrl.parked:
+        up.comm.close()
+    return out
+
+
+def _case_fault_plan(root):
+    """``FaultPlan(resize_live_at_iteration=3, resize_live_to=2)``: the
+    injector arms the controller and the controller resizes at the end
+    of the same tick."""
+    from chainermn_tpu_torch.testing import FaultInjector, FaultPlan
+
+    trainer, up, ctrl = _live_job(root, stop=7)
+    inj = FaultInjector(FaultPlan(resize_live_at_iteration=3,
+                                  resize_live_to=2), up.comm,
+                        resize_controller=ctrl)
+    trainer.extend(inj)
+    trainer.extend(ctrl)
+    trainer.run()
+    out = dict(fired=inj.fired, resizes=ctrl.resizes, parked=ctrl.parked,
+               iteration=int(up.iteration),
+               world=None if ctrl.parked else int(up.comm.size))
+    if not ctrl.parked:
+        up.comm.close()
+    return out
+
+
+def _case_windows_and_hook(root):
+    """Captured windows dropped, the old world closed, a new optimizer,
+    and ``on_resize`` last, under the new world and epoch."""
+    from chainermn_tpu_torch.training.elastic import ResizeController
+
+    calls = []
+    trainer, up, _ = _live_job(root)
+
+    def hook(c, new_comm, epoch):
+        calls.append(("on_resize", int(new_comm.size), epoch,
+                      up.comm is new_comm))
+
+    ctrl = ResizeController(live_world, live_opt, on_resize=hook)
+    up.update()
+    up._windows[("sentinel", 0)] = object()
+    old_comm, old_opt = up.comm, up.optimizer
+    ctrl.resize(trainer, 2)
+    out = dict(calls=calls, parked=ctrl.parked, old_closed=old_comm.closed)
+    if not ctrl.parked:
+        out.update(windows=dict(up._windows), renewed=up.comm is not old_comm,
+                   new_opt=up.optimizer is not old_opt)
+        up.update()
+        out["after"] = int(up.iteration)
+    _release(ctrl, trainer, up)
+    return out
+
+
+def _case_checkpointers(root):
+    """A registered checkpointer (async, shard-only, elastic, history 2)
+    and a preemption checkpointer follow the resize: post-resize sets
+    are the new world's, a later resume at 2 is exact."""
+    from chainermn_tpu_torch.extensions import (
+        PreemptionCheckpointer,
+        create_multi_node_checkpointer,
+    )
+    from chainermn_tpu_torch.utils.serialization import read_topology
+
+    from chainermn_tpu_torch.extensions import TrainingWatchdog
+
+    ck = str(Path(root) / "ck")
+    trainer, up, ctrl = _live_job(root, stop=6)
+    cp = create_multi_node_checkpointer(up.comm, ck, async_write=True,
+                                        elastic=True, shard_only=True,
+                                        history=2)
+    pc = PreemptionCheckpointer(cp, up.comm)
+    wd = TrainingWatchdog(stall_timeout=60, comm=up.comm,
+                          report_path=str(Path(root) / "stall.json"))
+    seen = {}
+
+    class WatchdogAfterResize:
+        trigger, priority = (1, "iteration"), 3
+
+        def __call__(self, trainer):
+            if trainer.updater.iteration == 2:
+                seen.update(running=wd._thread is not None,
+                            same=wd.comm is trainer.updater.comm)
+
+    trainer.extend(cp, trigger=(2, "iteration"))
+    trainer.extend(pc)
+    trainer.extend(wd)
+    trainer.extend(WatchdogAfterResize())
+    trainer.extend(ctrl)
+    ctrl.request(2)
+    trainer.run()
+    cp.finalize()
+    out = dict(parked=ctrl.parked, cp_comm=cp.comm is None,
+               pc_comm=pc.comm is None, watchdog=seen,
+               watchdog_stopped=wd._thread is None,
+               stalls=wd.stall_count)
+    a2 = live_world(2)
+    if not ctrl.parked:
+        parts = sorted(f for f in os.listdir(ck) if "iter_6" in f)
+        out.update(same=pc.comm is cp.comm is up.comm,
+                   world=int(cp.comm.size), parts=parts,
+                   stamped=read_topology(os.path.join(ck, parts[0]))[
+                       "world_size"])
+        again = live_updater(a2)
+        cp2 = create_multi_node_checkpointer(a2, ck, elastic=True,
+                                             shard_only=True, history=2)
+        out.update(at=cp2.maybe_load(again), mode=cp2.last_resume_mode,
+                   params=_same_tree(again.params, up.params))
+        up.comm.close()
+        a2.close()
+    return out
+
+
+def _same_tree(a, b):
+    import torch.utils._pytree as pytree
+
+    return all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(a),
+                                                  pytree.tree_leaves(b)))
+
+
+def _case_prefetch(root):
+    """A prefetching feed through the resize: closed, re-wrapped over
+    the new world, its position kept; a pre-built prefetcher keeps its
+    own converter."""
+    from chainermn_tpu_torch.iterators import (
+        GlobalBatchConverter,
+        PrefetchIterator,
+        SerialIterator,
+    )
+
+    out = {}
+    for name, kw in (("serial", {}),
+                     ("prefetch", dict(prefetch=True, max_inflight=1))):
+        trainer, up, ctrl = _live_job(Path(root) / name, **kw)
+        got = _updates(up, 2)
+        ctrl.resize(trainer, 2)
+        if not ctrl.parked:
+            got += _updates(up, 3)
+            out[name] = dict(losses=got, params=np_tree(up.params),
+                             prefetch=isinstance(up.iterator,
+                                                 PrefetchIterator))
+        up.finalize()
+        _release(ctrl, trainer, up)
+
+    class Counting(GlobalBatchConverter):
+        calls = 0
+
+        def __call__(self, batch):
+            Counting.calls += 1
+            return super().__call__(batch)
+
+    c4 = live_world(4)
+    conv = Counting(c4)
+    feed = PrefetchIterator(SerialIterator(live_dataset(), LIVE_BATCH,
+                                           shuffle=True, seed=7), c4,
+                            converter=conv)
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.training.elastic import ResizeController
+
+    up = live_updater(c4, iterator=feed, converter=conv, max_inflight=1)
+    trainer = training.Trainer(up, (100, "iteration"),
+                               out=str(Path(root) / "built"))
+    ctrl = ResizeController(live_world, live_opt)
+    _updates(up, 2)
+    before = Counting.calls
+    ctrl.resize(trainer, 2)
+    if not ctrl.parked:
+        _updates(up, 2)
+        out["prebuilt"] = dict(same=up.iterator._converter is conv,
+                               rebound=conv.comm is up.comm,
+                               grew=Counting.calls > before > 0)
+    up.finalize()
+    _release(ctrl, trainer, up)
+    return out
+
+
+def _case_shard_feed_refused(root):
+    """A per-rank shard feed cannot follow a change of world size: every
+    rank refuses before anything moves, the world left as it was."""
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.iterators import default_converter
+    from chainermn_tpu_torch.training.elastic import ResizeController
+
+    c4 = live_world(4)
+    up = live_updater(c4, converter=default_converter)
+    trainer = training.Trainer(up, (100, "iteration"), out=str(root))
+    ctrl = ResizeController(live_world, live_opt)
+    up.update()
+    try:
+        ctrl.resize(trainer, 2)
+        msg = None
+    except ValueError as e:
+        msg = str(e)
+    up.update()                 # the world of 4 still runs
+    out = dict(msg=msg, world=int(up.comm.size), closed=c4.closed)
+    c4.close()
+    return out
+
+
+def battery_live_resize(comm, p):
+    """The live-resize cases of ``test_torch_live_resize.py`` on a
+    4-rank gloo world: worlds of 4 and 2 over the launch's ranks, ranks
+    2 and 3 parked in between.  Every case builds its worlds with
+    ``create_communicator(ranks=)`` and closes them, and ends with no
+    rank parked."""
+    root = Path(p["root"])
+    cases = dict(drill=lambda: _live_drill(comm, root / "drill"),
+                 direct=lambda: _case_direct(root / "direct"),
+                 same_world=lambda: _case_same_world(root / "same"),
+                 request=lambda: _case_request(root / "request"),
+                 fault_plan=lambda: _case_fault_plan(root / "plan"),
+                 windows=lambda: _case_windows_and_hook(root / "windows"),
+                 checkpointers=lambda: _case_checkpointers(root / "ck"),
+                 prefetch=lambda: _case_prefetch(root / "prefetch"),
+                 shard_feed=lambda: _case_shard_feed_refused(root / "sf"))
+    return {name: one_thread(fn) for name, fn in cases.items()}
 
 
 # --------------------------------------------------------------------- #
